@@ -1,0 +1,33 @@
+"""Hardware-faithful Poisson spike encoding (paper §III-C, Fig. 2).
+
+At every timestep each pixel's xorshift32 lane draws an 8-bit value R and
+emits a spike iff ``I > R`` — bit-identical to
+``repro.core.encoding.poisson_encode_hw``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import prng
+
+__all__ = ["poisson_encode_hw"]
+
+
+def poisson_encode_hw(pixels_u8: torch.Tensor, state: torch.Tensor,
+                      num_steps: int):
+    """Encode ``num_steps`` steps.
+
+    Args:
+      pixels_u8: uint8 intensities, any shape ``(...,)``.
+      state: uint32 xorshift state, same shape as ``pixels_u8``.
+
+    Returns ``(spikes, final_state)``: ``spikes`` is bool ``(T, ...)``.
+    """
+    if pixels_u8.dtype != torch.uint8:
+        raise TypeError(f"pixels must be uint8, got {pixels_u8.dtype}")
+    spikes = []
+    for _ in range(num_steps):
+        state = prng.xorshift32_step(state)
+        spikes.append(pixels_u8 > prng.uniform_u8(state))
+    return torch.stack(spikes), state

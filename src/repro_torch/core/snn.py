@@ -1,0 +1,405 @@
+"""The paper's integer SNN on torch tensors (port of ``repro.core.snn``).
+
+Network topology (paper §IV-A): Poisson encoder → fully-connected LIF
+layer stack → spike-register readout over a T-step window; the paper's
+configuration is the single 784→10 layer.  This module holds the integer
+inference engine: :func:`snn_apply_int` (whole window) and the resumable
+:func:`snn_window_chunk`, on two backends that give the same integers:
+
+  fused      — the encode→LIF stack kernel (``kernels.ops``): one launch
+               per chunk on CUDA; its plain version on CPU tensors
+  reference  — per-step torch ops (:func:`snn_int_stack_step`)
+  auto       — fused on a CUDA device (raising when the stack does not
+               fit the kernel's shared-memory carve-up), reference on CPU
+
+Parameters: ``{"layers": [{"w_q": int16 (n_in, n_out), "scale": float}]}``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import torch
+
+from ..kernels import fused_snn, ops
+from ..kernels.ops import V_PEAK_INIT
+from . import encoding, lif, prng
+from .telemetry import ChunkTelemetry, layer_tile_skips, resolve_sparse_skip
+
+__all__ = ["SNNConfig", "readout_pred", "encode_lif_timestep",
+           "snn_int_stack_step", "snn_apply_int", "resolve_backend",
+           "fused_unsupported_reason", "SNNWindowState", "snn_window_init",
+           "snn_window_chunk"]
+
+
+@dataclass(frozen=True)
+class SNNConfig:
+    layer_sizes: tuple[int, ...] = (784, 10)   # paper: single FC 784→10
+    num_steps: int = 20                        # simulation window
+    lif: lif.LIFConfig = field(default_factory=lif.LIFConfig)
+    readout: str = "count"                     # count|first_spike|membrane
+    active_pruning: bool = False
+    dot_impl: str = "int32"                    # reference Σ W·S precision
+    backend: str = "auto"                      # auto|fused|reference
+    sparse_skip: bool | None = None            # tile-skip telemetry
+    spike_density_threshold: float | None = None  # controller baseline
+
+    @property
+    def n_in(self) -> int:
+        return self.layer_sizes[0]
+
+    @property
+    def n_classes(self) -> int:
+        return self.layer_sizes[-1]
+
+
+def _param_sizes(params_q: dict) -> tuple[int, ...]:
+    return tuple([int(params_q["layers"][0]["w_q"].shape[0])]
+                 + [int(l["w_q"].shape[1]) for l in params_q["layers"]])
+
+
+def fused_unsupported_reason(cfg: SNNConfig, n_layers: int,
+                             layer_sizes: tuple[int, ...] | None = None,
+                             local_batch: int | None = None) -> str | None:
+    """Why the CUDA stack kernel cannot run this stack (None = it can).
+
+    The Hopper feasibility model: the kernel keeps each lane's pixels, PRNG
+    state, per-layer membranes/enables/peaks, readout registers and two
+    spike lists in dynamic shared memory (``kernels.fused_snn.
+    stack_smem_bytes``), which one thread block may claim up to
+    ``SMEM_LIMIT_BYTES`` (232,448 B on sm_90).  Weights stay in global
+    memory and do not count.  Layer count and widths are also bounded by
+    the kernel's parameter block and its uint16 spike indices.
+    """
+    if n_layers < 1:
+        return "the network has no layers"
+    if n_layers > fused_snn.MAX_LAYERS:
+        return (f"{n_layers} layers exceed the kernel's "
+                f"{fused_snn.MAX_LAYERS}-layer parameter block")
+    sizes = layer_sizes
+    if sizes is None and len(cfg.layer_sizes) - 1 == n_layers:
+        sizes = cfg.layer_sizes
+    if sizes is None:
+        return None
+    lane = fused_snn.LANE
+    padded = [int(n) + (-int(n)) % lane for n in sizes]
+    if max(padded) > 65535:
+        return f"layer widths {tuple(sizes)} exceed the uint16 spike indices"
+    need = fused_snn.stack_smem_bytes(padded,
+                                      fused_snn.block_b_for(local_batch))
+    if need > fused_snn.SMEM_LIMIT_BYTES:
+        return (f"shared-memory carve-up {need} B for layer_sizes="
+                f"{tuple(sizes)} exceeds the {fused_snn.SMEM_LIMIT_BYTES} B "
+                f"a thread block may use")
+    return None
+
+
+def resolve_backend(cfg: SNNConfig, backend: str | None = None,
+                    n_layers: int = 1, *,
+                    layer_sizes: tuple[int, ...] | None = None,
+                    local_batch: int | None = None,
+                    device: str | torch.device = "cuda") -> str:
+    """Pick the integer-engine backend that runs on ``device``.
+
+    ``auto`` → ``fused`` on a CUDA device, ``reference`` on the CPU.  On a
+    CUDA device the stack must fit the kernel: ``auto`` or ``fused`` raises
+    with the reason when it does not, so plain PyTorch runs on the card
+    only when the caller names ``reference``.  ``fused_streamed`` and
+    ``staged`` are realisations of the reference package that this port
+    does not have yet.
+    """
+    b = backend if backend is not None else cfg.backend
+    on_cuda = torch.device(device).type == "cuda"
+    if b == "auto":
+        b = "fused" if on_cuda else "reference"
+    reason = (fused_unsupported_reason(cfg, n_layers, layer_sizes, local_batch)
+              if b == "fused" else None)
+    if reason is not None:
+        raise ValueError(
+            f"the stack kernel does not support this configuration: "
+            f"{reason} — pass backend='reference' to run it in plain "
+            f"PyTorch")
+    if b in ("fused_streamed", "staged"):
+        raise ValueError(f"backend {b!r} is not ported yet; use 'fused' or "
+                         f"'reference'")
+    if b not in ("fused", "reference"):
+        raise ValueError(f"unknown SNN backend {b!r}")
+    return b
+
+
+def readout_pred(counts: torch.Tensor, first_t: torch.Tensor,
+                 v_final: torch.Tensor, readout: str, num_steps: int,
+                 v_trace: torch.Tensor | None = None,
+                 v_peak: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-lane prediction under the configured readout (int64 indices).
+
+    ``count``: spike-register argmax.  ``first_spike``: earliest-spiking
+    class in an additive ``1 << 24`` tier, clipped membrane as the no-spike
+    tiebreak.  ``membrane``: argmax of the carried peak ``v_peak``, or of
+    ``max(v_trace)`` over time.  Ties go to the first index.
+    """
+    if readout == "count":
+        return torch.argmax(counts, dim=-1)
+    if readout == "membrane":
+        if v_peak is not None:
+            return torch.argmax(v_peak, dim=-1)
+        return torch.argmax(v_trace.amax(dim=0), dim=-1)
+    large = 1 << 24
+    score = torch.where(counts > 0, large + (num_steps - first_t),
+                        torch.clamp(v_final, -large + 1, large - 1))
+    return torch.argmax(score, dim=-1)
+
+
+def snn_apply_int(params_q: dict, pixels_u8: torch.Tensor,
+                  prng_state: torch.Tensor, cfg: SNNConfig, *,
+                  backend: str | None = None):
+    """Bit-exact fixed-point inference over the whole window.
+
+    Runs on the device of ``pixels_u8``.  Returns a dict with ``pred``,
+    ``spike_counts``, ``v_trace``, ``v_final``, ``active_adds``,
+    ``input_spikes`` (None on the fused backend), ``first_spike_t``,
+    ``prng_state``, ``v_peak`` (per-layer tuple) and ``telemetry``.
+    """
+    b = resolve_backend(cfg, backend, len(params_q["layers"]),
+                        layer_sizes=_param_sizes(params_q),
+                        local_batch=pixels_u8.shape[0],
+                        device=pixels_u8.device)
+    if b == "fused":
+        res = _apply_int_fused(params_q, pixels_u8, prng_state, cfg)
+    else:
+        res = _apply_int_reference(params_q, pixels_u8, prng_state, cfg)
+    vp = res["v_peak"]
+    res["pred"] = readout_pred(res["spike_counts"], res["first_spike_t"],
+                               res["v_final"], cfg.readout, cfg.num_steps,
+                               v_trace=res["v_trace"], v_peak=vp[-1])
+    return res
+
+
+def _lif_kw(cfg: SNNConfig) -> dict:
+    c = cfg.lif
+    return dict(decay_shift=c.decay_shift, v_threshold=c.v_threshold,
+                v_rest=c.v_rest, v_min=c.v_min, v_max=c.v_max,
+                active_pruning=cfg.active_pruning)
+
+
+def _apply_int_fused(params_q, pixels_u8, prng_state, cfg: SNNConfig):
+    weights = tuple(layer["w_q"] for layer in params_q["layers"])
+    ops.validate_weight_codes(weights)
+    k = ops.fused_snn_stack_op(pixels_u8, prng_state, weights,
+                               num_steps=cfg.num_steps,
+                               sparse_skip=cfg.sparse_skip, **_lif_kw(cfg))
+    return {"spike_counts": k["spike_counts"], "v_trace": k["v_trace"],
+            "v_final": k["v_final"], "active_adds": k["active_adds"],
+            "input_spikes": None, "first_spike_t": k["first_spike_t"],
+            "prng_state": k["prng_state"], "v_peak": k["v_peak"],
+            "telemetry": k["telemetry"]}
+
+
+def _derive_stack_telemetry(layer_ins, layer_outs, layer_vtr,
+                            cfg: SNNConfig):
+    """Telemetry + peaks re-derived from whole-window spike trains.
+
+    Per layer a neuron is enabled at step t iff it has not fired before t
+    (or pruning is off); the tile counter replays the launch-geometry skip
+    predicates on the same spike/enable state.  Returns
+    ``(ChunkTelemetry, v_peak tuple)``.
+    """
+    ss = resolve_sparse_skip(cfg.sparse_skip)
+    n_spk_l, n_en_l, tiles_l, peaks = [], [], [], []
+    for x, out, vtr in zip(layer_ins, layer_outs, layer_vtr):
+        if cfg.active_pruning:
+            out_i = out.to(torch.int32)
+            en = (torch.cumsum(out_i, dim=0) - out_i) == 0
+        else:
+            en = torch.ones_like(out, dtype=torch.bool)
+        n_spk_l.append(x.sum(-1, dtype=torch.int32))
+        n_en_l.append(en.sum(-1, dtype=torch.int32))
+        tiles_l.append(layer_tile_skips(x, en, sparse_skip=ss))
+        peaks.append(vtr.amax(dim=0))
+    tel = ChunkTelemetry(n_spk=torch.stack(n_spk_l, dim=1),
+                         n_en=torch.stack(n_en_l, dim=1),
+                         tiles_skipped=torch.stack(tiles_l, dim=1))
+    return tel, tuple(peaks)
+
+
+def _apply_int_reference(params_q, pixels_u8, prng_state, cfg: SNNConfig):
+    """Per-layer torch scans over the materialised spike trains."""
+    spikes, prng_next = encoding.poisson_encode_hw(pixels_u8, prng_state,
+                                                   cfg.num_steps)
+    x = spikes
+    adds = 0
+    res = None
+    layer_ins, layer_outs, layer_vtr = [], [], []
+    for layer in params_q["layers"]:
+        layer_ins.append(x)
+        res = lif.run_lif_int(x, layer["w_q"], cfg.lif,
+                              active_pruning=cfg.active_pruning,
+                              dot_impl=cfg.dot_impl)
+        adds = adds + res["active_adds"]
+        x = res["spikes"]
+        layer_outs.append(x)
+        layer_vtr.append(res["v_trace"])
+    telemetry, v_peak = _derive_stack_telemetry(layer_ins, layer_outs,
+                                                layer_vtr, cfg)
+    out_spikes = res["spikes"]
+    T = cfg.num_steps
+    t_idx = torch.arange(T, dtype=torch.int32,
+                         device=out_spikes.device)[:, None, None]
+    first_t = torch.where(out_spikes, t_idx, T).amin(dim=0)
+    return {"spike_counts": out_spikes.sum(0, dtype=torch.int32),
+            "v_trace": res["v_trace"], "v_final": res["state"].v,
+            "active_adds": adds, "input_spikes": spikes,
+            "first_spike_t": first_t, "prng_state": prng_next,
+            "v_peak": v_peak, "telemetry": telemetry}
+
+
+def encode_lif_timestep(rng: torch.Tensor, pixels_u8: torch.Tensor,
+                        state: lif.LIFStateInt, w_q: torch.Tensor,
+                        lif_cfg: lif.LIFConfig, *, dot_impl: str = "int32",
+                        active_pruning: bool = False):
+    """One encoder+LIF timestep: PRNG step → spike compare → Σ W·S →
+    integrate/leak/fire/reset → pruning gate.
+
+    Returns ``(rng, new_state, fired, input_spikes)``.
+    """
+    rng = prng.xorshift32_step(rng)
+    s_t = pixels_u8 > prng.uniform_u8(rng)
+    current = lif.synaptic_current_int(s_t, w_q, dot_impl)
+    current = torch.where(state.enable, current, 0)
+    new_state, fired = lif.lif_step_int(state, current, lif_cfg)
+    if active_pruning:
+        new_state = new_state._replace(enable=new_state.enable & ~fired)
+    return rng, new_state, fired, s_t
+
+
+def snn_int_stack_step(rng: torch.Tensor, pixels_u8: torch.Tensor,
+                       states: tuple, weights: tuple,
+                       lif_cfg: lif.LIFConfig, *, dot_impl: str = "int32",
+                       active_pruning: bool = False,
+                       sparse_skip: bool | None = None):
+    """One timestep through the whole layer stack.
+
+    Returns ``(rng, new_states, fired_out, adds, tel)``: ``adds`` the
+    executed-add count summed over layers, ``tel`` this step's telemetry
+    row — ``n_spk``/``n_en`` (L, B) int32 and ``tiles`` (L, n_blocks).
+    """
+    ss = resolve_sparse_skip(sparse_skip)
+    rng, st0, fired, s_t = encode_lif_timestep(
+        rng, pixels_u8, states[0], weights[0], lif_cfg, dot_impl=dot_impl,
+        active_pruning=active_pruning)
+    n_spk = [s_t.sum(-1, dtype=torch.int32)]
+    n_en = [states[0].enable.sum(-1, dtype=torch.int32)]
+    tiles = [layer_tile_skips(s_t, states[0].enable, sparse_skip=ss)]
+    adds = n_spk[0] * n_en[0]
+    new_states = [st0]
+    x = fired
+    for st, layer_w in zip(states[1:], weights[1:]):
+        n_spk.append(x.sum(-1, dtype=torch.int32))
+        n_en.append(st.enable.sum(-1, dtype=torch.int32))
+        tiles.append(layer_tile_skips(x, st.enable, sparse_skip=ss))
+        current = lif.synaptic_current_int(x, layer_w, dot_impl)
+        current = torch.where(st.enable, current, 0)
+        new_st, fired = lif.lif_step_int(st, current, lif_cfg)
+        adds = adds + n_spk[-1] * n_en[-1]
+        if active_pruning:
+            new_st = new_st._replace(enable=new_st.enable & ~fired)
+        new_states.append(new_st)
+        x = fired
+    tel = {"n_spk": torch.stack(n_spk), "n_en": torch.stack(n_en),
+           "tiles": torch.stack(tiles)}
+    return rng, tuple(new_states), x, adds, tel
+
+
+class SNNWindowState(NamedTuple):
+    """Resumable mid-window state of the integer engine."""
+
+    rng: torch.Tensor       # (B, n_in) uint32 xorshift lanes
+    v: tuple                # per-layer (B, n_l) int32 membranes
+    en: tuple               # per-layer (B, n_l) bool clock gates
+    v_peak: tuple           # per-layer (B, n_l) int32 running peaks
+    counts: torch.Tensor    # (B, n_out) int32 spike registers
+    first: torch.Tensor     # (B, n_out) int32, sentinel = cfg.num_steps
+    steps: torch.Tensor     # (B,) int32 window steps executed
+
+
+def snn_window_init(params_q: dict, prng_state: torch.Tensor,
+                    cfg: SNNConfig) -> SNNWindowState:
+    """Fresh start-of-window state for a batch of ``prng_state.shape[0]``."""
+    batch = prng_state.shape[0]
+    dev = prng_state.device
+    sizes = _param_sizes(params_q)
+
+    def full(shape, value, dtype=torch.int32):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    return SNNWindowState(
+        rng=prng_state,
+        v=tuple(full((batch, n), cfg.lif.v_rest) for n in sizes[1:]),
+        en=tuple(full((batch, n), True, torch.bool) for n in sizes[1:]),
+        v_peak=tuple(full((batch, n), V_PEAK_INIT) for n in sizes[1:]),
+        counts=full((batch, sizes[-1]), 0),
+        first=full((batch, sizes[-1]), cfg.num_steps),
+        steps=full((batch,), 0),
+    )
+
+
+def snn_window_chunk(params_q: dict, pixels_u8: torch.Tensor,
+                     state: SNNWindowState, cfg: SNNConfig, *,
+                     chunk_steps: int, backend: str | None = None):
+    """Advance the window by ``chunk_steps`` steps with carried state.
+
+    Returns ``(new_state, chunk)`` where ``chunk`` holds this segment's
+    ``v_trace`` (chunk, B, n_out), ``active_adds`` (chunk, B) and
+    ``telemetry``; concatenated over any split of the window they equal the
+    one-shot record, on both backends.
+    """
+    weights = tuple(layer["w_q"] for layer in params_q["layers"])
+    b = resolve_backend(cfg, backend, len(weights),
+                        layer_sizes=_param_sizes(params_q),
+                        local_batch=pixels_u8.shape[0],
+                        device=pixels_u8.device)
+    if b == "fused":
+        ops.validate_weight_codes(weights)
+        k = ops.fused_snn_stack_op(
+            pixels_u8, state.rng, weights, num_steps=cfg.num_steps,
+            chunk_steps=chunk_steps, sparse_skip=cfg.sparse_skip,
+            init={"v": state.v, "en": state.en, "v_peak": state.v_peak,
+                  "counts": state.counts, "first": state.first,
+                  "steps": state.steps},
+            **_lif_kw(cfg))
+        new_state = SNNWindowState(
+            rng=k["prng_state"], v=k["v"], en=k["en"], v_peak=k["v_peak"],
+            counts=k["spike_counts"], first=k["first_spike_t"],
+            steps=k["steps"])
+        return new_state, {"v_trace": k["v_trace"],
+                           "active_adds": k["active_adds"],
+                           "telemetry": k["telemetry"]}
+
+    st = state
+    vtr, adds, tspk, ten, ttile = [], [], [], [], []
+    for _ in range(chunk_steps):
+        layer_states = tuple(lif.LIFStateInt(v=v, enable=e)
+                             for v, e in zip(st.v, st.en))
+        rng, new_states, fired, adds_t, tel = snn_int_stack_step(
+            st.rng, pixels_u8, layer_states, weights, cfg.lif,
+            dot_impl=cfg.dot_impl, active_pruning=cfg.active_pruning,
+            sparse_skip=cfg.sparse_skip)
+        first = torch.where(fired & (st.first == cfg.num_steps),
+                            st.steps[:, None], st.first)
+        st = SNNWindowState(
+            rng=rng, v=tuple(s.v for s in new_states),
+            en=tuple(s.enable for s in new_states),
+            v_peak=tuple(torch.maximum(p, s.v)
+                         for p, s in zip(st.v_peak, new_states)),
+            counts=st.counts + fired.to(torch.int32), first=first,
+            steps=st.steps + 1)
+        vtr.append(new_states[-1].v)
+        adds.append(adds_t)
+        tspk.append(tel["n_spk"])
+        ten.append(tel["n_en"])
+        ttile.append(tel["tiles"])
+    return st, {"v_trace": torch.stack(vtr), "active_adds": torch.stack(adds),
+                "telemetry": ChunkTelemetry(n_spk=torch.stack(tspk),
+                                            n_en=torch.stack(ten),
+                                            tiles_skipped=torch.stack(ttile))}

@@ -1,0 +1,360 @@
+"""Fused Poisson-encode → LIF *stack* in one launch: the CUDA kernel's launcher
+and its plain PyTorch version.
+
+Port of ``repro.kernels.fused_snn.fused_snn_stack_pallas`` in resident,
+unstreamed mode.  One launch advances every lane ``chunk_steps`` window
+steps through the whole layer stack: xorshift32 PRNG → ``px > top byte``
+spikes → per layer Σ W·S over the spiking inputs, enable mask, saturating
+add, shift leak, fire, reset, active pruning, peak-membrane max-fold →
+final-layer counts and first-spike latch → executed-add and telemetry
+counters → (gated) stability-gate readout and lane freeze.  Every piece of
+state goes in and comes out, so k chunks equal one launch.
+
+:func:`fused_snn_stack` is the wrapper: for CUDA tensors it launches the
+kernel of ``csrc/fused_snn_stack.cu`` (and counts the launch in
+``fused_snn_stack.launches``), for CPU tensors it runs
+:func:`fused_snn_stack_plain`.  There is no fallback from one to the
+other.
+
+All arrays arrive padded, as ``kernels.ops.fused_snn_stack_op`` pads them:
+batch to the ``block_b`` block, every neuron axis to ``LANE``.  Weights are
+the int16 codes, (n_l_pad, n_{l+1}_pad).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.prng import from_carrier, to_carrier
+
+__all__ = ["LANE", "BLOCK_B", "MAX_LAYERS", "SMEM_LIMIT_BYTES",
+           "READOUTS", "block_b_for", "stack_smem_bytes", "fused_snn_stack",
+           "fused_snn_stack_plain"]
+
+LANE = 128              # every neuron axis pads to this (telemetry tile width)
+BLOCK_B = 8             # lanes per batch block: one warp per lane, and the
+                        # only block the kernel is built for (256 threads)
+MAX_LAYERS = 8          # layer pointers the kernel's parameter block holds
+# Dynamic shared memory one thread block may ask for on Hopper (sm_90).
+SMEM_LIMIT_BYTES = 232_448
+READOUTS = ("count", "first_spike", "membrane")
+_MASK32 = 0xFFFFFFFF
+
+
+def block_b_for(batch: int | None = None) -> int:
+    """Batch block launched for a ``batch``-row tile: always ``BLOCK_B``
+    (batches pad up to it), which is also the telemetry's block geometry."""
+    return BLOCK_B
+
+
+def stack_smem_bytes(padded_sizes, block_b: int = BLOCK_B) -> int:
+    """Dynamic shared memory the kernel asks for, per thread block.
+
+    ``padded_sizes`` are the LANE-padded layer widths ``(K0, N1, ..., NL)``.
+    Per lane: pixels (1 B) and PRNG state (4 B) per input, membrane and
+    peak (4 B each) and enable (1 B) per neuron of every layer, count and
+    first-spike latch (4 B each) per output neuron, and two uint16 spike
+    lists as wide as the widest layer; plus one int flag per 128-wide tile
+    of every layer's input and output.  The kernel carves the same layout
+    and refuses a launch whose carve-up exceeds what it was given.
+    """
+    k0, outs = int(padded_sizes[0]), [int(n) for n in padded_sizes[1:]]
+    widest = max([k0] + outs)
+    per_lane = k0 * 5 + sum(outs) * 9 + outs[-1] * 8 + 2 * widest * 2
+    ins = [k0] + outs[:-1]
+    flags = sum(k // LANE for k in ins) + sum(n // LANE for n in outs)
+    return block_b * per_lane + 4 * flags
+
+
+# ---------------------------------------------------------------------------
+# the plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _block_tile_skips(x, en, block_b: int, sparse_skip: bool):
+    """Skipped 128×128 tile pairs per batch block on padded operands."""
+    Bp = x.shape[0]
+    nb = Bp // block_b
+    if not sparse_skip:
+        return torch.zeros((nb,), dtype=torch.int32, device=x.device)
+    any_x = x.reshape(nb, block_b, -1, LANE).any(dim=3).any(dim=1)
+    any_e = en.reshape(nb, block_b, -1, LANE).any(dim=3).any(dim=1)
+    live = any_x[:, :, None] & any_e[:, None, :]
+    return (~live).sum(dim=(1, 2), dtype=torch.int32)
+
+
+def _first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """First index of the row max, (B, 1) int32 (ties go to the first)."""
+    return torch.argmax(x, dim=-1, keepdim=True).to(torch.int32)
+
+
+def fused_snn_stack_plain(pixels_u8, state_u32, weights, v_init, en_init,
+                          vp_init, counts_init, first_init, steps_init,
+                          gate_init=None, *, chunk_steps: int,
+                          window_steps: int, decay_shift: int,
+                          v_threshold: int, v_rest: int = 0,
+                          v_min: int = -(1 << 20), v_max: int = (1 << 20) - 1,
+                          active_pruning: bool = False, patience: int = 0,
+                          readout: str = "count", sparse_skip: bool = True,
+                          block_b: int = BLOCK_B):
+    """The stack kernel's function in plain PyTorch, on padded operands.
+
+    Returns ``(counts, v_trace (chunk, B, n_out), first, adds (chunk, B),
+    state', v tuple, en tuple (uint8), v_peak tuple, (n_spk, n_en, tiles),
+    steps' (B, 1)`` and, when ``gate_init`` is given, ``(active, prev,
+    streak)`` each (B, 1) int32).  Σ W·S runs as a float64 product: exact,
+    since |Σ| ≤ n_in·256 ≪ 2^53.
+    """
+    L = len(weights)
+    gated = gate_init is not None
+    ws = [w.to(torch.float64) for w in weights]
+    px = pixels_u8
+    s = to_carrier(state_u32)
+    vs = list(v_init)
+    ens = [e != 0 for e in en_init]
+    vps = list(vp_init)
+    cnt, first, steps = counts_init, first_init, steps_init
+    if gated:
+        act = gate_init[0] != 0
+        gprev, gstreak = gate_init[1], gate_init[2]
+    vtr, adds, tspk, ten, ttile = [], [], [], [], []
+    for _ in range(chunk_steps):
+        s_new = s ^ ((s << 13) & _MASK32)
+        s_new = s_new ^ (s_new >> 17)
+        s_new = s_new ^ ((s_new << 5) & _MASK32)
+        x = px > (s_new >> 24).to(torch.uint8)
+        adds_t = torch.zeros_like(steps)
+        new_vs, new_ens, new_vps = [], [], []
+        spk_t, en_t, skip_t = [], [], []
+        for l in range(L):
+            en = ens[l]
+            skip_t.append(_block_tile_skips(x, en, block_b, sparse_skip))
+            cur = torch.matmul(x.to(torch.float64), ws[l]).to(torch.int32)
+            cur = torch.where(en, cur, 0)
+            v_int = torch.clamp(vs[l] + cur, v_min, v_max)
+            v_leak = v_int - (v_int >> decay_shift)
+            fired = (v_leak >= v_threshold) & en
+            v_new = torch.where(fired, torch.full_like(v_leak, v_rest),
+                                v_leak)
+            v_new = torch.where(en, v_new, vs[l])
+            n_spk = x.sum(-1, keepdim=True, dtype=torch.int32)
+            n_en = en.sum(-1, keepdim=True, dtype=torch.int32)
+            adds_t = adds_t + n_spk * n_en
+            spk_t.append(n_spk[:, 0])
+            en_t.append(n_en[:, 0])
+            if active_pruning:
+                en = en & ~fired
+            new_vs.append(v_new)
+            new_ens.append(en)
+            new_vps.append(torch.maximum(vps[l], v_new))
+            x = fired
+        cnt_new = cnt + x.to(torch.int32)
+        first_new = torch.where(x & (first == window_steps), steps, first)
+        tel_spk, tel_en = torch.stack(spk_t), torch.stack(en_t)
+        ttile.append(torch.stack(skip_t))
+        if gated:
+            has_spike = cnt_new.amax(dim=-1, keepdim=True) > 0
+            if readout == "first_spike":
+                large = 1 << 24
+                score = torch.where(
+                    cnt_new > 0, large + (window_steps - first_new),
+                    torch.clamp(new_vs[-1], -large + 1, large - 1))
+                pred = _first_argmax(score)
+            elif readout == "membrane":
+                pred = _first_argmax(new_vps[-1])
+            else:
+                pred = _first_argmax(cnt_new)
+            streak_raw = torch.where(pred == gprev, gstreak + 1, 0)
+            done = (streak_raw >= patience) & has_spike
+            gprev_new = torch.where(has_spike, pred, -1)
+            gstreak_new = torch.where(has_spike, streak_raw, 0)
+            steps_new = steps + act.to(torch.int32)
+            still = act & ~done & (steps_new < window_steps)
+
+            def keep(new, old):
+                return torch.where(act, new, old)
+
+            s = keep(s_new, s)
+            vs = [keep(nv, ov) for nv, ov in zip(new_vs, vs)]
+            ens = [keep(ne, oe) for ne, oe in zip(new_ens, ens)]
+            vps = [keep(nv, ov) for nv, ov in zip(new_vps, vps)]
+            cnt, first = keep(cnt_new, cnt), keep(first_new, first)
+            gprev, gstreak = keep(gprev_new, gprev), keep(gstreak_new, gstreak)
+            vtr.append(vs[-1])
+            adds.append(torch.where(act, adds_t, 0)[:, 0])
+            lane_act = act[:, 0][None, :]
+            tspk.append(torch.where(lane_act, tel_spk, 0))
+            ten.append(torch.where(lane_act, tel_en, 0))
+            steps, act = steps_new, still
+        else:
+            s, vs, ens, vps = s_new, new_vs, new_ens, new_vps
+            cnt, first = cnt_new, first_new
+            vtr.append(vs[-1])
+            adds.append(adds_t[:, 0])
+            tspk.append(tel_spk)
+            ten.append(tel_en)
+            steps = steps + 1
+    tel = (torch.stack(tspk), torch.stack(ten), torch.stack(ttile))
+    out = (cnt, torch.stack(vtr), first, torch.stack(adds), from_carrier(s),
+           tuple(vs), tuple(e.to(torch.uint8) for e in ens), tuple(vps),
+           tel, steps)
+    if gated:
+        return out + ((act.to(torch.int32), gprev, gstreak),)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the CUDA launch
+# ---------------------------------------------------------------------------
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _validate(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
+              counts_init, first_init, steps_init, gate_init, readout,
+              block_b):
+    dev = pixels_u8.device
+    Bp, k0 = pixels_u8.shape
+    L = len(weights)
+    if not 1 <= L <= MAX_LAYERS:
+        raise ValueError(f"the stack kernel runs 1..{MAX_LAYERS} layers, "
+                         f"got {L}")
+    if readout not in READOUTS:
+        raise ValueError(f"unknown readout {readout!r}")
+    if block_b != BLOCK_B or Bp % block_b:
+        raise ValueError(f"batch {Bp} / block_b {block_b}: block_b must be "
+                         f"{BLOCK_B} and divide the padded batch")
+    sizes = [k0] + [int(w.shape[1]) for w in weights]
+    if any(n % LANE for n in sizes):
+        raise ValueError(f"layer widths {sizes} are not padded to {LANE}")
+    _check(pixels_u8, "pixels_u8", torch.uint8, (Bp, k0), dev)
+    _check(state_u32, "state_u32", torch.uint32, (Bp, k0), dev)
+    for l, w in enumerate(weights):
+        _check(w, f"weights[{l}]", torch.int16, (sizes[l], sizes[l + 1]), dev)
+        _check(v_init[l], f"v_init[{l}]", torch.int32, (Bp, sizes[l + 1]), dev)
+        _check(en_init[l], f"en_init[{l}]", torch.uint8, (Bp, sizes[l + 1]),
+               dev)
+        _check(vp_init[l], f"vp_init[{l}]", torch.int32, (Bp, sizes[l + 1]),
+               dev)
+    _check(counts_init, "counts_init", torch.int32, (Bp, sizes[-1]), dev)
+    _check(first_init, "first_init", torch.int32, (Bp, sizes[-1]), dev)
+    _check(steps_init, "steps_init", torch.int32, (Bp, 1), dev)
+    if gate_init is not None:
+        for name, g in zip(("active", "prev", "streak"), gate_init):
+            _check(g, f"gate_init.{name}", torch.int32, (Bp, 1), dev)
+    return sizes
+
+
+def _launch(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
+            counts_init, first_init, steps_init, gate_init, sizes, *,
+            chunk_steps, window_steps, decay_shift, v_threshold, v_rest,
+            v_min, v_max, active_pruning, patience, readout, sparse_skip,
+            block_b):
+    from ._build import load_library
+    lib = load_library()
+    dev = pixels_u8.device
+    Bp, k0 = pixels_u8.shape
+    L = len(weights)
+    n_out = sizes[-1]
+    nb = Bp // block_b
+    gated = gate_init is not None
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    st_out = empty((Bp, k0), torch.uint32)
+    cnt_out = empty((Bp, n_out), torch.int32)
+    first_out = empty((Bp, n_out), torch.int32)
+    steps_out = empty((Bp, 1), torch.int32)
+    gate_out = tuple(empty((Bp, 1), torch.int32) for _ in range(3)) \
+        if gated else None
+    vtr = empty((chunk_steps, Bp, n_out), torch.int32)
+    adds = empty((chunk_steps, Bp), torch.int32)
+    tspk = empty((chunk_steps, L, Bp), torch.int32)
+    ten = empty((chunk_steps, L, Bp), torch.int32)
+    ttile = empty((chunk_steps, L, nb), torch.int32)
+    v_out = tuple(empty((Bp, n), torch.int32) for n in sizes[1:])
+    en_out = tuple(empty((Bp, n), torch.uint8) for n in sizes[1:])
+    vp_out = tuple(empty((Bp, n), torch.int32) for n in sizes[1:])
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    g_in = gate_init if gated else (None, None, None)
+    g_out = gate_out if gated else (None, None, None)
+    ptrs = [pixels_u8, state_u32, counts_init, first_init, steps_init,
+            *g_in, st_out, cnt_out, first_out, steps_out, *g_out,
+            vtr, adds, tspk, ten, ttile]
+    for l in range(L):
+        ptrs += [weights[l], v_init[l], en_init[l], vp_init[l], v_out[l],
+                 en_out[l], vp_out[l]]
+    readout_code = READOUTS.index(readout)
+    ints = [Bp, L, block_b, chunk_steps, window_steps, decay_shift,
+            v_threshold, v_rest, v_min, v_max, int(active_pruning),
+            int(gated), patience, readout_code, int(sparse_skip),
+            stack_smem_bytes(sizes, block_b), *sizes]
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*[ptr(t) for t in ptrs])
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.repro_fused_snn_stack(
+        ctypes.addressof(c_ptrs), len(ptrs), ctypes.addressof(c_ints),
+        len(ints), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_snn_stack kernel launch failed: CUDA error {err} "
+            f"({lib.repro_cuda_error_string(err).decode()})")
+    fused_snn_stack.launches += 1
+    out = (cnt_out, vtr, first_out, adds, st_out, v_out, en_out, vp_out,
+           (tspk, ten, ttile), steps_out)
+    return out + (gate_out,) if gated else out
+
+
+def fused_snn_stack(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
+                    counts_init, first_init, steps_init, gate_init=None, *,
+                    chunk_steps: int, window_steps: int, decay_shift: int,
+                    v_threshold: int, v_rest: int = 0,
+                    v_min: int = -(1 << 20), v_max: int = (1 << 20) - 1,
+                    active_pruning: bool = False, patience: int = 0,
+                    readout: str = "count", sparse_skip: bool = True,
+                    block_b: int = BLOCK_B):
+    """Run ``chunk_steps`` steps of the encode→LIF stack on padded operands.
+
+      pixels_u8/state_u32: (B, n_in) uint8 / uint32
+      weights: per-layer (n_l, n_{l+1}) int16 codes
+      v_init/en_init/vp_init: per-layer (B, n_{l+1}) int32 / uint8 / int32
+      counts_init/first_init: (B, n_out) int32 (first sentinel = window)
+      steps_init: (B, 1) int32 per-lane absolute step counter
+      gate_init: None, or (active, prev, streak) each (B, 1) int32
+
+    Outputs as :func:`fused_snn_stack_plain`.  CUDA tensors launch the
+    kernel (one launch, counted in ``fused_snn_stack.launches``); CPU
+    tensors run the plain version.
+    """
+    sizes = _validate(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
+                      counts_init, first_init, steps_init, gate_init, readout,
+                      block_b)
+    kw = dict(chunk_steps=chunk_steps, window_steps=window_steps,
+              decay_shift=decay_shift, v_threshold=v_threshold, v_rest=v_rest,
+              v_min=v_min, v_max=v_max, active_pruning=active_pruning,
+              patience=patience, readout=readout, sparse_skip=sparse_skip,
+              block_b=block_b)
+    args = (pixels_u8, state_u32, weights, v_init, en_init, vp_init,
+            counts_init, first_init, steps_init, gate_init)
+    if pixels_u8.device.type == "cpu":
+        return fused_snn_stack_plain(*args, **kw)
+    if pixels_u8.device.type != "cuda":
+        raise ValueError(f"no stack kernel for device {pixels_u8.device}")
+    return _launch(*args, sizes, **kw)
+
+
+fused_snn_stack.launches = 0

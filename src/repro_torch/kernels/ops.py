@@ -1,0 +1,200 @@
+"""Public wrapper of the encode→LIF stack kernel: padding, masks, unpadding.
+
+Port of ``repro.kernels.ops.fused_snn_stack_op`` and
+``validate_weight_codes``.  The wrapper pads the batch to the launch block
+and every neuron axis to ``LANE``, disables padded neurons and padded batch
+rows, runs :func:`kernels.fused_snn.fused_snn_stack` (the CUDA kernel for
+CUDA tensors, its plain version for CPU tensors) and cuts the results back
+to the true shapes.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..core.telemetry import ChunkTelemetry, resolve_sparse_skip
+from . import fused_snn
+
+__all__ = ["fused_snn_stack_op", "stack_operands", "stack_results",
+           "validate_weight_codes", "V_PEAK_INIT"]
+
+# window-start sentinel for the carried peak-membrane accumulator: the
+# first real membrane value always wins the max-fold
+V_PEAK_INIT = -(1 << 31)
+
+
+def validate_weight_codes(weights) -> None:
+    """Raise if weights fall outside the signed 9-bit code range.
+
+    The kernels take the paper's signed 9-bit weight codes [-256, 255]
+    (``quantize_params``' output contract).  The reference package's fused
+    kernels pack them into two int8 planes, exact only on that range; the
+    port holds codes to the same contract so both packages accept and
+    refuse the same weights.
+    """
+    for i, w in enumerate(weights):
+        lo, hi = int(w.min()), int(w.max())
+        if lo < -256 or hi > 255:
+            raise ValueError(
+                f"layer {i} weight codes span [{lo}, {hi}] — outside the "
+                f"signed 9-bit range [-256, 255] the fused kernels' int8 "
+                f"packing represents exactly (quantize_params' contract); "
+                f"use the staged or reference backend for wider codes")
+
+
+def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
+    """Zero-pad ``axis`` up to a multiple of ``mult`` (uint32 via int32)."""
+    pad = (-x.shape[axis]) % mult
+    if pad == 0:
+        return x.contiguous()
+    if x.dtype == torch.uint32:
+        return _pad_to(x.view(torch.int32), axis, mult).view(torch.uint32)
+    if x.dtype == torch.bool:
+        return _pad_to(x.to(torch.uint8), axis, mult).to(torch.bool)
+    widths = [0, 0] * x.ndim
+    widths[2 * (x.ndim - 1 - axis) + 1] = pad
+    return F.pad(x, widths).contiguous()
+
+
+def _pad2(x: torch.Tensor, rows: int, lanes: int) -> torch.Tensor:
+    return _pad_to(_pad_to(x, 0, rows), 1, lanes)
+
+
+def stack_operands(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
+                   weights, *, num_steps: int, v_rest: int = 0,
+                   init: dict | None = None, gate: dict | None = None):
+    """Pad the op's inputs into the stack kernel's launch operands.
+
+    Returns ``(args, meta)``: ``args`` is the positional argument list of
+    :func:`kernels.fused_snn.fused_snn_stack` (and of its plain version),
+    ``meta`` what :func:`stack_results` needs to cut the outputs back.
+    The batch pads to the ``block_b_for`` block and every neuron axis to
+    ``LANE``.  Zero-padded pixel and state lanes never spike (0 > r is
+    false, and 0 is the xorshift fixed point); padded neurons and padded
+    batch rows are disabled, so they neither fire nor count as executed
+    adds, and the tile-skip telemetry sees the same enable geometry whether
+    the state is fresh or carried.
+    """
+    dev = pixels_u8.device
+    B, n_in = pixels_u8.shape
+    L = len(weights)
+    sizes = [n_in] + [int(w.shape[1]) for w in weights]
+    bB = fused_snn.block_b_for(B)
+    lane = fused_snn.LANE
+    Bp = B + (-B) % bB
+    pads = [n + (-n) % lane for n in sizes]
+
+    px = _pad2(pixels_u8, bB, lane)
+    st = _pad2(state_u32, bB, lane)
+    ws = tuple(_pad2(w.to(torch.int16), lane, lane) for w in weights)
+
+    def valid_mask(n_true, n_pad):
+        col = torch.arange(n_pad, device=dev)[None, :]
+        row = torch.arange(Bp, device=dev)[:, None]
+        return (col < n_true) & (row < B)
+
+    def vp_fresh():
+        return tuple(torch.full((Bp, pads[l + 1]), V_PEAK_INIT,
+                                dtype=torch.int32, device=dev)
+                     for l in range(L))
+
+    if init is None:
+        v_in = tuple(torch.full((Bp, pads[l + 1]), v_rest, dtype=torch.int32,
+                                device=dev) for l in range(L))
+        en_in = tuple(valid_mask(sizes[l + 1], pads[l + 1])
+                      for l in range(L))
+        vp_in = vp_fresh()
+        cnt_in = torch.zeros((Bp, pads[-1]), dtype=torch.int32, device=dev)
+        first_in = torch.full((Bp, pads[-1]), num_steps, dtype=torch.int32,
+                              device=dev)
+        steps_in = torch.zeros((Bp, 1), dtype=torch.int32, device=dev)
+    else:
+        v_in = tuple(_pad2(init["v"][l], bB, lane) for l in range(L))
+        en_in = tuple(_pad2(init["en"][l].to(torch.bool), bB, lane)
+                      for l in range(L))
+        vp_in = (vp_fresh() if init.get("v_peak") is None else
+                 tuple(_pad2(init["v_peak"][l], bB, lane) for l in range(L)))
+        cnt_in = _pad2(init["counts"], bB, lane)
+        first_in = _pad2(init["first"], bB, lane)
+        steps_in = _pad_to(init["steps"].to(torch.int32)[:, None], 0, bB)
+    en_in = tuple(e.to(torch.uint8).contiguous() for e in en_in)
+
+    gate_in = None
+    if gate is not None:
+        gate_in = tuple(_pad_to(gate[k].to(torch.int32)[:, None], 0, bB)
+                        for k in ("active", "prev", "streak"))
+    args = [px, st, ws, v_in, en_in, vp_in, cnt_in, first_in, steps_in,
+            gate_in]
+    return args, {"B": B, "sizes": sizes, "block_b": bB}
+
+
+def stack_results(outs, meta: dict) -> dict:
+    """Cut the stack kernel's padded outputs back to the op's result dict."""
+    B, sizes = meta["B"], meta["sizes"]
+    n_in, n_out, L = sizes[0], sizes[-1], len(sizes) - 1
+    (cnt, vtr, first, adds, st_out, v_fin, en_fin, vp_fin, tel,
+     steps_out) = outs[:10]
+    tspk, ten, ttile = tel
+    res = {
+        "spike_counts": cnt[:B, :n_out],
+        "v_trace": vtr[:, :B, :n_out],
+        "first_spike_t": first[:B, :n_out],
+        "v_final": v_fin[-1][:B, :n_out],
+        "active_adds": adds[:, :B],
+        "prng_state": st_out[:B, :n_in],
+        "v": tuple(v_fin[l][:B, :sizes[l + 1]] for l in range(L)),
+        "en": tuple(en_fin[l][:B, :sizes[l + 1]] != 0 for l in range(L)),
+        "v_peak": tuple(vp_fin[l][:B, :sizes[l + 1]] for l in range(L)),
+        "telemetry": ChunkTelemetry(n_spk=tspk[:, :, :B], n_en=ten[:, :, :B],
+                                    tiles_skipped=ttile),
+        "steps": steps_out[:B, 0],
+    }
+    if len(outs) > 10:
+        act, prev, streak = outs[10]
+        res["gate"] = {"active": act[:B, 0] != 0, "prev": prev[:B, 0],
+                       "streak": streak[:B, 0]}
+    return res
+
+
+def fused_snn_stack_op(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
+                       weights, *, num_steps: int,
+                       chunk_steps: int | None = None, decay_shift: int,
+                       v_threshold: int, v_rest: int = 0,
+                       v_min: int = -(1 << 20), v_max: int = (1 << 20) - 1,
+                       active_pruning: bool = False, init: dict | None = None,
+                       gate: dict | None = None, patience: int = 0,
+                       readout: str = "count",
+                       sparse_skip: bool | None = None):
+    """Multi-layer encode→LIF stack in one resumable launch.
+
+    Args:
+      weights: per-layer (n_l, n_{l+1}) int16 codes in [-256, 255].
+      num_steps: the full window T (first-spike sentinel, gate step bound).
+      chunk_steps: steps THIS launch executes (default: the whole window).
+      init: optional carried state — ``v``/``en``/``v_peak`` per-layer
+        tuples ((B, n_l) int32 / bool / int32; ``v_peak`` may be omitted),
+        ``counts``/``first`` ((B, n_out) int32) and ``steps`` ((B,) int32).
+      gate: optional stability-gate state — ``active`` bool (B,),
+        ``prev``/``streak`` int32 (B,); the launch then runs the early-exit
+        gate each step and freezes retired lanes.
+      sparse_skip: tile-skip telemetry on/off (None = REPRO_SPARSE_SKIP).
+
+    Returns a dict with ``spike_counts``/``first_spike_t``/``v_final``
+    ((B, n_out) int32), ``v_trace`` ((chunk, B, n_out) int32),
+    ``active_adds`` ((chunk, B) int32), ``prng_state`` ((B, n_in) uint32),
+    the carried ``v``/``en``/``v_peak``/``steps``, ``telemetry`` (a
+    ChunkTelemetry) and, when gated, ``gate``.  CUDA tensors run one launch
+    of the stack kernel, CPU tensors its plain version.
+    """
+    args, meta = stack_operands(pixels_u8, state_u32, weights,
+                                num_steps=num_steps, v_rest=v_rest,
+                                init=init, gate=gate)
+    outs = fused_snn.fused_snn_stack(
+        *args, chunk_steps=num_steps if chunk_steps is None else chunk_steps,
+        window_steps=num_steps, decay_shift=decay_shift,
+        v_threshold=v_threshold, v_rest=v_rest, v_min=v_min, v_max=v_max,
+        active_pruning=active_pruning, patience=patience, readout=readout,
+        sparse_skip=resolve_sparse_skip(sparse_skip),
+        block_b=meta["block_b"])
+    return stack_results(outs, meta)

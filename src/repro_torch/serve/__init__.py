@@ -1,0 +1,13 @@
+"""Serving layer of the port: the streaming engine and its helpers."""
+
+from .early_exit import StabilityGateState, stability_step
+from .rollout import WeightBank, merge_version_chunks
+from .snn_engine import LaneState, RequestResult, SNNStreamEngine, \
+    stream_chunk
+from .telemetry import AdaptiveDispatchConfig, TelemetryController, \
+    make_controller, summarize_chunk
+
+__all__ = ["SNNStreamEngine", "LaneState", "RequestResult", "stream_chunk",
+           "StabilityGateState", "stability_step", "WeightBank",
+           "merge_version_chunks", "AdaptiveDispatchConfig",
+           "TelemetryController", "make_controller", "summarize_chunk"]

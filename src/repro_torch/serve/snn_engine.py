@@ -1,0 +1,559 @@
+"""Batched streaming SNN serving engine (port of ``repro.serve.snn_engine``).
+
+Many requests share one batch tile of lanes and stream through the integer
+datapath together, with two scheduling ideas:
+
+  * **Early exit** — a lane whose running prediction has been stable for
+    ``patience`` consecutive steps retires before the window ends.  The
+    gate runs inside the window chunk, so a lane stops executing adds the
+    step it retires.
+  * **Lane compaction** — at chunk boundaries retired lanes are harvested,
+    live lanes are compacted to the front of the tile (stable order) and
+    the freed slots admit queued images (continuous batching).
+
+On a CUDA device the chunk is ONE launch of the encode→LIF stack kernel
+(``kernels.ops.fused_snn_stack_op`` with the gate state), which advances
+every lane ``chunk_steps`` steps through every layer and runs the
+stability gate per step.  The ``reference`` backend runs the same datapath
+as per-step torch ops over ``core.snn.snn_int_stack_step``.  Both give the
+same lane-state evolution for the same seeds.
+
+Each fresh request's PRNG lanes are seeded from ``seed + request_id``, so
+a request's window is a pure function of its id: results do not depend on
+the slot, the chunk split or the engine that served it.
+
+Not ported yet: the fault-injection harness and its degradation ladder,
+and the tuned dispatch cache.  This engine is the reference package's
+engine with no injector armed and no cache.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import lif as lif_mod
+from ..core import prng as prng_mod
+from ..core.snn import (SNNConfig, readout_pred, resolve_backend,
+                        snn_int_stack_step)
+from ..core.telemetry import ChunkTelemetry, EngineLoad
+from ..device import resolve_device
+from ..kernels import ops
+from ..kernels.ops import V_PEAK_INIT
+from .early_exit import StabilityGateState, stability_step
+from .rollout import WeightBank, merge_version_chunks, select_lanes
+from .telemetry import AdaptiveDispatchConfig, make_controller, \
+    summarize_chunk
+
+__all__ = ["SNNStreamEngine", "LaneState", "RequestResult", "stream_chunk"]
+
+
+class LaneState(NamedTuple):
+    """State of one batch tile (every leaf has leading dim B)."""
+
+    px: torch.Tensor          # (B, n_in) uint8 pixels
+    rng: torch.Tensor         # (B, n_in) uint32 xorshift lanes
+    v: tuple                  # per-layer (B, n_l) int32 membranes
+    en: tuple                 # per-layer (B, n_l) bool clock gates
+    v_peak: tuple             # per-layer (B, n_l) int32 running peaks
+    counts: torch.Tensor      # (B, n_out) int32 spike registers
+    first: torch.Tensor       # (B, n_out) int32 first-spike latch (T = none)
+    gate_prev: torch.Tensor   # (B,) int32 stability-gate memory
+    gate_streak: torch.Tensor  # (B,) int32
+    steps: torch.Tensor       # (B,) int32 window steps executed
+    adds: torch.Tensor        # (B,) int32 executed synaptic adds (energy)
+    active: torch.Tensor      # (B,) bool lane still consuming compute
+    weight_version: torch.Tensor  # (B,) int32 admission-time bank version
+
+
+@dataclass
+class RequestResult:
+    request_id: int
+    pred: int
+    spike_counts: np.ndarray
+    steps: int             # window steps actually consumed
+    adds: int              # synaptic adds executed (energy side channel)
+    early_exit: bool       # retired by the stability gate before T
+    weight_version: int = 0  # weight version the window ran on
+
+
+def _init_lanes(batch: int, layer_sizes: tuple[int, ...], num_steps: int,
+                v_rest: int, device: torch.device) -> LaneState:
+    n_in, n_out = layer_sizes[0], layer_sizes[-1]
+
+    def full(shape, value, dtype=torch.int32):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    return LaneState(
+        px=full((batch, n_in), 0, torch.uint8),
+        rng=full((batch, n_in), 1).view(torch.uint32),
+        v=tuple(full((batch, n), v_rest) for n in layer_sizes[1:]),
+        en=tuple(full((batch, n), True, torch.bool)
+                 for n in layer_sizes[1:]),
+        v_peak=tuple(full((batch, n), V_PEAK_INIT)
+                     for n in layer_sizes[1:]),
+        counts=full((batch, n_out), 0),
+        first=full((batch, n_out), num_steps),
+        gate_prev=full((batch,), -1),
+        gate_streak=full((batch,), 0),
+        steps=full((batch,), 0),
+        adds=full((batch,), 0),
+        active=full((batch,), False, torch.bool),
+        weight_version=full((batch,), 0),
+    )
+
+
+def stream_chunk(lanes: LaneState, weights: tuple, *, chunk_steps: int,
+                 num_steps: int, lif_cfg: lif_mod.LIFConfig, dot_impl: str,
+                 active_pruning: bool, patience: int, readout: str = "count",
+                 backend: str = "reference",
+                 sparse_skip: bool | None = None):
+    """Advance every active lane by up to ``chunk_steps`` window steps.
+
+    ``backend="fused"`` runs the whole chunk (every layer, every step, the
+    stability gate) as one launch of the stack kernel; ``"reference"``
+    steps the same datapath with torch ops.  A retired or inactive lane is
+    frozen: PRNG, membranes, counters and its add counter stop.  Returns
+    ``(lanes', ChunkTelemetry)``.
+    """
+    if backend == "fused":
+        k = ops.fused_snn_stack_op(
+            lanes.px, lanes.rng, weights, num_steps=num_steps,
+            chunk_steps=chunk_steps, decay_shift=lif_cfg.decay_shift,
+            v_threshold=lif_cfg.v_threshold, v_rest=lif_cfg.v_rest,
+            v_min=lif_cfg.v_min, v_max=lif_cfg.v_max,
+            active_pruning=active_pruning,
+            init={"v": lanes.v, "en": lanes.en, "v_peak": lanes.v_peak,
+                  "counts": lanes.counts, "first": lanes.first,
+                  "steps": lanes.steps},
+            gate={"active": lanes.active, "prev": lanes.gate_prev,
+                  "streak": lanes.gate_streak},
+            patience=patience, readout=readout, sparse_skip=sparse_skip)
+        return LaneState(
+            px=lanes.px, rng=k["prng_state"], v=k["v"], en=k["en"],
+            v_peak=k["v_peak"], counts=k["spike_counts"],
+            first=k["first_spike_t"], gate_prev=k["gate"]["prev"],
+            gate_streak=k["gate"]["streak"], steps=k["steps"],
+            adds=lanes.adds + k["active_adds"].sum(0, dtype=torch.int32),
+            active=k["gate"]["active"],
+            weight_version=lanes.weight_version), k["telemetry"]
+    if backend != "reference":
+        raise ValueError(f"unknown chunk backend {backend!r}")
+
+    st = lanes
+    tspk, ten, ttile = [], [], []
+    for _ in range(chunk_steps):
+        act = st.active
+        layer_states = tuple(lif_mod.LIFStateInt(v=v, enable=e)
+                             for v, e in zip(st.v, st.en))
+        rng, new_states, fired, adds_t, tel = snn_int_stack_step(
+            st.rng, st.px, layer_states, weights, lif_cfg,
+            dot_impl=dot_impl, active_pruning=active_pruning,
+            sparse_skip=sparse_skip)
+        counts = st.counts + fired.to(torch.int32)
+        first = torch.where(fired & (st.first == num_steps),
+                            st.steps[:, None], st.first)
+        v_peak = tuple(torch.maximum(p, s.v)
+                       for p, s in zip(st.v_peak, new_states))
+        # a lane with no output spike yet has no prediction to be stable
+        # about: its gate stays at init until the first spike
+        has_spike = counts.amax(dim=-1) > 0
+        pred = readout_pred(counts, first, new_states[-1].v, readout,
+                            num_steps, v_peak=v_peak[-1]).to(torch.int32)
+        gate, done = stability_step(
+            StabilityGateState(prev=st.gate_prev, streak=st.gate_streak),
+            pred, patience)
+        gate_prev = torch.where(has_spike, gate.prev, -1)
+        gate_streak = torch.where(has_spike, gate.streak, 0)
+        done = done & has_spike
+        steps = st.steps + act.to(torch.int32)
+        still = act & ~done & (steps < num_steps)
+
+        def keep(new, old):
+            return select_lanes(act, new, old)
+
+        # frozen lanes execute nothing, so their telemetry rows are zero;
+        # the tile row stays raw (the block's executed geometry)
+        tspk.append(torch.where(act[None, :], tel["n_spk"], 0))
+        ten.append(torch.where(act[None, :], tel["n_en"], 0))
+        ttile.append(tel["tiles"])
+        st = LaneState(
+            px=st.px, rng=keep(rng, st.rng),
+            v=keep(tuple(s.v for s in new_states), st.v),
+            en=keep(tuple(s.enable for s in new_states), st.en),
+            v_peak=keep(v_peak, st.v_peak),
+            counts=keep(counts, st.counts), first=keep(first, st.first),
+            gate_prev=keep(gate_prev, st.gate_prev),
+            gate_streak=keep(gate_streak, st.gate_streak),
+            steps=steps, adds=st.adds + torch.where(act, adds_t, 0),
+            active=torch.where(act, still, st.active),
+            weight_version=st.weight_version)
+    return st, ChunkTelemetry(n_spk=torch.stack(tspk), n_en=torch.stack(ten),
+                              tiles_skipped=torch.stack(ttile))
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """Device tensor → writable numpy copy (uint32 through its int32 view)."""
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32).cpu().numpy().view(np.uint32).copy()
+    return t.cpu().numpy().copy()
+
+
+def _map(fn, st: LaneState) -> LaneState:
+    """Apply ``fn`` to every array leaf of a lane state."""
+    return LaneState(*[tuple(fn(a) for a in f) if isinstance(f, tuple)
+                       else fn(f) for f in st])
+
+
+class SNNStreamEngine:
+    """Continuous-batching front end over the streaming window chunk.
+
+    Usage::
+
+        eng = SNNStreamEngine(params_q, cfg, batch_size=1024)
+        ids = [eng.submit(img) for img in images]     # queue requests
+        results = eng.run()                            # {id: RequestResult}
+
+    ``params_q`` is ``{"layers": [{"w_q": (n_in, n_out) int16 codes, ...}]}``
+    (numpy arrays or tensors; see ``repro_torch.convert.params_from_jax``).
+    ``device`` None is the CUDA card (raises without one); pass
+    ``device="cpu"`` for the plain PyTorch paths.  ``backend`` None/"auto"
+    resolves to ``fused`` (the stack kernel) on a card, raising when the
+    stack does not fit its shared memory, and to ``reference`` on the CPU;
+    ``"fused"`` on the CPU runs the kernel's plain version.  ``adaptive`` configures the
+    telemetry controller (None = the REPRO_ADAPTIVE_DISPATCH default,
+    frozen): it only moves value-neutral knobs, so results are the same
+    either way.
+    """
+
+    _SERVICE_EWMA_ALPHA = 0.25
+
+    def __init__(self, params_q: dict, cfg: SNNConfig, *,
+                 batch_size: int = 8, chunk_steps: int = 4,
+                 patience: int = 2, seed: int = 0,
+                 backend: str | None = None,
+                 adaptive: AdaptiveDispatchConfig | None = None,
+                 engine_id: int = 0, initial_weight_version: int = 0,
+                 device: str | torch.device | None = None):
+        if cfg.readout not in ("count", "first_spike", "membrane"):
+            raise ValueError(
+                f"unknown readout {cfg.readout!r}: the streaming engine "
+                f"implements 'count', 'first_spike' and 'membrane'")
+        self.device = resolve_device(device)
+        weights = self._place_weights(
+            tuple(layer["w_q"] for layer in params_q["layers"]))
+        self.layer_sizes = tuple([int(weights[0].shape[0])]
+                                 + [int(w.shape[1]) for w in weights])
+        self.backend = resolve_backend(
+            cfg, "auto" if backend is None else backend, len(weights),
+            layer_sizes=self.layer_sizes, local_batch=batch_size,
+            device=self.device)
+        if self.backend == "fused":
+            ops.validate_weight_codes(weights)
+        self.engine_id = int(engine_id)
+        self.bank = WeightBank(weights, version=int(initial_weight_version))
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.patience = patience
+        self.seed = seed
+        self.controller = make_controller(
+            adaptive, spike_density_threshold=cfg.spike_density_threshold,
+            chunk_steps=chunk_steps, num_steps=cfg.num_steps)
+        self.n_in, self.n_out = self.layer_sizes[0], self.layer_sizes[-1]
+        self.lanes = _init_lanes(batch_size, self.layer_sizes, cfg.num_steps,
+                                 cfg.lif.v_rest, self.device)
+        self.lane_req: list[int | None] = [None] * batch_size
+        self.queue: list[tuple[int, np.ndarray]] = []
+        self._adoptions: list[tuple[int, LaneState]] = []
+        self.results: dict[int, RequestResult] = {}
+        self._next_id = 0
+        # host mirror of LaneState.weight_version (only admission writes it)
+        self._lane_versions = np.zeros(batch_size, np.int64)
+        self._service_ewma: float | None = None
+        self._retired_total = 0
+        self.dispatches = 0       # chunk executions (kernel launches on fused)
+
+    @property
+    def weights(self) -> tuple:
+        """Weights of the CURRENT bank version (new admissions bind these)."""
+        return self.bank.weights(self.bank.current)
+
+    def _place_weights(self, weights: tuple) -> tuple:
+        return tuple(torch.as_tensor(w).to(self.device, torch.int16)
+                     .contiguous() for w in weights)
+
+    @property
+    def chunk_steps(self) -> int:
+        """Window steps of the NEXT chunk (the controller's live choice)."""
+        return self.controller.chunk_steps
+
+    @property
+    def dispatch_threshold(self) -> float:
+        return self.controller.dispatch_threshold
+
+    # ---- request intake -------------------------------------------------
+    def _id_in_use(self, rid: int) -> bool:
+        return (rid in self.results or rid in self.lane_req
+                or any(q[0] == rid for q in self.queue)
+                or any(a[0] == rid for a in self._adoptions))
+
+    def submit(self, pixels_u8: np.ndarray, *,
+               request_id: int | None = None) -> int:
+        """Enqueue one image; returns its request id (the PRNG seeds from
+        ``seed + request_id``)."""
+        pixels_u8 = np.asarray(pixels_u8, np.uint8).reshape(self.n_in)
+        if request_id is None:
+            rid = self._next_id
+        else:
+            rid = int(request_id)
+            if self._id_in_use(rid):
+                raise ValueError(f"request id {rid} already in use")
+        self._next_id = max(self._next_id, rid + 1)
+        self.queue.append((rid, pixels_u8))
+        return rid
+
+    def load_summary(self) -> EngineLoad:
+        """Routing-tier load signals: host bookkeeping only, no device sync."""
+        return EngineLoad(
+            lanes_total=self.batch_size,
+            lanes_busy=sum(r is not None for r in self.lane_req),
+            queue_depth=len(self.queue) + len(self._adoptions),
+            mean_service_steps=(float(self.cfg.num_steps)
+                                if self._service_ewma is None
+                                else self._service_ewma),
+            retired_total=self._retired_total,
+            density_ewma=self.controller.density_ewma)
+
+    @property
+    def pending(self) -> int:
+        return (len(self.queue) + len(self._adoptions)
+                + sum(r is not None for r in self.lane_req))
+
+    # ---- scheduling -----------------------------------------------------
+    def _host_pred(self, counts, first, v_last, v_peak) -> int:
+        """Harvest-time prediction for one retired lane."""
+        return int(readout_pred(
+            torch.from_numpy(counts), torch.from_numpy(first),
+            torch.from_numpy(v_last), self.cfg.readout, self.cfg.num_steps,
+            v_peak=torch.from_numpy(v_peak)))
+
+    def _harvest(self, st: LaneState, finished: np.ndarray) -> list[int]:
+        """Collect RequestResults for every lane in the ``finished`` mask."""
+        done_ids = []
+        for i in np.nonzero(finished)[0]:
+            rid = self.lane_req[int(i)]
+            steps = int(st.steps[i])
+            self.results[rid] = RequestResult(
+                request_id=rid,
+                pred=self._host_pred(st.counts[i], st.first[i],
+                                     st.v[-1][i], st.v_peak[-1][i]),
+                spike_counts=st.counts[i].copy(), steps=steps,
+                adds=int(st.adds[i]),
+                early_exit=steps < self.cfg.num_steps,
+                weight_version=int(st.weight_version[i]))
+            done_ids.append(rid)
+            self._retired_total += 1
+            a = self._SERVICE_EWMA_ALPHA
+            self._service_ewma = (float(steps) if self._service_ewma is None
+                                  else (1 - a) * self._service_ewma
+                                  + a * steps)
+        return done_ids
+
+    def _admit_into(self, st: LaneState, slot: int) -> None:
+        """Fill host lane ``slot`` with the next waiting request: an adopted
+        row (written back verbatim) before a fresh request."""
+        if self._adoptions:
+            rid, row = self._adoptions.pop(0)
+            for dst, src in zip(st, row):
+                if isinstance(dst, tuple):
+                    for d, s in zip(dst, src):
+                        d[slot] = s
+                else:
+                    dst[slot] = src
+            self.lane_req[slot] = rid
+            return
+        rid, pixels = self.queue.pop(0)
+        st.px[slot] = pixels
+        st.rng[slot] = prng_mod.seed_state(self.seed + rid, (self.n_in,),
+                                           device="cpu").numpy()
+        for v in st.v:
+            v[slot] = self.cfg.lif.v_rest
+        for en in st.en:
+            en[slot] = True
+        for vp in st.v_peak:
+            vp[slot] = V_PEAK_INIT
+        st.counts[slot] = 0
+        st.first[slot] = self.cfg.num_steps
+        st.gate_prev[slot] = -1
+        st.gate_streak[slot] = 0
+        st.steps[slot] = 0
+        st.adds[slot] = 0
+        st.active[slot] = True
+        st.weight_version[slot] = self.bank.current
+        self.lane_req[slot] = rid
+
+    def _host_tile(self) -> LaneState:
+        return _map(_to_host, self.lanes)
+
+    def _upload(self, st: LaneState) -> LaneState:
+        return _map(lambda a: torch.from_numpy(np.ascontiguousarray(a))
+                    .to(self.device), st)
+
+    def _needs_compaction(self) -> bool:
+        """Only the (B,) active mask crosses to the host; the full tile
+        round trip happens only when a lane retired or work can be
+        admitted."""
+        occupied = np.array([r is not None for r in self.lane_req])
+        active = self.lanes.active.cpu().numpy()
+        waiting = bool(self.queue or self._adoptions)
+        return bool((occupied & ~active).any() or (
+            waiting and not (occupied & active).all()))
+
+    def _admit_and_compact(self) -> list[int]:
+        """Harvest retired lanes, compact live ones (stable, live first),
+        admit waiting work into the freed tail.  Returns finished ids."""
+        if not self._needs_compaction():
+            return []
+        occupied = np.array([r is not None for r in self.lane_req])
+        st = self._host_tile()
+        done_ids = self._harvest(st, occupied & ~st.active)
+        live = np.nonzero(occupied & st.active)[0]
+        free = np.nonzero(~(occupied & st.active))[0]
+        order = np.concatenate([live, free]).astype(np.int64)
+        st = _map(lambda a: a[order], st)
+        n_live = len(live)
+        self.lane_req = ([self.lane_req[int(i)] for i in live]
+                         + [None] * (self.batch_size - n_live))
+        for slot in range(n_live, self.batch_size):
+            if not (self.queue or self._adoptions):
+                break
+            self._admit_into(st, slot)
+        self._sync_versions(st)
+        self.lanes = self._upload(st)
+        return done_ids
+
+    def _sync_versions(self, st: LaneState) -> None:
+        """Refresh the host version mirror; drop drained weight versions
+        (dropping the last old one completes a rollout)."""
+        self._lane_versions = np.asarray(st.weight_version).astype(np.int64)
+        self.bank.gc({int(v) for v, r in zip(self._lane_versions,
+                                             self.lane_req)
+                      if r is not None})
+
+    # ---- lane migration -------------------------------------------------
+    def _live_rows(self, st: LaneState) -> list[tuple[int, LaneState]]:
+        occupied = np.array([r is not None for r in self.lane_req])
+        return [(self.lane_req[int(i)],
+                 _map(lambda a, i=int(i): a[i].copy(), st))
+                for i in np.nonzero(occupied & st.active)[0]]
+
+    def snapshot_lanes(self) -> list[tuple[int, LaneState]]:
+        """Harvest finished lanes, then return and release every in-flight
+        lane as ``(request_id, row)`` — its complete chunk-boundary state,
+        which :meth:`adopt` on any same-seed engine resumes exactly."""
+        occupied = np.array([r is not None for r in self.lane_req])
+        st = self._host_tile()
+        self._harvest(st, occupied & ~st.active)
+        rows = self._live_rows(st)
+        self.lane_req = [None] * self.batch_size
+        self._lane_versions = np.zeros(self.batch_size, np.int64)
+        return rows
+
+    def checkpoint_lanes(self) -> list[tuple[int, LaneState]]:
+        """Non-destructive copy of every in-flight lane (same rows as
+        :meth:`snapshot_lanes`; the engine keeps running)."""
+        return self._live_rows(self._host_tile())
+
+    def adopt(self, request_id: int, row: LaneState) -> None:
+        """Queue an evacuated lane row; it is admitted ahead of fresh
+        requests and resumes where it stopped.  Its weight version must be
+        in this engine's bank."""
+        rid = int(request_id)
+        if self._id_in_use(rid):
+            raise ValueError(f"request id {rid} already in use")
+        v = int(row.weight_version)
+        if v not in self.bank.versions:
+            raise KeyError(
+                f"adopting request {rid} needs weight version {v}, not in "
+                f"bank {self.bank.versions} — restore it via bank.ensure()")
+        self._adoptions.append((rid, row))
+        self._next_id = max(self._next_id, rid + 1)
+
+    def begin_rollout(self, params_q: dict) -> int:
+        """Publish new weights without draining: new admissions bind the
+        returned version, in-flight lanes finish on their own."""
+        ws = self._place_weights(
+            tuple(layer["w_q"] for layer in params_q["layers"]))
+        sizes = tuple([int(ws[0].shape[0])] + [int(w.shape[1]) for w in ws])
+        if sizes != self.layer_sizes:
+            raise ValueError(
+                f"rollout cannot change the topology: engine serves "
+                f"{self.layer_sizes}, new weights are {sizes}")
+        if self.backend == "fused":
+            ops.validate_weight_codes(ws)
+        return self.bank.begin(ws)
+
+    # ---- dispatch -------------------------------------------------------
+    def _advance(self, lanes: LaneState, weights: tuple):
+        self.dispatches += 1
+        return stream_chunk(
+            lanes, weights, chunk_steps=self.controller.chunk_steps,
+            num_steps=self.cfg.num_steps, lif_cfg=self.cfg.lif,
+            dot_impl=self.cfg.dot_impl,
+            active_pruning=self.cfg.active_pruning, patience=self.patience,
+            readout=self.cfg.readout, backend=self.backend,
+            sparse_skip=self.cfg.sparse_skip)
+
+    def _dispatch_versions(self, lanes: LaneState):
+        """One chunk per live weight version: each run freezes the other
+        versions' lanes, and the per-lane merge takes every lane from its
+        own version's run."""
+        occ = [r is not None for r in self.lane_req]
+        versions = sorted({int(v) for v, o in zip(self._lane_versions, occ)
+                           if o})
+        if len(versions) <= 1:
+            v = versions[0] if versions else self.bank.current
+            return self._advance(lanes, self.bank.weights(v))
+        outs = []
+        for v in versions:
+            mask = self._lane_versions == v
+            sub = lanes._replace(active=lanes.active & torch.as_tensor(
+                mask, device=self.device))
+            out, tel = self._advance(sub, self.bank.weights(v))
+            outs.append((mask, out, tel))
+        return merge_version_chunks(outs)
+
+    def _observe(self, src: LaneState, nxt: LaneState,
+                 tel: ChunkTelemetry) -> None:
+        """Feed one chunk's telemetry to the controller (adaptive only:
+        frozen mode never reads telemetry back)."""
+        if self.controller.frozen:
+            return
+        self.controller.observe(summarize_chunk(
+            tel, self.layer_sizes, steps_before=src.steps,
+            steps_after=nxt.steps, active_before=src.active,
+            active_after=nxt.active))
+
+    def step(self) -> list[int]:
+        """Admit + run one chunk.  Returns the request ids finished."""
+        done = self._admit_and_compact()
+        src = self.lanes
+        self.lanes, tel = self._dispatch_versions(src)
+        self._observe(src, self.lanes, tel)
+        return done
+
+    def run(self, max_chunks: int | None = None) -> dict[int, RequestResult]:
+        """Drive chunks until every submitted request has a result."""
+        limit = max_chunks if max_chunks is not None else (
+            (self.pending + self.batch_size)
+            * (self.cfg.num_steps // max(1, self.controller.min_chunk_steps)
+               + 2))
+        for _ in range(limit):
+            if self.pending == 0:
+                break
+            self.step()
+        self._admit_and_compact()
+        return self.results
