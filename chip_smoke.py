@@ -9,24 +9,34 @@ result line):
 1. device — a CUDA device must be present; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
 2. build — compiles every kernel source under
-   ``src/repro_torch/kernels/csrc/`` with nvcc for sm_90a and prints the
-   build time and ptxas' register / shared-memory / spill report.
-3. kernel vs plain — the encode→LIF stack kernel against its plain PyTorch
-   version on the same operands on the card, integer-equal on every output
-   (counts, trace, first-spike latch, adds, PRNG state, per-layer v / en /
-   v_peak, steps, gate and the three telemetry leaves): the paper config,
-   the pruned first-spike config, the deep stack and a membrane-readout
-   variant; gated and ungated; one 20-step launch and 5 chunks of 4;
-   sparse_skip on and off.
-4. serve — ``SNNStreamEngine`` on the paper's 784→10 classifier
-   (batch 1024, chunk 4, patience 2) serves 4,096 seeded images with
-   seeded random weight codes; every launch of the main path is counted,
-   and the results must equal the reference backend's on the card, id for
-   id.
-5. times — the kernel and its plain version at the serving shape, with the
-   bound: the larger of the bytes the function must move (unpadded shapes,
-   each input read once, each output written once) at 3.35 TB/s and its
-   integer operations at the card's INT32 rate.
+   ``src/repro_torch/kernels/csrc/`` with nvcc for sm_90a (one nvcc per
+   source, all at once) and prints each build's time and ptxas' register /
+   shared-memory / spill report.
+3. kernels vs plain — every kernel against its plain PyTorch version on
+   the same operands on the card, integer-equal on every output:
+   K1, the resident encode→LIF stack kernel, and K2, the weight-streaming
+   one, in 16 cases each (counts, trace, first-spike latch, adds, PRNG
+   state, per-layer v / en / v_peak, steps, gate and the three telemetry
+   leaves; gated and ungated, one 20-step launch and 5 chunks of 4,
+   sparse_skip on and off; K1 on the paper config, the pruned first-spike
+   config, the deep stack and a membrane-readout variant, K2 on the wide
+   stack with two readouts, the deep stack and the membrane variant), and
+   K2 == K1 on the deep stack; K4, the encoder kernel, and K5, the LIF
+   kernel, on the wide stack's shapes (K5 with pruning on and off and
+   with int16 codes beyond the 9-bit range); the staged backend
+   (K4 + one K5 per layer) equal to the reference backend on the wide
+   stack; ``auto`` resolving to the staged kernels for a stack no stack
+   kernel holds.
+4. serve — ``SNNStreamEngine`` with ``backend=None`` serves 4,096 seeded
+   images twice: the paper's 784→10 classifier through K1, and the wide
+   784→2048→2048→10 stack through K2 (batch 1024, chunk 4, patience 2,
+   seeded random weight codes).  Every launch of each main path is
+   counted, the results must equal the reference backend's on the card id
+   for id, and the wide stack's hidden layers must spike at 1–50%.
+5. times — each kernel and its plain version at the main path's shapes,
+   with the bound: the larger of the bytes the function must move
+   (unpadded shapes, each input read once, each output written once) at
+   3.35 TB/s and its integer operations at the card's INT32 rate.
 
 The second-to-last lines are the ``{"kernels": [...]}`` record and the
 nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``.
@@ -36,6 +46,7 @@ Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -50,8 +61,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import snn_mnist as cfgs  # noqa: E402
+from repro_torch.core import snn  # noqa: E402
 from repro_torch.core.prng import seed_state  # noqa: E402
-from repro_torch.kernels import _build, fused_snn, ops  # noqa: E402
+from repro_torch.kernels import (_build, fused_snn, lif_step, ops,  # noqa: E402
+                                 poisson_encode)
 from repro_torch.serve import SNNStreamEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
@@ -62,8 +75,30 @@ INT32_OPS_PER_S = 67e12 / 4
 SEED = 0
 SERVE_BATCH, SERVE_CHUNK, SERVE_PATIENCE, SERVE_REQUESTS = 1024, 4, 2, 4096
 CHECK_BATCH = 1021            # pads to 1024: exercises the batch padding
-SOURCE = "src/repro_torch/kernels/csrc/fused_snn_stack.cu"
-REPLACES = "src/repro/kernels/fused_snn.py:554"
+T_STAGED = 20                 # staged window of the K4 / K5 checks and times
+CSRC = "src/repro_torch/kernels/csrc/"
+# the kernels: name, source, the TPU kernel each replaces, its launch counter
+KERNELS = {
+    "K1": ("fused_snn_stack", CSRC + "fused_snn_stack.cu",
+           "src/repro/kernels/fused_snn.py:554", fused_snn.fused_snn_stack),
+    "K2": ("fused_snn_stack_streamed", CSRC + "fused_snn_streamed.cu",
+           "src/repro/kernels/fused_snn.py:554 (streamed=True, :355-421)",
+           fused_snn.fused_snn_stack_streamed),
+    "K4": ("poisson_encode", CSRC + "poisson_encode.cu",
+           "src/repro/kernels/poisson_encode.py:49",
+           poisson_encode.poisson_encode),
+    "K5": ("lif_forward", CSRC + "lif_step.cu",
+           "src/repro/kernels/lif_step.py:70", lif_step.lif_forward),
+}
+
+
+def reset_counts() -> None:
+    for _, _, _, fn in KERNELS.values():
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {k: fn.launches for k, (_, _, _, fn) in KERNELS.items()}
 
 
 def log(msg: str) -> None:
@@ -102,7 +137,8 @@ def phase_build() -> None:
         for line in info.log.splitlines():
             if re.search(r"registers|spill|smem|stack frame|Compiling", line):
                 log(f"[build]   {line.strip()}")
-    _build.load_library()
+    for name in _build.SOURCES:
+        _build.load_library(name)
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +180,18 @@ def _weights(rng, sizes, dev, mean=6.0, std=40.0):
         for i, o in zip(sizes[:-1], sizes[1:]))
 
 
+def _fan_in_weights(rng, sizes, dev, scale=170.0):
+    """Seeded signed 9-bit codes, normal(0, scale / sqrt(fan-in)): at the
+    default scale the wide stack's hidden layers spike at roughly 5-15%,
+    neither silent nor saturated; with pruning (each neuron fires at most
+    once a window) a scale of 350 keeps the output layer spiking."""
+    return tuple(
+        torch.from_numpy(np.clip(np.round(rng.normal(0.0, scale / np.sqrt(i),
+                                                     (i, o))),
+                                 -256, 255).astype(np.int16)).to(dev)
+        for i, o in zip(sizes[:-1], sizes[1:]))
+
+
 def _images(rng, n, n_in=784):
     """MNIST-like uint8 images: dark background, ~20% bright strokes."""
     px = np.zeros((n, n_in), np.uint8)
@@ -160,8 +208,9 @@ def _lif_kw(cfg, readout, sparse_skip, patience=SERVE_PATIENCE):
                 patience=patience, readout=readout, sparse_skip=sparse_skip)
 
 
-def _run_window(cfg, px, st, ws, kw, gate, chunk, compare):
-    """Run the whole window in ``chunk``-step launches of the kernel,
+def _run_window(cfg, px, st, ws, kw, gate, chunk, compare,
+                kernel=fused_snn.fused_snn_stack):
+    """Run the whole window in ``chunk``-step launches of a stack kernel,
     holding each launch against the plain version when ``compare``.
     Returns (op-level results per launch, max abs error)."""
     init, results, err = None, [], 0
@@ -169,8 +218,7 @@ def _run_window(cfg, px, st, ws, kw, gate, chunk, compare):
         args, meta = ops.stack_operands(px, st, ws, num_steps=cfg.num_steps,
                                         v_rest=cfg.lif.v_rest, init=init,
                                         gate=gate)
-        got = fused_snn.fused_snn_stack(*args, chunk_steps=chunk,
-                                        block_b=meta["block_b"], **kw)
+        got = kernel(*args, chunk_steps=chunk, block_b=meta["block_b"], **kw)
         torch.cuda.synchronize()
         if compare:
             want = fused_snn.fused_snn_stack_plain(
@@ -211,48 +259,185 @@ def _same_window(one, chunks) -> None:
         raise AssertionError("chunked != one-shot on the gate")
 
 
-def phase_kernel_vs_plain(dev) -> tuple[int, int]:
+def _gate(batch, dev):
+    act = torch.ones(batch, dtype=torch.bool, device=dev)
+    act[::13] = False                             # lanes frozen from t=0
+    return {"active": act,
+            "prev": torch.full((batch,), -1, dtype=torch.int32, device=dev),
+            "streak": torch.zeros(batch, dtype=torch.int32, device=dev)}
+
+
+def _stack_cases(dev, tag, kernel, cases) -> tuple[int, int]:
+    """16 cases of one stack kernel against the plain version: each
+    (config, readout, pruning, weights) gated and ungated, sparse_skip on
+    and off, one 20-step launch and 5 chunks of 4."""
     rng = np.random.default_rng(SEED)
-    cases = [("SNN_CONFIG", "count"), ("SNN_CONFIG_PRUNED", "first_spike"),
-             ("SNN_CONFIG_DEEP", "count"), ("SNN_CONFIG", "membrane")]
     n_cases, err = 0, 0
     t0 = time.perf_counter()
-    for name, readout in cases:
-        cfg = dataclasses.replace(getattr(cfgs, name), readout=readout)
-        ws = _weights(rng, cfg.layer_sizes, dev)
+    for name, readout, prune, weights in cases:
+        cfg = dataclasses.replace(getattr(cfgs, name), readout=readout,
+                                  active_pruning=prune)
+        ws = weights(rng, cfg.layer_sizes, dev)
         px = torch.from_numpy(_images(rng, CHECK_BATCH)).to(dev)
         st = seed_state(SEED + n_cases, (CHECK_BATCH, cfg.n_in), device=dev)
         for gated in (False, True):
             for sparse_skip in (True, False):
-                gate = None
-                if gated:
-                    act = torch.ones(CHECK_BATCH, dtype=torch.bool,
-                                     device=dev)
-                    act[::13] = False             # lanes frozen from t=0
-                    gate = {"active": act,
-                            "prev": torch.full((CHECK_BATCH,), -1,
-                                               dtype=torch.int32, device=dev),
-                            "streak": torch.zeros(CHECK_BATCH,
-                                                  dtype=torch.int32,
-                                                  device=dev)}
+                gate = _gate(CHECK_BATCH, dev) if gated else None
                 kw = _lif_kw(cfg, readout, sparse_skip)
                 one, e1 = _run_window(cfg, px, st, ws, kw, gate,
-                                      cfg.num_steps, compare=True)
+                                      cfg.num_steps, True, kernel)
                 chunks, e2 = _run_window(cfg, px, st, ws, kw, gate, 4,
-                                         compare=True)
+                                         True, kernel)
                 _same_window(one, chunks)
                 spikes = int(one[0]["spike_counts"].sum())
                 if spikes == 0:
                     raise AssertionError(f"{name}: no output spikes")
                 err = max(err, e1, e2)
                 n_cases += 1
-                log(f"[kernel-vs-plain] {name:18s} readout={readout:11s} "
-                    f"gated={gated!s:5s} sparse_skip={sparse_skip!s:5s} "
-                    f"B={CHECK_BATCH} T=20 one-shot + 5x4: equal "
-                    f"(output spikes {spikes})")
-    log(f"[kernel-vs-plain] {n_cases} cases, every output integer-equal, "
+                log(f"[{tag}-vs-plain] {name:18s} readout={readout:11s} "
+                    f"prune={prune!s:5s} gated={gated!s:5s} "
+                    f"sparse_skip={sparse_skip!s:5s} B={CHECK_BATCH} T=20 "
+                    f"one-shot + 5x4: equal (output spikes {spikes})")
+    log(f"[{tag}-vs-plain] {n_cases} cases, every output integer-equal, "
         f"{time.perf_counter() - t0:.2f} s")
     return n_cases, err
+
+
+def phase_kernel_vs_plain(dev) -> tuple[int, int]:
+    return _stack_cases(dev, "K1", fused_snn.fused_snn_stack, [
+        ("SNN_CONFIG", "count", False, _weights),
+        ("SNN_CONFIG_PRUNED", "first_spike", True, _weights),
+        ("SNN_CONFIG_DEEP", "count", False, _weights),
+        ("SNN_CONFIG", "membrane", False, _weights)])
+
+
+def phase_streamed_vs_plain(dev) -> tuple[int, int]:
+    n_cases, err = _stack_cases(dev, "K2", fused_snn.fused_snn_stack_streamed, [
+        ("SNN_CONFIG_WIDE", "count", False, _fan_in_weights),
+        ("SNN_CONFIG_WIDE", "first_spike", True,
+         functools.partial(_fan_in_weights, scale=350.0)),
+        ("SNN_CONFIG_DEEP", "count", False, _weights),
+        ("SNN_CONFIG", "membrane", False, _weights)])
+    # where both stack kernels run, K2 == K1 output for output
+    rng = np.random.default_rng(SEED + 7)
+    cfg = cfgs.SNN_CONFIG_DEEP
+    ws = _weights(rng, cfg.layer_sizes, dev)
+    px = torch.from_numpy(_images(rng, CHECK_BATCH)).to(dev)
+    st = seed_state(SEED + 7, (CHECK_BATCH, cfg.n_in), device=dev)
+    for gated in (False, True):
+        args, meta = ops.stack_operands(
+            px, st, ws, num_steps=cfg.num_steps,
+            gate=_gate(CHECK_BATCH, dev) if gated else None)
+        kw = dict(_lif_kw(cfg, cfg.readout, True), chunk_steps=cfg.num_steps,
+                  block_b=meta["block_b"])
+        k1 = fused_snn.fused_snn_stack(*args, **kw)
+        k2 = fused_snn.fused_snn_stack_streamed(*args, **kw)
+        torch.cuda.synchronize()
+        e = _max_abs_err(k2, k1)
+        if e:
+            raise AssertionError(f"K2 != K1 on SNN_CONFIG_DEEP (max |err| {e})")
+    log("[K2-vs-K1] SNN_CONFIG_DEEP gated and ungated, T=20: every output "
+        "equal")
+    return n_cases, err
+
+
+def phase_staged(dev, wide_params) -> dict:
+    """K4 and K5 against their plain versions, the staged backend against
+    the reference on the wide stack, and ``auto`` reaching the staged
+    kernels."""
+    rng = np.random.default_rng(SEED + 3)
+    t0 = time.perf_counter()
+    px = torch.from_numpy(_images(rng, CHECK_BATCH)).to(dev)
+    st = seed_state(SEED + 3, (CHECK_BATCH, 784), device=dev)
+    # K4 at (T, 1,021 lanes, 784) through its op (padding to 1024 x 896)
+    spikes, st_k4 = ops.poisson_encode_op(px, st, T_STAGED)
+    torch.cuda.synchronize()
+    want = poisson_encode.poisson_encode_plain(px, st, T_STAGED)
+    err_k4 = _max_abs_err((spikes, st_k4), want)
+    if err_k4:
+        raise AssertionError(f"K4 != plain (max |err| {err_k4})")
+    # its final PRNG state equals K1's after as many steps from the seed
+    cfg = cfgs.SNN_CONFIG
+    k1 = ops.fused_snn_stack_op(px, st, _weights(rng, cfg.layer_sizes, dev),
+                                num_steps=T_STAGED, decay_shift=4,
+                                v_threshold=128)
+    if _max_abs_err(k1["prng_state"], st_k4):
+        raise AssertionError("K4's final PRNG state != K1's")
+    log(f"[K4-vs-plain] T={T_STAGED} B={CHECK_BATCH} N=784: spikes and state "
+        f"equal; final state equals K1's after {T_STAGED} steps; input "
+        f"spike density {float(spikes.float().mean()):.4f}")
+    # K5 on both wide hidden layers, pruning on and off, 9-bit codes and
+    # codes in [-2000, 2000]
+    wide = cfgs.SNN_CONFIG_WIDE
+    w_fan = [torch.as_tensor(l["w_q"]).to(dev) for l in wide_params["layers"]]
+    w_big = [torch.from_numpy(rng.integers(-2000, 2001, tuple(w.shape))
+                              .astype(np.int16)).to(dev) for w in w_fan]
+    n_k5, err_k5 = 0, 0
+    lif = wide.lif
+    for codes, ws in (("9-bit", w_fan), ("[-2000, 2000]", w_big)):
+        for prune in (False, True):
+            kw = dict(decay_shift=lif.decay_shift, v_threshold=lif.v_threshold,
+                      v_rest=lif.v_rest, v_min=lif.v_min, v_max=lif.v_max,
+                      active_pruning=prune)
+            x, dens = spikes, []
+            for l in range(2):                    # the two hidden layers
+                got = ops.lif_forward_op(x, ws[l], **kw)
+                torch.cuda.synchronize()
+                e = _max_abs_err(got, lif_step.lif_forward_plain(x, ws[l],
+                                                                 **kw))
+                if e:
+                    raise AssertionError(f"K5 != plain on hidden layer {l + 1}"
+                                         f" ({codes}, prune={prune}): {e}")
+                err_k5 = max(err_k5, e)
+                n_k5 += 1
+                x = got[0]
+                dens.append(float(x.float().mean()))
+            log(f"[K5-vs-plain] 784->2048->2048 codes {codes:13s} "
+                f"prune={prune!s:5s} T={T_STAGED} B={CHECK_BATCH}: equal; "
+                f"hidden densities {dens[0]:.4f} {dens[1]:.4f}")
+    # the staged backend on the wide stack, on the card, == the reference
+    reset_counts()                                # the staged path starts
+    got = snn.snn_apply_int(wide_params, px, st, wide, backend="staged")
+    torch.cuda.synchronize()
+    staged_counts = counts()                      # the staged path ended
+    if (staged_counts["K4"], staged_counts["K5"]) != (1, 3):
+        raise AssertionError(f"staged run launched {staged_counts}")
+    want = snn.snn_apply_int(wide_params, px, st, wide, backend="reference")
+    for key in ("pred", "spike_counts", "v_trace", "first_spike_t", "v_final",
+                "active_adds", "prng_state", "v_peak", "telemetry"):
+        if _max_abs_err(got[key], want[key]):
+            raise AssertionError(f"staged != reference on {key}")
+    if _max_abs_err(got["input_spikes"], want["input_spikes"].to(torch.uint8)):
+        raise AssertionError("staged != reference on input_spikes")
+    log(f"[staged] SNN_CONFIG_WIDE B={CHECK_BATCH} T=20: every output equal "
+        f"to the reference backend's; launches K4 {staged_counts['K4']}, "
+        f"K5 {staged_counts['K5']}")
+    # auto on a stack no stack kernel holds (nine layers of 64) is staged
+    narrow = dataclasses.replace(cfgs.SNN_CONFIG_DEEP, layer_sizes=(64,) * 10)
+    p = {"layers": [{"w_q": w} for w in
+                    _fan_in_weights(rng, narrow.layer_sizes, dev)]}
+    b = snn.resolve_backend(narrow, n_layers=9, device=dev)
+    if b != "staged":
+        raise AssertionError(f"auto on 9 x 64 resolved to {b!r}")
+    before = counts()
+    res = snn.snn_apply_int(p, px[:, :64].contiguous(),
+                            st[:, :64].contiguous(), narrow)
+    torch.cuda.synchronize()
+    after = counts()
+    if (after["K4"] - before["K4"], after["K5"] - before["K5"]) != (1, 9) \
+            or after["K1"] != before["K1"] or after["K2"] != before["K2"]:
+        raise AssertionError(f"auto on 9 x 64 launched {before} -> {after}")
+    want = snn.snn_apply_int(p, px[:, :64].contiguous(),
+                             st[:, :64].contiguous(), narrow,
+                             backend="reference")
+    if _max_abs_err(res["spike_counts"], want["spike_counts"]):
+        raise AssertionError("auto (staged) != reference on 9 x 64")
+    log(f"[staged] auto on 9 layers of 64 -> 'staged': K4 +1, K5 +9, equal to "
+        f"the reference; {time.perf_counter() - t0:.2f} s")
+    return {"K4": {"launches": staged_counts["K4"], "max_abs_err": err_k4,
+                   "cases": 1},
+            "K5": {"launches": staged_counts["K5"], "max_abs_err": err_k5,
+                   "cases": n_k5}}
 
 
 # ---------------------------------------------------------------------------
@@ -264,8 +449,23 @@ def _serve_params(rng):
     return {"layers": [{"w_q": w.astype(np.int16), "scale": 1.0 / 128}]}
 
 
-def _engine(params, backend):
-    return SNNStreamEngine(params, cfgs.SNN_CONFIG, batch_size=SERVE_BATCH,
+def _wide_params(rng):
+    """Seeded codes for SNN_CONFIG_WIDE, scaled to fan-in as
+    ``_fan_in_weights`` scales them, as numpy arrays."""
+    sizes = cfgs.SNN_CONFIG_WIDE.layer_sizes
+    return {"layers": [
+        {"w_q": np.clip(np.round(rng.normal(0.0, 170 / np.sqrt(i), (i, o))),
+                        -256, 255).astype(np.int16), "scale": 1.0 / 128}
+        for i, o in zip(sizes[:-1], sizes[1:])]}
+
+
+def _on(params, dev):
+    return {"layers": [{"w_q": torch.from_numpy(l["w_q"]).to(dev),
+                        "scale": l["scale"]} for l in params["layers"]]}
+
+
+def _engine(params, cfg, backend):
+    return SNNStreamEngine(params, cfg, batch_size=SERVE_BATCH,
                            chunk_steps=SERVE_CHUNK, patience=SERVE_PATIENCE,
                            seed=SEED, backend=backend)
 
@@ -297,54 +497,95 @@ def _time_methods(eng, names) -> dict:
     return spent
 
 
-def phase_serve(imgs, params) -> dict:
-    eng = _engine(params, None)
-    if eng.backend != "fused":
+def _record_telemetry(eng) -> list:
+    """Keep every chunk's ChunkTelemetry the engine's dispatch returns."""
+    tels, dispatch = [], eng._dispatch_versions
+
+    def run(lanes):
+        out = dispatch(lanes)
+        tels.append(out[1])
+        return out
+
+    eng._dispatch_versions = run
+    return tels
+
+
+def _densities(tels, sizes) -> list[float]:
+    """Mean input spike density of every layer over the lane-steps that ran
+    (a frozen or empty lane's telemetry row is zero)."""
+    n_spk = torch.cat([t.n_spk for t in tels]).double()
+    ran = (torch.cat([t.n_en for t in tels])[:, 0, :] > 0).double()
+    return [float((n_spk[:, l, :] * ran).sum() / (ran.sum() * k))
+            for l, k in enumerate(sizes[:-1])]
+
+
+def phase_serve(imgs, params, cfg, tag, backend) -> dict:
+    """Serve ``imgs`` with ``backend=None`` (it must resolve to
+    ``backend``, the main path of kernel ``tag``), then again on the
+    reference backend; the results must be equal id for id."""
+    name = "SNN_CONFIG_WIDE" if cfg is cfgs.SNN_CONFIG_WIDE else "SNN_CONFIG"
+    eng = _engine(params, cfg, None)
+    if eng.backend != backend:
         raise AssertionError(f"auto backend resolved to {eng.backend!r}")
     for im in imgs:
         eng.submit(im)
+    tels = _record_telemetry(eng)
     spent = _time_methods(eng, _TIMED)
     torch.cuda.synchronize()
-    fused_snn.fused_snn_stack.launches = 0          # the main path starts
+    reset_counts()                                # the main path starts
     t0 = time.perf_counter()
     results = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused_snn.fused_snn_stack.launches   # the main path ended
+    launched = counts()                           # the main path ended
     if sorted(results) != list(range(len(imgs))):
         raise AssertionError(f"{len(results)} results for {len(imgs)} "
                              f"requests")
-    if not (launches > 0 and launches == eng.dispatches):
-        raise AssertionError(f"{launches} kernel launches for "
+    if not (launched[tag] > 0 and launched[tag] == eng.dispatches):
+        raise AssertionError(f"{launched[tag]} {tag} launches for "
                              f"{eng.dispatches} chunk dispatches")
-    ref = _engine(params, "reference")
+    if any(n for k, n in launched.items() if k != tag):
+        raise AssertionError(f"the {name} serve run launched {launched}")
+    dens = _densities(tels, cfg.layer_sizes)
+    out_spikes = int(sum(int(r.spike_counts.sum()) for r in results.values()))
+    ref = _engine(params, cfg, "reference")
     for im in imgs:
         ref.submit(im)
     t1 = time.perf_counter()
     want = ref.run()
     ref_wall = time.perf_counter() - t1
-    if fused_snn.fused_snn_stack.launches != launches:
-        raise AssertionError("the reference backend launched the kernel")
+    if counts() != launched:
+        raise AssertionError("the reference backend launched a kernel")
     for rid, w in want.items():
         g = results[rid]
         if (g.pred, g.steps, g.adds, g.early_exit, g.weight_version) != \
                 (w.pred, w.steps, w.adds, w.early_exit, w.weight_version) \
                 or not np.array_equal(g.spike_counts, w.spike_counts):
-            raise AssertionError(f"request {rid}: fused {g} != reference {w}")
+            raise AssertionError(f"request {rid}: {backend} {g} != "
+                                 f"reference {w}")
     steps = np.array([r.steps for r in results.values()])
     preds = np.bincount([r.pred for r in results.values()], minlength=10)
-    log(f"[serve] SNN_CONFIG 784->10 T=20 batch={SERVE_BATCH} "
-        f"chunk={SERVE_CHUNK} patience={SERVE_PATIENCE}: "
+    sizes = "->".join(str(n) for n in cfg.layer_sizes)
+    log(f"[serve] {name} {sizes} T=20 batch={SERVE_BATCH} "
+        f"chunk={SERVE_CHUNK} patience={SERVE_PATIENCE} backend={backend}: "
         f"{len(results)} requests in {wall:.3f} s = "
         f"{len(results) / wall:.1f} requests/s, {eng.dispatches} chunks, "
-        f"{launches} kernel launches")
-    log("[serve] host time by engine method (ms, calls): " + ", ".join(
+        f"{launched[tag]} {tag} launches")
+    log(f"[serve] {name} host time by engine method (ms, calls): " + ", ".join(
         f"{n} {sec * 1e3:.2f} ({calls})" for n, (sec, calls) in spent.items()))
-    log(f"[serve] early exits {int((steps < 20).sum())}, mean steps "
-        f"{steps.mean():.2f}, predictions per class {preds.tolist()}")
-    log(f"[serve] reference backend on the card: {ref_wall:.3f} s = "
+    log(f"[serve] {name} input spike density per layer "
+        + " ".join(f"{d:.4f}" for d in dens)
+        + f"; output spikes {out_spikes}; early exits "
+        f"{int((steps < 20).sum())}, mean steps {steps.mean():.2f}, "
+        f"predictions per class {preds.tolist()}")
+    if len(dens) > 1 and not all(0.01 <= d <= 0.5 for d in dens[1:]):
+        raise AssertionError(f"hidden spike densities {dens[1:]} outside "
+                             f"[1%, 50%]")
+    if out_spikes == 0:
+        raise AssertionError("the output layer never spiked")
+    log(f"[serve] {name} reference backend on the card: {ref_wall:.3f} s = "
         f"{len(want) / ref_wall:.1f} requests/s; results equal id for id")
-    return {"launches": launches, "chunks": eng.dispatches,
+    return {"launches": launched[tag], "chunks": eng.dispatches,
             "requests_per_s": len(results) / wall}
 
 
@@ -373,8 +614,54 @@ def _function_bytes(batch, sizes, chunk, gated) -> int:
     return batch * n_in + 2 * state + records + tiles + weights
 
 
-def phase_times(imgs, params, dev) -> dict:
-    cfg = cfgs.SNN_CONFIG
+def _device_ms(fn, n) -> float:
+    """Device time per call of ``fn``: the stream is held by a sleep kernel
+    while the host enqueues every call, so the events bracket back-to-back
+    kernels and not the wrapper's host work."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(200_000_000)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def _plain_ms(fn, m) -> float:
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(m):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / m
+
+
+def _bound(tag, fn_bytes, n_ops, ms, plain_ms, what) -> dict:
+    t_bytes = fn_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    log(f"[times] {tag} {what}: {ms * 1e3:.2f} us/launch on the device; "
+        f"plain version {plain_ms * 1e3:.1f} us")
+    log(f"[times] {tag} bound: the function moves {fn_bytes} B "
+        f"({fn_bytes / 1e6:.3f} MB, unpadded) at 3.35 TB/s -> "
+        f"{t_bytes * 1e3:.3f} us; {n_ops} int32 ops at "
+        f"{INT32_OPS_PER_S / 1e12:.2f} T/s -> {t_ops * 1e3:.3f} us; bound "
+        f"{bound_ms * 1e3:.3f} us ({bound_ms / ms * 100:.2f}% of the "
+        f"kernel's time); no single PyTorch call computes this function, "
+        f"so there is no library time")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _time_stack(tag, cfg, imgs, params, dev, kernel, n, m) -> dict:
+    """A stack kernel at its serving shape: B lanes, one gated chunk."""
     px = torch.from_numpy(imgs[:SERVE_BATCH]).to(dev)
     st = seed_state(SEED, (SERVE_BATCH, cfg.n_in), device=dev)
     ws = tuple(torch.from_numpy(l["w_q"]).to(dev) for l in params["layers"])
@@ -386,76 +673,72 @@ def phase_times(imgs, params, dev) -> dict:
                                     gate=gate)
     kw = dict(_lif_kw(cfg, cfg.readout, True), chunk_steps=SERVE_CHUNK,
               block_b=meta["block_b"])
-
-    def kernel():
-        return fused_snn.fused_snn_stack(*args, **kw)
-
-    def plain():
-        return fused_snn.fused_snn_stack_plain(*args, **kw)
-
-    out = kernel()
+    out = kernel(*args, **kw)
     torch.cuda.synchronize()
-    err = _max_abs_err(out, plain())
+    err = _max_abs_err(out, fused_snn.fused_snn_stack_plain(*args, **kw))
     if err:
-        raise AssertionError(f"kernel != plain at the serving shape ({err})")
-    for _ in range(20):
-        kernel()
-    torch.cuda.synchronize()
-    # Device time per launch: the stream is held by a sleep kernel while
-    # the host enqueues every launch, so the events bracket back-to-back
-    # kernels and not the wrapper's host work.
-    n = 200
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(200_000_000)
-    e0.record()
-    for _ in range(n):
-        kernel()
-    e1.record()
-    torch.cuda.synchronize()
-    ms = e0.elapsed_time(e1) / n
-    # host-clock time of one wrapper call, launch included
+        raise AssertionError(f"{tag} != plain at the serving shape ({err})")
+    ms = _device_ms(lambda: kernel(*args, **kw), n)
     t0 = time.perf_counter()
     for _ in range(n):
-        kernel()
+        kernel(*args, **kw)
     torch.cuda.synchronize()
     call_ms = (time.perf_counter() - t0) * 1e3 / n
-    for _ in range(2):
-        plain()
-    torch.cuda.synchronize()
-    m = 10
-    e0.record()
-    for _ in range(m):
-        plain()
-    e1.record()
-    torch.cuda.synchronize()
-    plain_ms = e0.elapsed_time(e1) / m
-
-    launch_bytes = _bytes_of(args) + _bytes_of(out)
-    fn_bytes = _function_bytes(SERVE_BATCH, cfg.layer_sizes, SERVE_CHUNK,
-                               gated=True)
-    res = ops.stack_results(out, meta)
-    adds = int(res["active_adds"].sum())
+    plain_ms = _plain_ms(
+        lambda: fused_snn.fused_snn_stack_plain(*args, **kw), m)
+    adds = int(ops.stack_results(out, meta)["active_adds"].sum())
     n_in, n_neurons = cfg.layer_sizes[0], sum(cfg.layer_sizes[1:])
     # executed synaptic adds (this data) + xorshift (6) and compare (1) per
     # pixel per step + ~10 LIF ops per neuron per step, all int32
     n_ops = (adds + 7 * SERVE_BATCH * n_in * SERVE_CHUNK
              + 10 * SERVE_BATCH * n_neurons * SERVE_CHUNK)
-    t_bytes = fn_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT32_OPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    log(f"[times] stack kernel B={SERVE_BATCH} chunk={SERVE_CHUNK} gated: "
-        f"{ms * 1e3:.2f} us/launch on the device ({n} launches), "
-        f"{call_ms * 1e3:.2f} us per wrapper call on the host clock; "
-        f"plain version {plain_ms * 1e3:.1f} us")
-    log(f"[times] bound: the function moves {fn_bytes} B "
-        f"({fn_bytes / 1e6:.3f} MB, unpadded) at 3.35 TB/s -> "
-        f"{t_bytes * 1e3:.3f} us; {n_ops} int32 ops at "
-        f"{INT32_OPS_PER_S / 1e12:.2f} T/s -> {t_ops * 1e3:.3f} us; bound "
-        f"{bound_ms * 1e3:.3f} us ({bound_ms / ms * 100:.2f}% of the "
-        f"kernel's time); the launch's padded operands are {launch_bytes} B")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "call_ms": call_ms}
+    fn_bytes = _function_bytes(SERVE_BATCH, cfg.layer_sizes, SERVE_CHUNK,
+                               gated=True)
+    log(f"[times] {tag} {call_ms * 1e3:.2f} us per wrapper call on the host "
+        f"clock; the launch's padded operands are "
+        f"{_bytes_of(args) + _bytes_of(out)} B")
+    res = _bound(tag, fn_bytes, n_ops, ms, plain_ms,
+                 f"B={SERVE_BATCH} chunk={SERVE_CHUNK} gated "
+                 f"{'->'.join(str(k) for k in cfg.layer_sizes)}")
+    return dict(res, call_ms=call_ms)
+
+
+def phase_times(imgs, params, wide_params, dev) -> dict:
+    times = {
+        "K1": _time_stack("K1", cfgs.SNN_CONFIG, imgs, params, dev,
+                          fused_snn.fused_snn_stack, 200, 10),
+        "K2": _time_stack("K2", cfgs.SNN_CONFIG_WIDE, imgs, wide_params, dev,
+                          fused_snn.fused_snn_stack_streamed, 20, 3)}
+    # K4 at (T, 1024, 784): the operands its op hands it, padded to 896
+    B, T = SERVE_BATCH, T_STAGED
+    pxp = torch.zeros((B, 896), dtype=torch.uint8, device=dev)
+    pxp[:, :784] = torch.from_numpy(imgs[:B])
+    stp = torch.zeros((B, 896), dtype=torch.int32, device=dev)
+    stp[:, :784] = seed_state(SEED, (B, 784), device=dev).view(torch.int32)
+    stp = stp.view(torch.uint32)
+    spikes = poisson_encode.poisson_encode(pxp, stp, T)[0]
+    ms = _device_ms(lambda: poisson_encode.poisson_encode(pxp, stp, T), 200)
+    plain = _plain_ms(
+        lambda: poisson_encode.poisson_encode_plain(pxp, stp, T), 10)
+    times["K4"] = _bound("K4", B * 784 * (1 + 4 + 4) + T * B * 784,
+                         7 * T * B * 784, ms, plain, f"T={T} B={B} N=784")
+    # K5 at (T, 1024, 2048 -> 2048): the second hidden layer of the wide
+    # stack, fed the first hidden layer's spike train
+    lif = cfgs.SNN_CONFIG_WIDE.lif
+    kw = dict(decay_shift=lif.decay_shift, v_threshold=lif.v_threshold,
+              v_rest=lif.v_rest, v_min=lif.v_min, v_max=lif.v_max)
+    w0, w1 = (torch.from_numpy(l["w_q"]).to(dev)
+              for l in wide_params["layers"][:2])
+    x = ops.lif_forward_op(spikes[:, :, :784], w0, **kw)[0].contiguous()
+    K, N = w1.shape
+    ms = _device_ms(lambda: lif_step.lif_forward(x, w1, **kw), 20)
+    plain = _plain_ms(lambda: lif_step.lif_forward_plain(x, w1, **kw), 3)
+    adds = int(x.sum()) * N               # no pruning: every neuron enabled
+    times["K5"] = _bound(
+        "K5", T * B * K + K * N * 2 + T * B * N * 5 + B * N * 4,
+        adds + 10 * T * B * N, ms, plain,
+        f"T={T} B={B} {K}->{N} (input density {float(x.float().mean()):.4f})")
+    return times
 
 
 def main() -> int:
@@ -464,21 +747,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    n_cases, err = phase_kernel_vs_plain(dev)
+    checks = {"K1": phase_kernel_vs_plain(dev),
+              "K2": phase_streamed_vs_plain(dev)}
     rng = np.random.default_rng(SEED + 1)
     params = _serve_params(rng)
     imgs = _images(rng, SERVE_REQUESTS)
-    serve = phase_serve(imgs, params)
-    times = phase_times(imgs, params, dev)
-    record = {"kernels": [{
-        "name": "fused_snn_stack", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": serve["launches"],
-        "max_abs_err": err, "ms": times["ms"], "plain_ms": times["plain_ms"],
-        "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
-        "library_ms": None, "match": True, "cases": n_cases,
-        "requests_per_s": serve["requests_per_s"],
-        "chunks": serve["chunks"]}]}
-    print(json.dumps(record), flush=True)
+    wide_params = _wide_params(rng)
+    staged = phase_staged(dev, _on(wide_params, dev))
+    serve = {"K1": phase_serve(imgs, params, cfgs.SNN_CONFIG, "K1", "fused"),
+             "K2": phase_serve(imgs, wide_params, cfgs.SNN_CONFIG_WIDE, "K2",
+                               "fused_streamed")}
+    times = phase_times(imgs, params, wide_params, dev)
+    record = []
+    for tag, (name, source, replaces, _) in KERNELS.items():
+        if tag in serve:
+            cases, err = checks[tag]
+            extra = {"launches": serve[tag]["launches"], "max_abs_err": err,
+                     "cases": cases,
+                     "requests_per_s": serve[tag]["requests_per_s"],
+                     "chunks": serve[tag]["chunks"]}
+        else:
+            extra = staged[tag]
+        t = times[tag]
+        record.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": extra.pop("launches"),
+            "max_abs_err": extra.pop("max_abs_err"), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "match": True,
+            **extra})
+    print(json.dumps({"kernels": record}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

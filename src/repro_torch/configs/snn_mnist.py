@@ -2,8 +2,9 @@
 
 784→10 fully connected LIF layer, 20-timestep window, signed 9-bit weight
 codes, shift-4 decay (β = 1/16), threshold 128.  ``backend="auto"``
-resolves to the CUDA stack kernel on a card (and raises there for a stack
-the kernel cannot hold) and to the reference path on the CPU.  Field for field the same configurations as
+resolves on a card through the CUDA kernels (resident stack kernel →
+weight-streaming stack kernel → staged kernels) and to the reference path
+on the CPU.  Field for field the same configurations as
 ``repro.configs.snn_mnist``.
 """
 
@@ -30,9 +31,8 @@ SNN_CONFIG_DEEP = SNNConfig(layer_sizes=(784, 128, 64, 10), num_steps=20,
                             lif=_LIF, readout="count",
                             active_pruning=False, backend="auto")
 
-# Widened stack whose per-block state exceeds the stack kernel's shared
-# memory: on a card it runs only with backend="reference", asked for by
-# name, until the weight-streaming kernel is ported.
+# Widened stack whose per-lane state exceeds the resident stack kernel's
+# shared memory: on a card ``auto`` runs it on the weight-streaming kernel.
 SNN_CONFIG_WIDE = SNNConfig(layer_sizes=(784, 2048, 2048, 10), num_steps=20,
                             lif=_LIF, readout="count",
                             active_pruning=False, backend="auto")

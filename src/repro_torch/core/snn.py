@@ -4,13 +4,22 @@ Network topology (paper §IV-A): Poisson encoder → fully-connected LIF
 layer stack → spike-register readout over a T-step window; the paper's
 configuration is the single 784→10 layer.  This module holds the integer
 inference engine: :func:`snn_apply_int` (whole window) and the resumable
-:func:`snn_window_chunk`, on two backends that give the same integers:
+:func:`snn_window_chunk`, on backends that give the same integers:
 
-  fused      — the encode→LIF stack kernel (``kernels.ops``): one launch
-               per chunk on CUDA; its plain version on CPU tensors
-  reference  — per-step torch ops (:func:`snn_int_stack_step`)
-  auto       — fused on a CUDA device (raising when the stack does not
-               fit the kernel's shared-memory carve-up), reference on CPU
+  fused           — the resident encode→LIF stack kernel (``kernels.ops``):
+                    one launch per chunk on CUDA
+  fused_streamed  — the same function on the weight-streaming kernel, for
+                    stacks whose per-lane state the resident kernel's
+                    shared memory cannot hold
+  staged          — the encoder kernel once, then one LIF kernel per
+                    layer, over materialised spike trains (whole windows
+                    only; any int16 weight code)
+  reference       — per-step torch ops (:func:`snn_int_stack_step`)
+  auto            — on a CUDA device the chain fused → fused_streamed →
+                    staged, the first whose kernel holds the stack; the
+                    reference on the CPU
+
+On CPU tensors every kernel backend runs its kernels' plain versions.
 
 Parameters: ``{"layers": [{"w_q": int16 (n_in, n_out), "scale": float}]}``.
 """
@@ -41,7 +50,7 @@ class SNNConfig:
     readout: str = "count"                     # count|first_spike|membrane
     active_pruning: bool = False
     dot_impl: str = "int32"                    # reference Σ W·S precision
-    backend: str = "auto"                      # auto|fused|reference
+    backend: str = "auto"         # auto|fused|fused_streamed|staged|reference
     sparse_skip: bool | None = None            # tile-skip telemetry
     spike_density_threshold: float | None = None  # controller baseline
 
@@ -61,21 +70,24 @@ def _param_sizes(params_q: dict) -> tuple[int, ...]:
 
 def fused_unsupported_reason(cfg: SNNConfig, n_layers: int,
                              layer_sizes: tuple[int, ...] | None = None,
-                             local_batch: int | None = None) -> str | None:
-    """Why the CUDA stack kernel cannot run this stack (None = it can).
+                             local_batch: int | None = None, *,
+                             streamed: bool = False) -> str | None:
+    """Why a CUDA stack kernel cannot run this stack (None = it can).
 
-    The Hopper feasibility model: the kernel keeps each lane's pixels, PRNG
-    state, per-layer membranes/enables/peaks, readout registers and two
-    spike lists in dynamic shared memory (``kernels.fused_snn.
-    stack_smem_bytes``), which one thread block may claim up to
-    ``SMEM_LIMIT_BYTES`` (232,448 B on sm_90).  Weights stay in global
-    memory and do not count.  Layer count and widths are also bounded by
-    the kernel's parameter block and its uint16 spike indices.
+    The Hopper feasibility model.  The resident kernel keeps each lane's
+    pixels, PRNG state, per-layer membranes/enables/peaks, readout
+    registers and two spike lists in dynamic shared memory
+    (``kernels.fused_snn.stack_smem_bytes``); the weight-streaming kernel
+    (``streamed``) keeps only the per-lane inputs, spike bitmaps and its
+    ring of weight slabs there (``stack_streamed_smem_bytes``).  One thread
+    block may claim up to ``SMEM_LIMIT_BYTES`` (232,448 B on sm_90).  Both
+    kernels' parameter blocks hold ``MAX_LAYERS`` layers, and their spike
+    indices are uint16.
     """
     if n_layers < 1:
         return "the network has no layers"
     if n_layers > fused_snn.MAX_LAYERS:
-        return (f"{n_layers} layers exceed the kernel's "
+        return (f"{n_layers} layers exceed the stack kernels' "
                 f"{fused_snn.MAX_LAYERS}-layer parameter block")
     sizes = layer_sizes
     if sizes is None and len(cfg.layer_sizes) - 1 == n_layers:
@@ -86,12 +98,14 @@ def fused_unsupported_reason(cfg: SNNConfig, n_layers: int,
     padded = [int(n) + (-int(n)) % lane for n in sizes]
     if max(padded) > 65535:
         return f"layer widths {tuple(sizes)} exceed the uint16 spike indices"
-    need = fused_snn.stack_smem_bytes(padded,
-                                      fused_snn.block_b_for(local_batch))
+    smem = (fused_snn.stack_streamed_smem_bytes if streamed
+            else fused_snn.stack_smem_bytes)
+    need = smem(padded, fused_snn.block_b_for(local_batch))
     if need > fused_snn.SMEM_LIMIT_BYTES:
-        return (f"shared-memory carve-up {need} B for layer_sizes="
-                f"{tuple(sizes)} exceeds the {fused_snn.SMEM_LIMIT_BYTES} B "
-                f"a thread block may use")
+        kind = "streamed working set" if streamed else \
+            "shared-memory carve-up"
+        return (f"{kind} {need} B for layer_sizes={tuple(sizes)} exceeds "
+                f"the {fused_snn.SMEM_LIMIT_BYTES} B a thread block may use")
     return None
 
 
@@ -102,28 +116,41 @@ def resolve_backend(cfg: SNNConfig, backend: str | None = None,
                     device: str | torch.device = "cuda") -> str:
     """Pick the integer-engine backend that runs on ``device``.
 
-    ``auto`` → ``fused`` on a CUDA device, ``reference`` on the CPU.  On a
-    CUDA device the stack must fit the kernel: ``auto`` or ``fused`` raises
-    with the reason when it does not, so plain PyTorch runs on the card
-    only when the caller names ``reference``.  ``fused_streamed`` and
-    ``staged`` are realisations of the reference package that this port
-    does not have yet.
+    ``auto`` on a CUDA device walks the chain fused → fused_streamed →
+    staged: the resident stack kernel for a stack whose per-lane state
+    fits its shared memory, the weight-streaming kernel past that, and the
+    staged kernels (which hold any stack) last; on the CPU ``auto`` is
+    ``reference``.  An explicit ``fused`` or ``fused_streamed`` that its
+    kernel cannot run raises, naming the next rung, instead of degrading;
+    plain PyTorch runs on the card only when the caller names
+    ``reference``.
     """
     b = backend if backend is not None else cfg.backend
-    on_cuda = torch.device(device).type == "cuda"
+
+    def reason(streamed: bool) -> str | None:
+        return fused_unsupported_reason(cfg, n_layers, layer_sizes,
+                                        local_batch, streamed=streamed)
+
     if b == "auto":
-        b = "fused" if on_cuda else "reference"
-    reason = (fused_unsupported_reason(cfg, n_layers, layer_sizes, local_batch)
-              if b == "fused" else None)
-    if reason is not None:
+        if torch.device(device).type != "cuda":
+            b = "reference"
+        elif reason(False) is None:
+            b = "fused"
+        elif reason(True) is None:
+            b = "fused_streamed"
+        else:
+            b = "staged"
+    if b == "fused" and (why := reason(False)) is not None:
         raise ValueError(
-            f"the stack kernel does not support this configuration: "
-            f"{reason} — pass backend='reference' to run it in plain "
-            f"PyTorch")
-    if b in ("fused_streamed", "staged"):
-        raise ValueError(f"backend {b!r} is not ported yet; use 'fused' or "
-                         f"'reference'")
-    if b not in ("fused", "reference"):
+            f"backend='fused' was explicitly requested but the stack kernel "
+            f"does not support this configuration: {why} — use "
+            f"backend='fused_streamed' or 'staged'")
+    if b == "fused_streamed" and (why := reason(True)) is not None:
+        raise ValueError(
+            f"backend='fused_streamed' was explicitly requested but even "
+            f"the weight-streaming kernel cannot run this configuration: "
+            f"{why} — use backend='staged'")
+    if b not in ("fused", "fused_streamed", "staged", "reference"):
         raise ValueError(f"unknown SNN backend {b!r}")
     return b
 
@@ -158,15 +185,19 @@ def snn_apply_int(params_q: dict, pixels_u8: torch.Tensor,
 
     Runs on the device of ``pixels_u8``.  Returns a dict with ``pred``,
     ``spike_counts``, ``v_trace``, ``v_final``, ``active_adds``,
-    ``input_spikes`` (None on the fused backend), ``first_spike_t``,
-    ``prng_state``, ``v_peak`` (per-layer tuple) and ``telemetry``.
+    ``input_spikes`` (None on the fused backends: the spike train never
+    exists there), ``first_spike_t``, ``prng_state``, ``v_peak`` (per-layer
+    tuple) and ``telemetry``.
     """
     b = resolve_backend(cfg, backend, len(params_q["layers"]),
                         layer_sizes=_param_sizes(params_q),
                         local_batch=pixels_u8.shape[0],
                         device=pixels_u8.device)
-    if b == "fused":
-        res = _apply_int_fused(params_q, pixels_u8, prng_state, cfg)
+    if b in ("fused", "fused_streamed"):
+        res = _apply_int_fused(params_q, pixels_u8, prng_state, cfg,
+                               streamed=b == "fused_streamed")
+    elif b == "staged":
+        res = _apply_int_staged(params_q, pixels_u8, prng_state, cfg)
     else:
         res = _apply_int_reference(params_q, pixels_u8, prng_state, cfg)
     vp = res["v_peak"]
@@ -183,12 +214,16 @@ def _lif_kw(cfg: SNNConfig) -> dict:
                 active_pruning=cfg.active_pruning)
 
 
-def _apply_int_fused(params_q, pixels_u8, prng_state, cfg: SNNConfig):
+def _apply_int_fused(params_q, pixels_u8, prng_state, cfg: SNNConfig, *,
+                     streamed: bool = False):
+    """One stack-kernel launch over the whole window (resident, or with the
+    weights streamed when ``streamed``)."""
     weights = tuple(layer["w_q"] for layer in params_q["layers"])
     ops.validate_weight_codes(weights)
     k = ops.fused_snn_stack_op(pixels_u8, prng_state, weights,
                                num_steps=cfg.num_steps,
-                               sparse_skip=cfg.sparse_skip, **_lif_kw(cfg))
+                               sparse_skip=cfg.sparse_skip, streamed=streamed,
+                               **_lif_kw(cfg))
     return {"spike_counts": k["spike_counts"], "v_trace": k["v_trace"],
             "v_final": k["v_final"], "active_adds": k["active_adds"],
             "input_spikes": None, "first_spike_t": k["first_spike_t"],
@@ -221,6 +256,33 @@ def _derive_stack_telemetry(layer_ins, layer_outs, layer_vtr,
                          n_en=torch.stack(n_en_l, dim=1),
                          tiles_skipped=torch.stack(tiles_l, dim=1))
     return tel, tuple(peaks)
+
+
+def _apply_int_staged(params_q, pixels_u8, prng_state, cfg: SNNConfig):
+    """The staged kernels: one encoder launch, then one LIF launch per
+    layer, each over the previous stage's materialised spike train."""
+    spikes, prng_next = ops.poisson_encode_op(pixels_u8, prng_state,
+                                              cfg.num_steps)
+    x = spikes
+    layer_ins, layer_outs, layer_vtr = [], [], []
+    for layer in params_q["layers"]:
+        layer_ins.append(x)
+        x, v_trace, v_final = ops.lif_forward_op(x, layer["w_q"],
+                                                 **_lif_kw(cfg))
+        layer_outs.append(x)
+        layer_vtr.append(v_trace)
+    # the executed-add channel is the telemetry's adds summed over layers
+    telemetry, v_peak = _derive_stack_telemetry(layer_ins, layer_outs,
+                                                layer_vtr, cfg)
+    T = cfg.num_steps
+    t_idx = torch.arange(T, dtype=torch.int32, device=x.device)[:, None, None]
+    return {"spike_counts": x.sum(0, dtype=torch.int32),
+            "v_trace": v_trace, "v_final": v_final,
+            "active_adds": telemetry.adds.sum(1, dtype=torch.int32),
+            "input_spikes": spikes,
+            "first_spike_t": torch.where(x != 0, t_idx, T).amin(dim=0),
+            "prng_state": prng_next, "v_peak": v_peak,
+            "telemetry": telemetry}
 
 
 def _apply_int_reference(params_q, pixels_u8, prng_state, cfg: SNNConfig):
@@ -352,18 +414,30 @@ def snn_window_chunk(params_q: dict, pixels_u8: torch.Tensor,
     Returns ``(new_state, chunk)`` where ``chunk`` holds this segment's
     ``v_trace`` (chunk, B, n_out), ``active_adds`` (chunk, B) and
     ``telemetry``; concatenated over any split of the window they equal the
-    one-shot record, on both backends.
+    one-shot record, on every backend that can resume.  The staged kernels
+    cannot: ``staged`` raises whether it is named or ``auto`` reaches it.
     """
     weights = tuple(layer["w_q"] for layer in params_q["layers"])
+    requested = backend if backend is not None else cfg.backend
+    refusal = ("chunked window execution supports the 'fused', "
+               "'fused_streamed' and 'reference' backends only (the staged "
+               "kernels cannot resume mid-window)")
+    if requested == "staged":
+        raise ValueError(refusal)
     b = resolve_backend(cfg, backend, len(weights),
                         layer_sizes=_param_sizes(params_q),
                         local_batch=pixels_u8.shape[0],
                         device=pixels_u8.device)
-    if b == "fused":
+    if b == "staged":
+        raise ValueError(f"{refusal}; backend='auto' resolved to 'staged' "
+                         f"because no stack kernel holds this stack — pass "
+                         f"backend='reference' to run it in plain PyTorch")
+    if b in ("fused", "fused_streamed"):
         ops.validate_weight_codes(weights)
         k = ops.fused_snn_stack_op(
             pixels_u8, state.rng, weights, num_steps=cfg.num_steps,
             chunk_steps=chunk_steps, sparse_skip=cfg.sparse_skip,
+            streamed=b == "fused_streamed",
             init={"v": state.v, "en": state.en, "v_peak": state.v_peak,
                   "counts": state.counts, "first": state.first,
                   "steps": state.steps},

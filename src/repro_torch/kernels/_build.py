@@ -1,12 +1,20 @@
-"""Build the port's CUDA kernels on first use and load them with ctypes.
+"""Build the port's CUDA kernels on first use, load them with ctypes, and
+launch them.
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds), named by a hash of its source and flags, under
-``build/repro_torch/`` at the root of the checkout, with nvcc's output
-(the ``-Xptxas -v`` resource report) saved beside it as ``.log``.  The
-sources are compiled in parallel, one ``nvcc`` each.  A failed build raises
-with the compiler's output.  Nothing is compiled at import.
+takes seconds), named by a hash of its source, the shared headers and the
+flags, under ``build/repro_torch/`` at the root of the checkout, with
+nvcc's output (the ``-Xptxas -v`` resource report) saved beside it as
+``.log``.  The sources are compiled in parallel, one ``nvcc`` each.  A
+failed build raises with the compiler's output.  Nothing is compiled at
+import.
+
+Every library exports one entry point with the same C signature,
+``int entry(void** ptrs, int n_ptrs, int* ints, int n_ints, void*
+stream)``, which checks its operands, launches on ``stream`` and returns
+the launch's ``cudaError_t``; :func:`launch` calls it and raises on a
+non-zero return.
 """
 
 from __future__ import annotations
@@ -21,11 +29,21 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["SOURCES", "BuildInfo", "build_all", "load_library"]
+import torch
+
+__all__ = ["SOURCES", "BuildInfo", "build_all", "load_library", "launch",
+           "check_operand"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = {"fused_snn_stack": _CSRC / "fused_snn_stack.cu"}
+SOURCES = {"fused_snn_stack": _CSRC / "fused_snn_stack.cu",
+           "fused_snn_streamed": _CSRC / "fused_snn_streamed.cu",
+           "poisson_encode": _CSRC / "poisson_encode.cu",
+           "lif_step": _CSRC / "lif_step.cu"}
+_ENTRY = {"fused_snn_stack": "repro_fused_snn_stack",
+          "fused_snn_streamed": "repro_fused_snn_streamed",
+          "poisson_encode": "repro_poisson_encode",
+          "lif_step": "repro_lif_forward"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,9 +71,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, BuildInfo]:
@@ -96,14 +116,49 @@ def build_all(names=None) -> dict[str, BuildInfo]:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str = "fused_snn_stack") -> ctypes.CDLL:
+def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load one kernel library, its C functions typed."""
     lib = ctypes.CDLL(str(build_all([name])[name].path))
-    if name == "fused_snn_stack":
-        fn = lib.repro_fused_snn_stack
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    fn = getattr(lib, _ENTRY[name])
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch(name: str, ptrs, ints, device: torch.device) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream.
+
+    ``ptrs`` are tensors (or None for a null pointer), ``ints`` Python
+    ints, in the order the kernel's C entry point documents.  Raises
+    RuntimeError when the entry point returns a CUDA error: a launch that
+    was refused never ran.
+    """
+    lib = load_library(name)
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(
+        *[0 if t is None else t.data_ptr() for t in ptrs])
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, _ENTRY[name])(ctypes.addressof(c_ptrs), len(ptrs),
+                                     ctypes.addressof(c_ints), len(ints),
+                                     stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: CUDA error {err} "
+            f"({lib.repro_cuda_error_string(err).decode()})")
+
+
+def check_operand(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` has this dtype, shape and device and is
+    contiguous (what every kernel's C entry point assumes)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

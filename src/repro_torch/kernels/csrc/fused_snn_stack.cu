@@ -34,50 +34,7 @@
 //  * Every op is per lane except the telemetry tile-skip count, which is
 //    per block and uses the reference geometry (128x128 tile pairs, the
 //    8-lane block), so no state passes between thread blocks.
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <limits.h>
-
-#include <mutex>
-
-#define MAX_LAYERS 8
-#define MAX_DEVICES 64
-#define TILE 128
-#define BLOCK_B 8  // lanes per thread block, one warp each: 256 threads
-#define FULL_MASK 0xffffffffu
-
-struct StackParams {
-  const uint8_t* px;
-  const uint32_t* st_in;
-  const int32_t* cnt_in;
-  const int32_t* first_in;
-  const int32_t* steps_in;
-  const int32_t* act_in;
-  const int32_t* gprev_in;
-  const int32_t* gstreak_in;
-  uint32_t* st_out;
-  int32_t* cnt_out;
-  int32_t* first_out;
-  int32_t* steps_out;
-  int32_t* act_out;
-  int32_t* gprev_out;
-  int32_t* gstreak_out;
-  int32_t* vtr;    // (chunk, B, nL)
-  int32_t* adds;   // (chunk, B)
-  int32_t* tspk;   // (chunk, L, B)
-  int32_t* ten;    // (chunk, L, B)
-  int32_t* ttile;  // (chunk, L, n_blocks)
-  const int16_t* w[MAX_LAYERS];
-  const int32_t* v_in[MAX_LAYERS];
-  const uint8_t* en_in[MAX_LAYERS];
-  const int32_t* vp_in[MAX_LAYERS];
-  int32_t* v_out[MAX_LAYERS];
-  uint8_t* en_out[MAX_LAYERS];
-  int32_t* vp_out[MAX_LAYERS];
-  int B, L, bB, chunk, window, decay_shift, v_th, v_rest, v_min, v_max;
-  int pruning, gated, patience, readout, sparse_skip, smem_bytes, k0;
-  int n[MAX_LAYERS];
-};
+#include "snn_stack_common.cuh"
 
 // Shared-memory carve-up; the same layout as stack_smem_bytes() in
 // kernels/fused_snn.py.  Returns the bytes it needs.
@@ -124,19 +81,6 @@ __host__ __device__ inline size_t carve(const StackParams& p,
   return off;
 }
 
-__device__ inline int first_argmax_warp(int best_v, int best_i) {
-  // warp-wide (value, index) max; ties go to the smaller index
-  for (int o = 16; o > 0; o >>= 1) {
-    const int ov = __shfl_down_sync(FULL_MASK, best_v, o);
-    const int oi = __shfl_down_sync(FULL_MASK, best_i, o);
-    if (ov > best_v || (ov == best_v && oi < best_i)) {
-      best_v = ov;
-      best_i = oi;
-    }
-  }
-  return __shfl_sync(FULL_MASK, best_i, 0);
-}
-
 __global__ void __launch_bounds__(32 * BLOCK_B)
 fused_snn_stack_kernel(const StackParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -155,6 +99,7 @@ fused_snn_stack_kernel(const StackParams p) {
         te);
 
   const int L = p.L, K0 = p.k0, nL = p.n[L - 1];
+  const LifConsts lc = {p.decay_shift, p.v_th, p.v_rest, p.v_min, p.v_max};
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const unsigned lt_mask = (1u << lane) - 1u;
   const int row = blockIdx.x * p.bB + warp;   // this warp's batch lane
@@ -201,10 +146,7 @@ fused_snn_stack_kernel(const StackParams p) {
     int nsp = 0;
     for (int base = 0; base < K0; base += 32) {
       const int i = base + lane;
-      uint32_t s = st_r[i];
-      s ^= s << 13;
-      s ^= s >> 17;
-      s ^= s << 5;
+      const uint32_t s = xorshift32(st_r[i]);
       if (act) st_r[i] = s;
       const bool spk = px_r[i] > (uint8_t)(s >> 24);
       const unsigned m = __ballot_sync(FULL_MASK, spk);
@@ -249,15 +191,9 @@ fused_snn_stack_kernel(const StackParams p) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = c0 + 32 * j + lane;
-          const int v_old = v_r[col];
-          const int cur = e[j] ? acc[j] : 0;
-          int v_int = (int)((unsigned)v_old + (unsigned)cur);
-          v_int = v_int < p.v_min ? p.v_min : (v_int > p.v_max ? p.v_max
-                                                                : v_int);
-          const int v_leak = v_int - (v_int >> p.decay_shift);
-          const bool fired = (v_leak >= p.v_th) && e[j];
-          int v_new = fired ? p.v_rest : v_leak;
-          v_new = e[j] ? v_new : v_old;
+          bool fired;
+          const int v_new = lif_update(v_r[col], e[j] ? acc[j] : 0, e[j], lc,
+                                       &fired);
           const bool en_new = p.pruning ? (e[j] && !fired) : e[j];
           if (act) {
             v_r[col] = v_new;
@@ -299,40 +235,10 @@ fused_snn_stack_kernel(const StackParams p) {
     if (lane == 0) p.adds[(size_t)t * B + row] = act ? adds_t : 0;
     __syncwarp();
     if (p.gated) {
-      if (act) {
-        bool any = false;
-        for (int i = lane; i < nL; i += 32) any |= cnt_r[i] > 0;
-        const bool has_spike = __any_sync(FULL_MASK, any);
-        int best_v = 0, best_i = 0;
-        for (int i = lane; i < nL; i += 32) {
-          int score;
-          if (p.readout == 1) {          // first_spike
-            const int large = 1 << 24;
-            if (cnt_r[i] > 0) {
-              score = large + (p.window - first_r[i]);
-            } else {
-              const int vv = vL[i];
-              score = vv < -large + 1 ? -large + 1
-                                      : (vv > large - 1 ? large - 1 : vv);
-            }
-          } else if (p.readout == 2) {   // membrane (peak)
-            score = vp[L - 1][warp * nL + i];
-          } else {                       // count
-            score = cnt_r[i];
-          }
-          if (i == lane || score > best_v) {
-            best_v = score;
-            best_i = i;
-          }
-        }
-        const int pred = first_argmax_warp(best_v, best_i);
-        const int streak_raw = pred == gprev ? gstreak + 1 : 0;
-        const bool done = streak_raw >= p.patience && has_spike;
-        gprev = has_spike ? pred : -1;
-        gstreak = has_spike ? streak_raw : 0;
-        steps += 1;
-        act = !done && steps < p.window;
-      }
+      if (act)
+        gate_step(cnt_r, first_r, vL, vp[L - 1] + (size_t)warp * nL, nL,
+                  p.readout, p.window, p.patience, lane, steps, act, gprev,
+                  gstreak);
     } else {
       steps += 1;
     }
@@ -384,102 +290,22 @@ fused_snn_stack_kernel(const StackParams p) {
 }
 
 // ---- C interface (loaded with ctypes) -------------------------------------
-// ptrs: px, st_in, cnt_in, first_in, steps_in, act_in, gprev_in,
-//       gstreak_in, st_out, cnt_out, first_out, steps_out, act_out,
-//       gprev_out, gstreak_out, vtr, adds, tspk, ten, ttile, then per layer
-//       w, v_in, en_in, vp_in, v_out, en_out, vp_out.
-// ints: B, L, bB, chunk, window, decay_shift, v_th, v_rest, v_min, v_max,
-//       pruning, gated, patience, readout, sparse_skip, smem_bytes, k0,
-//       then n[0..L-1].
+// ptrs and ints as stack_params_from_c() in snn_stack_common.cuh reads them.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int repro_fused_snn_stack(const void* ptrs_v, int n_ptrs,
                                      const void* ints_v, int n_ints,
                                      void* stream) {
-  void* const* ptrs = (void* const*)ptrs_v;
-  const int* ints = (const int*)ints_v;
-  if (n_ints < 17) return (int)cudaErrorInvalidValue;
-  StackParams p = {};
-  p.B = ints[0];
-  p.L = ints[1];
-  if (p.L < 1 || p.L > MAX_LAYERS) return (int)cudaErrorInvalidValue;
-  if (n_ptrs != 20 + 7 * p.L || n_ints != 17 + p.L)
-    return (int)cudaErrorInvalidValue;
-  p.bB = ints[2];
-  p.chunk = ints[3];
-  p.window = ints[4];
-  p.decay_shift = ints[5];
-  p.v_th = ints[6];
-  p.v_rest = ints[7];
-  p.v_min = ints[8];
-  p.v_max = ints[9];
-  p.pruning = ints[10];
-  p.gated = ints[11];
-  p.patience = ints[12];
-  p.readout = ints[13];
-  p.sparse_skip = ints[14];
-  p.smem_bytes = ints[15];
-  p.k0 = ints[16];
-  for (int l = 0; l < p.L; ++l) p.n[l] = ints[17 + l];
-  if (p.bB != BLOCK_B || p.B % p.bB != 0 || p.B <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (p.k0 % TILE != 0 || p.k0 > 65535) return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < p.L; ++l)
-    if (p.n[l] % TILE != 0 || p.n[l] > 65535)
-      return (int)cudaErrorInvalidValue;
-  if (p.gated && (ptrs[5] == nullptr || ptrs[12] == nullptr))
-    return (int)cudaErrorInvalidValue;
-  p.px = (const uint8_t*)ptrs[0];
-  p.st_in = (const uint32_t*)ptrs[1];
-  p.cnt_in = (const int32_t*)ptrs[2];
-  p.first_in = (const int32_t*)ptrs[3];
-  p.steps_in = (const int32_t*)ptrs[4];
-  p.act_in = (const int32_t*)ptrs[5];
-  p.gprev_in = (const int32_t*)ptrs[6];
-  p.gstreak_in = (const int32_t*)ptrs[7];
-  p.st_out = (uint32_t*)ptrs[8];
-  p.cnt_out = (int32_t*)ptrs[9];
-  p.first_out = (int32_t*)ptrs[10];
-  p.steps_out = (int32_t*)ptrs[11];
-  p.act_out = (int32_t*)ptrs[12];
-  p.gprev_out = (int32_t*)ptrs[13];
-  p.gstreak_out = (int32_t*)ptrs[14];
-  p.vtr = (int32_t*)ptrs[15];
-  p.adds = (int32_t*)ptrs[16];
-  p.tspk = (int32_t*)ptrs[17];
-  p.ten = (int32_t*)ptrs[18];
-  p.ttile = (int32_t*)ptrs[19];
-  for (int l = 0; l < p.L; ++l) {
-    void* const* q = ptrs + 20 + 7 * l;
-    p.w[l] = (const int16_t*)q[0];
-    p.v_in[l] = (const int32_t*)q[1];
-    p.en_in[l] = (const uint8_t*)q[2];
-    p.vp_in[l] = (const int32_t*)q[3];
-    p.v_out[l] = (int32_t*)q[4];
-    p.en_out[l] = (uint8_t*)q[5];
-    p.vp_out[l] = (int32_t*)q[6];
-  }
+  StackParams p;
+  cudaError_t err = stack_params_from_c(ptrs_v, n_ptrs, ints_v, n_ints, &p);
+  if (err != cudaSuccess) return (int)err;
   const size_t need = carve(p, nullptr, nullptr, nullptr, nullptr, nullptr,
                             nullptr, nullptr, nullptr, nullptr, nullptr,
                             nullptr, nullptr);
   if (need > (size_t)p.smem_bytes) return (int)cudaErrorInvalidValue;
-  // Raise the kernel's dynamic shared-memory cap only when a launch asks
-  // for more than any before it on this device.
-  static std::mutex smem_mu;
-  static int smem_set[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static int smem_cap[MAX_DEVICES] = {};
+  err = raise_smem_cap((const void*)fused_snn_stack_kernel, p.smem_bytes,
+                       smem_cap);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  {
-    std::lock_guard<std::mutex> hold(smem_mu);
-    if (p.smem_bytes > smem_set[dev]) {
-      err = cudaFuncSetAttribute(fused_snn_stack_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 p.smem_bytes);
-      if (err != cudaSuccess) return (int)err;
-      smem_set[dev] = p.smem_bytes;
-    }
-  }
   fused_snn_stack_kernel<<<p.B / p.bB, 32 * p.bB, p.smem_bytes,
                            (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();

@@ -1,8 +1,8 @@
-"""Fused Poisson-encode → LIF *stack* in one launch: the CUDA kernel's launcher
-and its plain PyTorch version.
+"""Fused Poisson-encode → LIF *stack* in one launch: the two CUDA kernels'
+launchers and their plain PyTorch version.
 
-Port of ``repro.kernels.fused_snn.fused_snn_stack_pallas`` in resident,
-unstreamed mode.  One launch advances every lane ``chunk_steps`` window
+Port of ``repro.kernels.fused_snn.fused_snn_stack_pallas``, resident and
+weight-streamed.  One launch advances every lane ``chunk_steps`` window
 steps through the whole layer stack: xorshift32 PRNG → ``px > top byte``
 spikes → per layer Σ W·S over the spiking inputs, enable mask, saturating
 add, shift leak, fire, reset, active pruning, peak-membrane max-fold →
@@ -10,11 +10,16 @@ final-layer counts and first-spike latch → executed-add and telemetry
 counters → (gated) stability-gate readout and lane freeze.  Every piece of
 state goes in and comes out, so k chunks equal one launch.
 
-:func:`fused_snn_stack` is the wrapper: for CUDA tensors it launches the
-kernel of ``csrc/fused_snn_stack.cu`` (and counts the launch in
-``fused_snn_stack.launches``), for CPU tensors it runs
-:func:`fused_snn_stack_plain`.  There is no fallback from one to the
-other.
+Two kernels compute that function on the same operands:
+:func:`fused_snn_stack` launches the resident kernel of
+``csrc/fused_snn_stack.cu`` (per-lane state in shared memory, sized by
+:func:`stack_smem_bytes`), :func:`fused_snn_stack_streamed` the
+weight-streaming kernel of ``csrc/fused_snn_streamed.cu`` (per-lane state
+in global memory, weights streamed through shared-memory slabs, sized by
+:func:`stack_streamed_smem_bytes`), for stacks the first cannot hold.
+Each counts its launches in its ``launches`` attribute.  For CPU tensors
+both run :func:`fused_snn_stack_plain`; there is no fallback from a
+kernel to the plain version.
 
 All arrays arrive padded, as ``kernels.ops.fused_snn_stack_op`` pads them:
 batch to the ``block_b`` block, every neuron axis to ``LANE``.  Weights are
@@ -23,20 +28,22 @@ the int16 codes, (n_l_pad, n_{l+1}_pad).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..core.prng import from_carrier, to_carrier
+from ._build import check_operand, launch
 
 __all__ = ["LANE", "BLOCK_B", "MAX_LAYERS", "SMEM_LIMIT_BYTES",
-           "READOUTS", "block_b_for", "stack_smem_bytes", "fused_snn_stack",
-           "fused_snn_stack_plain"]
+           "SLAB_ROWS", "STAGES", "READOUTS", "block_b_for",
+           "stack_smem_bytes", "stack_streamed_smem_bytes", "fused_snn_stack",
+           "fused_snn_stack_streamed", "fused_snn_stack_plain"]
 
 LANE = 128              # every neuron axis pads to this (telemetry tile width)
 BLOCK_B = 8             # lanes per batch block: one warp per lane, and the
-                        # only block the kernel is built for (256 threads)
-MAX_LAYERS = 8          # layer pointers the kernel's parameter block holds
+                        # only block the kernels are built for (256 threads)
+MAX_LAYERS = 8          # layer pointers the kernels' parameter block holds
+SLAB_ROWS = 64          # weight rows per streamed slab (one 128-column tile)
+STAGES = 3              # slabs in the streamed kernel's shared-memory ring
 # Dynamic shared memory one thread block may ask for on Hopper (sm_90).
 SMEM_LIMIT_BYTES = 232_448
 READOUTS = ("count", "first_spike", "membrane")
@@ -50,7 +57,7 @@ def block_b_for(batch: int | None = None) -> int:
 
 
 def stack_smem_bytes(padded_sizes, block_b: int = BLOCK_B) -> int:
-    """Dynamic shared memory the kernel asks for, per thread block.
+    """Dynamic shared memory the resident kernel asks for, per thread block.
 
     ``padded_sizes`` are the LANE-padded layer widths ``(K0, N1, ..., NL)``.
     Per lane: pixels (1 B) and PRNG state (4 B) per input, membrane and
@@ -66,6 +73,28 @@ def stack_smem_bytes(padded_sizes, block_b: int = BLOCK_B) -> int:
     ins = [k0] + outs[:-1]
     flags = sum(k // LANE for k in ins) + sum(n // LANE for n in outs)
     return block_b * per_lane + 4 * flags
+
+
+def stack_streamed_smem_bytes(padded_sizes, block_b: int = BLOCK_B) -> int:
+    """Dynamic shared memory the weight-streaming kernel asks for, per block.
+
+    Membranes, enables, peaks and counters live in global memory, so only
+    the ring of ``STAGES`` weight slabs (``SLAB_ROWS`` × 128 int16) and the
+    per-lane inputs count: per lane, pixels (1 B) and PRNG state (4 B) per
+    input, two spike bitmaps and a uint16 list of union positions as wide
+    as the widest layer; per block, the union list of spiking inputs, the
+    live-tile list, two counters and the same tile flags as
+    :func:`stack_smem_bytes`.  The kernel carves the same layout and
+    refuses a launch whose carve-up exceeds what it was given.
+    """
+    k0, outs = int(padded_sizes[0]), [int(n) for n in padded_sizes[1:]]
+    widest = max([k0] + outs)
+    slabs = STAGES * SLAB_ROWS * LANE * 2
+    per_lane = k0 * 5 + 2 * (widest // 32) * 4 + widest * 2
+    ins = [k0] + outs[:-1]
+    flags = sum(k // LANE for k in ins) + sum(n // LANE for n in outs)
+    return (slabs + block_b * per_lane + 4 * flags + 4 * (widest // LANE)
+            + 16 + widest * 2)
 
 
 # ---------------------------------------------------------------------------
@@ -205,20 +234,8 @@ def fused_snn_stack_plain(pixels_u8, state_u32, weights, v_init, en_init,
 
 
 # ---------------------------------------------------------------------------
-# the CUDA launch
+# the CUDA launches
 # ---------------------------------------------------------------------------
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
 
 def _validate(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
               counts_init, first_init, steps_init, gate_init, readout,
@@ -227,7 +244,7 @@ def _validate(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
     Bp, k0 = pixels_u8.shape
     L = len(weights)
     if not 1 <= L <= MAX_LAYERS:
-        raise ValueError(f"the stack kernel runs 1..{MAX_LAYERS} layers, "
+        raise ValueError(f"the stack kernels run 1..{MAX_LAYERS} layers, "
                          f"got {L}")
     if readout not in READOUTS:
         raise ValueError(f"unknown readout {readout!r}")
@@ -237,37 +254,49 @@ def _validate(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
     sizes = [k0] + [int(w.shape[1]) for w in weights]
     if any(n % LANE for n in sizes):
         raise ValueError(f"layer widths {sizes} are not padded to {LANE}")
-    _check(pixels_u8, "pixels_u8", torch.uint8, (Bp, k0), dev)
-    _check(state_u32, "state_u32", torch.uint32, (Bp, k0), dev)
+    check_operand(pixels_u8, "pixels_u8", torch.uint8, (Bp, k0), dev)
+    check_operand(state_u32, "state_u32", torch.uint32, (Bp, k0), dev)
     for l, w in enumerate(weights):
-        _check(w, f"weights[{l}]", torch.int16, (sizes[l], sizes[l + 1]), dev)
-        _check(v_init[l], f"v_init[{l}]", torch.int32, (Bp, sizes[l + 1]), dev)
-        _check(en_init[l], f"en_init[{l}]", torch.uint8, (Bp, sizes[l + 1]),
-               dev)
-        _check(vp_init[l], f"vp_init[{l}]", torch.int32, (Bp, sizes[l + 1]),
-               dev)
-    _check(counts_init, "counts_init", torch.int32, (Bp, sizes[-1]), dev)
-    _check(first_init, "first_init", torch.int32, (Bp, sizes[-1]), dev)
-    _check(steps_init, "steps_init", torch.int32, (Bp, 1), dev)
+        n = (Bp, sizes[l + 1])
+        check_operand(w, f"weights[{l}]", torch.int16,
+                      (sizes[l], sizes[l + 1]), dev)
+        check_operand(v_init[l], f"v_init[{l}]", torch.int32, n, dev)
+        check_operand(en_init[l], f"en_init[{l}]", torch.uint8, n, dev)
+        check_operand(vp_init[l], f"vp_init[{l}]", torch.int32, n, dev)
+    check_operand(counts_init, "counts_init", torch.int32, (Bp, sizes[-1]),
+                  dev)
+    check_operand(first_init, "first_init", torch.int32, (Bp, sizes[-1]),
+                  dev)
+    check_operand(steps_init, "steps_init", torch.int32, (Bp, 1), dev)
     if gate_init is not None:
         for name, g in zip(("active", "prev", "streak"), gate_init):
-            _check(g, f"gate_init.{name}", torch.int32, (Bp, 1), dev)
+            check_operand(g, f"gate_init.{name}", torch.int32, (Bp, 1), dev)
     return sizes
 
 
-def _launch(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
-            counts_init, first_init, steps_init, gate_init, sizes, *,
-            chunk_steps, window_steps, decay_shift, v_threshold, v_rest,
+def _launch(streamed, pixels_u8, state_u32, weights, v_init, en_init,
+            vp_init, counts_init, first_init, steps_init, gate_init, sizes,
+            *, chunk_steps, window_steps, decay_shift, v_threshold, v_rest,
             v_min, v_max, active_pruning, patience, readout, sparse_skip,
             block_b):
-    from ._build import load_library
-    lib = load_library()
     dev = pixels_u8.device
     Bp, k0 = pixels_u8.shape
     L = len(weights)
     n_out = sizes[-1]
     nb = Bp // block_b
     gated = gate_init is not None
+    if streamed:
+        smem = stack_streamed_smem_bytes(sizes, block_b)
+        if any(w.data_ptr() % 16 for w in weights):
+            raise ValueError("the streamed kernel copies weights in 16-byte "
+                             "pieces: every weight tensor must be 16-byte "
+                             "aligned")
+    else:
+        smem = stack_smem_bytes(sizes, block_b)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"layer widths {sizes} need {smem} B of shared "
+                         f"memory per block, over the {SMEM_LIMIT_BYTES} B "
+                         f"a block may use")
 
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -287,9 +316,6 @@ def _launch(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
     en_out = tuple(empty((Bp, n), torch.uint8) for n in sizes[1:])
     vp_out = tuple(empty((Bp, n), torch.int32) for n in sizes[1:])
 
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-
     g_in = gate_init if gated else (None, None, None)
     g_out = gate_out if gated else (None, None, None)
     ptrs = [pixels_u8, state_u32, counts_init, first_init, steps_init,
@@ -298,36 +324,48 @@ def _launch(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
     for l in range(L):
         ptrs += [weights[l], v_init[l], en_init[l], vp_init[l], v_out[l],
                  en_out[l], vp_out[l]]
-    readout_code = READOUTS.index(readout)
     ints = [Bp, L, block_b, chunk_steps, window_steps, decay_shift,
             v_threshold, v_rest, v_min, v_max, int(active_pruning),
-            int(gated), patience, readout_code, int(sparse_skip),
-            stack_smem_bytes(sizes, block_b), *sizes]
-    c_ptrs = (ctypes.c_void_p * len(ptrs))(*[ptr(t) for t in ptrs])
-    c_ints = (ctypes.c_int * len(ints))(*ints)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.repro_fused_snn_stack(
-        ctypes.addressof(c_ptrs), len(ptrs), ctypes.addressof(c_ints),
-        len(ints), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_snn_stack kernel launch failed: CUDA error {err} "
-            f"({lib.repro_cuda_error_string(err).decode()})")
-    fused_snn_stack.launches += 1
+            int(gated), patience, READOUTS.index(readout), int(sparse_skip),
+            smem, *sizes]
+    if streamed:
+        launch("fused_snn_streamed", ptrs, ints, dev)
+        fused_snn_stack_streamed.launches += 1
+    else:
+        launch("fused_snn_stack", ptrs, ints, dev)
+        fused_snn_stack.launches += 1
     out = (cnt_out, vtr, first_out, adds, st_out, v_out, en_out, vp_out,
            (tspk, ten, ttile), steps_out)
     return out + (gate_out,) if gated else out
 
 
-def fused_snn_stack(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
-                    counts_init, first_init, steps_init, gate_init=None, *,
-                    chunk_steps: int, window_steps: int, decay_shift: int,
-                    v_threshold: int, v_rest: int = 0,
-                    v_min: int = -(1 << 20), v_max: int = (1 << 20) - 1,
-                    active_pruning: bool = False, patience: int = 0,
-                    readout: str = "count", sparse_skip: bool = True,
-                    block_b: int = BLOCK_B):
+def _run(streamed, pixels_u8, state_u32, weights, v_init, en_init, vp_init,
+         counts_init, first_init, steps_init, gate_init=None, *,
+         chunk_steps: int, window_steps: int, decay_shift: int,
+         v_threshold: int, v_rest: int = 0, v_min: int = -(1 << 20),
+         v_max: int = (1 << 20) - 1, active_pruning: bool = False,
+         patience: int = 0, readout: str = "count", sparse_skip: bool = True,
+         block_b: int = BLOCK_B):
+    args = (pixels_u8, state_u32, weights, v_init, en_init, vp_init,
+            counts_init, first_init, steps_init, gate_init)
+    sizes = _validate(*args, readout, block_b)
+    kw = dict(chunk_steps=chunk_steps, window_steps=window_steps,
+              decay_shift=decay_shift, v_threshold=v_threshold, v_rest=v_rest,
+              v_min=v_min, v_max=v_max, active_pruning=active_pruning,
+              patience=patience, readout=readout, sparse_skip=sparse_skip,
+              block_b=block_b)
+    if pixels_u8.device.type == "cpu":
+        return fused_snn_stack_plain(*args, **kw)
+    if pixels_u8.device.type != "cuda":
+        raise ValueError(f"no stack kernel for device {pixels_u8.device}")
+    return _launch(streamed, *args, sizes, **kw)
+
+
+def fused_snn_stack(*operands, **options):
     """Run ``chunk_steps`` steps of the encode→LIF stack on padded operands.
+
+    Operands, in order (keywords and defaults as
+    :func:`fused_snn_stack_plain`'s):
 
       pixels_u8/state_u32: (B, n_in) uint8 / uint32
       weights: per-layer (n_l, n_{l+1}) int16 codes
@@ -337,24 +375,21 @@ def fused_snn_stack(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
       gate_init: None, or (active, prev, streak) each (B, 1) int32
 
     Outputs as :func:`fused_snn_stack_plain`.  CUDA tensors launch the
-    kernel (one launch, counted in ``fused_snn_stack.launches``); CPU
-    tensors run the plain version.
+    resident kernel (one launch, counted in ``fused_snn_stack.launches``);
+    CPU tensors run the plain version.
     """
-    sizes = _validate(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
-                      counts_init, first_init, steps_init, gate_init, readout,
-                      block_b)
-    kw = dict(chunk_steps=chunk_steps, window_steps=window_steps,
-              decay_shift=decay_shift, v_threshold=v_threshold, v_rest=v_rest,
-              v_min=v_min, v_max=v_max, active_pruning=active_pruning,
-              patience=patience, readout=readout, sparse_skip=sparse_skip,
-              block_b=block_b)
-    args = (pixels_u8, state_u32, weights, v_init, en_init, vp_init,
-            counts_init, first_init, steps_init, gate_init)
-    if pixels_u8.device.type == "cpu":
-        return fused_snn_stack_plain(*args, **kw)
-    if pixels_u8.device.type != "cuda":
-        raise ValueError(f"no stack kernel for device {pixels_u8.device}")
-    return _launch(*args, sizes, **kw)
+    return _run(False, *operands, **options)
+
+
+def fused_snn_stack_streamed(*operands, **options):
+    """:func:`fused_snn_stack` on the weight-streaming kernel: the same
+    operands, keywords and outputs.  CUDA tensors launch it (one launch,
+    counted in ``fused_snn_stack_streamed.launches``), CPU tensors run the
+    plain version.  It holds stacks whose per-lane state does not fit
+    shared memory (:func:`stack_streamed_smem_bytes`); weights must be
+    16-byte aligned."""
+    return _run(True, *operands, **options)
 
 
 fused_snn_stack.launches = 0
+fused_snn_stack_streamed.launches = 0

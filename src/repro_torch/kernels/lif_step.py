@@ -1,0 +1,109 @@
+"""One integer LIF layer over a materialised spike train in one launch: the
+CUDA kernel's launcher and its plain PyTorch version.
+
+Port of ``repro.kernels.lif_step.lif_forward_pallas``, the per-layer stage
+of the staged backend: ``T`` steps of Σ W·S over the step's input spikes,
+enable mask, saturating add, shift leak, fire, hard reset and active
+pruning, from fresh state (membranes at ``v_rest``, every neuron enabled).
+It takes any int16 weight code, so it is also the backend for codes wider
+than the fused kernels' signed 9-bit range.
+
+:func:`lif_forward` is the wrapper: for CUDA tensors it launches the
+kernel of ``csrc/lif_step.cu`` (and counts the launch in
+``lif_forward.launches``), for CPU tensors it runs
+:func:`lif_forward_plain`.  There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._build import check_operand, launch
+
+__all__ = ["BLOCK", "lif_forward", "lif_forward_plain"]
+
+BLOCK = (8, 128)        # (lanes, output columns) per thread block
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 → int32 with two's-complement wraparound."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def lif_forward_plain(spikes_u8: torch.Tensor, w_i16: torch.Tensor, *,
+                      decay_shift: int, v_threshold: int, v_rest: int = 0,
+                      v_min: int = -(1 << 20), v_max: int = (1 << 20) - 1,
+                      active_pruning: bool = False):
+    """The LIF kernel's function in plain PyTorch.
+
+    ``spikes_u8``: (T, B, K) uint8; ``w_i16``: (K, N) int16.  Returns
+    ``(spikes (T, B, N) uint8, v_trace (T, B, N) int32, v_final (B, N)
+    int32)``.  Σ W·S runs as a float64 product, exact since |Σ| ≤
+    K·32,768 ≪ 2^53, then wraps to int32 as the reference's int32 dot
+    does; so does the membrane add before the clip.
+    """
+    T, B, _ = spikes_u8.shape
+    N = w_i16.shape[1]
+    dev = spikes_u8.device
+    w = w_i16.to(torch.float64)
+    v = torch.full((B, N), v_rest, dtype=torch.int32, device=dev)
+    en = torch.ones((B, N), dtype=torch.bool, device=dev)
+    spk = torch.empty((T, B, N), dtype=torch.uint8, device=dev)
+    vtr = torch.empty((T, B, N), dtype=torch.int32, device=dev)
+    for t in range(T):
+        cur = torch.matmul(spikes_u8[t].to(torch.float64), w)
+        cur = torch.where(en, cur.to(torch.int64), 0)
+        v_int = torch.clamp(_wrap32(v.to(torch.int64) + cur), v_min, v_max)
+        v_leak = v_int - (v_int >> decay_shift)
+        fired = (v_leak >= v_threshold) & en
+        v = torch.where(en, torch.where(fired, v_rest, v_leak), v)
+        spk[t] = fired
+        vtr[t] = v
+        if active_pruning:
+            en = en & ~fired
+    return spk, vtr, v
+
+
+def lif_forward(spikes_u8: torch.Tensor, w_i16: torch.Tensor, *,
+                decay_shift: int, v_threshold: int, v_rest: int = 0,
+                v_min: int = -(1 << 20), v_max: int = (1 << 20) - 1,
+                active_pruning: bool = False):
+    """Run one LIF layer over ``spikes_u8`` (T, B, K) uint8 with ``w_i16``
+    (K, N) int16; B a multiple of 8 and N of 128 (as ``kernels.ops.
+    lif_forward_op`` pads them).
+
+    Outputs as :func:`lif_forward_plain`.  CUDA tensors launch the kernel
+    (one launch, counted in ``lif_forward.launches``); CPU tensors run the
+    plain version.
+    """
+    if spikes_u8.ndim != 3 or w_i16.ndim != 2:
+        raise ValueError(f"spikes must be (T, B, K) and weights (K, N), got "
+                         f"{tuple(spikes_u8.shape)} and {tuple(w_i16.shape)}")
+    dev = spikes_u8.device
+    T, B, K = spikes_u8.shape
+    N = w_i16.shape[1]
+    check_operand(spikes_u8, "spikes_u8", torch.uint8, (T, B, K), dev)
+    check_operand(w_i16, "w_i16", torch.int16, (K, N), dev)
+    kw = dict(decay_shift=decay_shift, v_threshold=v_threshold,
+              v_rest=v_rest, v_min=v_min, v_max=v_max,
+              active_pruning=active_pruning)
+    if dev.type == "cpu":
+        return lif_forward_plain(spikes_u8, w_i16, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"no LIF kernel for device {dev}")
+    bB, bN = BLOCK
+    if B == 0 or B % bB or N == 0 or N % bN:
+        raise ValueError(f"the LIF kernel takes a batch that is a multiple "
+                         f"of {bB} and an output width that is a multiple "
+                         f"of {bN}, got B={B}, N={N}")
+    spk = torch.empty((T, B, N), dtype=torch.uint8, device=dev)
+    vtr = torch.empty((T, B, N), dtype=torch.int32, device=dev)
+    vfin = torch.empty((B, N), dtype=torch.int32, device=dev)
+    launch("lif_step", [spikes_u8, w_i16, spk, vtr, vfin],
+           [T, B, K, N, decay_shift, v_threshold, v_rest, v_min, v_max,
+            int(active_pruning)], dev)
+    lif_forward.launches += 1
+    return spk, vtr, vfin
+
+
+lif_forward.launches = 0

@@ -1,11 +1,11 @@
-"""Public wrapper of the encode→LIF stack kernel: padding, masks, unpadding.
+"""Public wrappers of the port's kernels: padding, masks, unpadding.
 
-Port of ``repro.kernels.ops.fused_snn_stack_op`` and
-``validate_weight_codes``.  The wrapper pads the batch to the launch block
-and every neuron axis to ``LANE``, disables padded neurons and padded batch
-rows, runs :func:`kernels.fused_snn.fused_snn_stack` (the CUDA kernel for
-CUDA tensors, its plain version for CPU tensors) and cuts the results back
-to the true shapes.
+Port of ``repro.kernels.ops``' ``poisson_encode_op``, ``lif_forward_op``,
+``fused_snn_stack_op`` and ``validate_weight_codes``.  Each wrapper pads
+its operands to the launch blocks, runs the kernel's launcher (the CUDA
+kernel for CUDA tensors, its plain version for CPU tensors) and cuts the
+results back to the true shapes.  The stack op also disables padded
+neurons and padded batch rows.
 """
 
 from __future__ import annotations
@@ -14,10 +14,11 @@ import torch
 import torch.nn.functional as F
 
 from ..core.telemetry import ChunkTelemetry, resolve_sparse_skip
-from . import fused_snn
+from . import fused_snn, lif_step, poisson_encode
 
-__all__ = ["fused_snn_stack_op", "stack_operands", "stack_results",
-           "validate_weight_codes", "V_PEAK_INIT"]
+__all__ = ["poisson_encode_op", "lif_forward_op", "fused_snn_stack_op",
+           "stack_operands", "stack_results", "validate_weight_codes",
+           "V_PEAK_INIT"]
 
 # window-start sentinel for the carried peak-membrane accumulator: the
 # first real membrane value always wins the max-fold
@@ -27,11 +28,12 @@ V_PEAK_INIT = -(1 << 31)
 def validate_weight_codes(weights) -> None:
     """Raise if weights fall outside the signed 9-bit code range.
 
-    The kernels take the paper's signed 9-bit weight codes [-256, 255]
-    (``quantize_params``' output contract).  The reference package's fused
-    kernels pack them into two int8 planes, exact only on that range; the
-    port holds codes to the same contract so both packages accept and
-    refuse the same weights.
+    The stack kernels (``fused`` and ``fused_streamed``) take the paper's
+    signed 9-bit weight codes [-256, 255] (``quantize_params``' output
+    contract).  The reference package's fused kernels pack them into two
+    int8 planes, exact only on that range; the port holds codes to the same
+    contract so both packages accept and refuse the same weights.  The
+    staged LIF kernel takes any int16 code.
     """
     for i, w in enumerate(weights):
         lo, hi = int(w.min()), int(w.max())
@@ -59,6 +61,41 @@ def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
 
 def _pad2(x: torch.Tensor, rows: int, lanes: int) -> torch.Tensor:
     return _pad_to(_pad_to(x, 0, rows), 1, lanes)
+
+
+def poisson_encode_op(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
+                      num_steps: int):
+    """Poisson-encode a whole window: ``(spikes (T, B, N) uint8, final state
+    (B, N) uint32)``.  Pads batch to 8 and pixels to 128 (zero pixels and
+    zero state never spike) and cuts back."""
+    B, N = pixels_u8.shape
+    lane = fused_snn.LANE
+    spikes, state = poisson_encode.poisson_encode(
+        _pad2(pixels_u8, 8, lane), _pad2(state_u32, 8, lane), num_steps)
+    return spikes[:, :B, :N], state[:B, :N]
+
+
+def lif_forward_op(spikes_t: torch.Tensor, w_q: torch.Tensor, *,
+                   decay_shift: int, v_threshold: int, v_rest: int = 0,
+                   v_min: int = -(1 << 20), v_max: int = (1 << 20) - 1,
+                   active_pruning: bool = False):
+    """One LIF layer over a (T, B, n_in) spike train with (n_in, n_out) int
+    codes, from fresh state: ``(spikes (T, B, n_out) uint8, v_trace
+    (T, B, n_out) int32, v_final (B, n_out) int32)``.
+
+    Pads batch to 8 and n_out to 128 (padded columns carry zero weights
+    and are cut before anything reads them); n_in is not padded.  Any int16
+    code is exact here.
+    """
+    T, B, _ = spikes_t.shape
+    n_out = w_q.shape[1]
+    bB, bN = lif_step.BLOCK
+    spk, vtr, vfin = lif_step.lif_forward(
+        _pad_to(spikes_t.to(torch.uint8), 1, bB),
+        _pad_to(w_q.to(torch.int16), 1, bN), decay_shift=decay_shift,
+        v_threshold=v_threshold, v_rest=v_rest, v_min=v_min, v_max=v_max,
+        active_pruning=active_pruning)
+    return spk[:, :B, :n_out], vtr[:, :B, :n_out], vfin[:B, :n_out]
 
 
 def stack_operands(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
@@ -165,7 +202,8 @@ def fused_snn_stack_op(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
                        active_pruning: bool = False, init: dict | None = None,
                        gate: dict | None = None, patience: int = 0,
                        readout: str = "count",
-                       sparse_skip: bool | None = None):
+                       sparse_skip: bool | None = None,
+                       streamed: bool = False):
     """Multi-layer encode→LIF stack in one resumable launch.
 
     Args:
@@ -179,18 +217,23 @@ def fused_snn_stack_op(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
         ``prev``/``streak`` int32 (B,); the launch then runs the early-exit
         gate each step and freezes retired lanes.
       sparse_skip: tile-skip telemetry on/off (None = REPRO_SPARSE_SKIP).
+      streamed: run the weight-streaming kernel (the ``fused_streamed``
+        backend, for stacks whose per-lane state the resident kernel's
+        shared memory cannot hold) instead of the resident one.
 
     Returns a dict with ``spike_counts``/``first_spike_t``/``v_final``
     ((B, n_out) int32), ``v_trace`` ((chunk, B, n_out) int32),
     ``active_adds`` ((chunk, B) int32), ``prng_state`` ((B, n_in) uint32),
     the carried ``v``/``en``/``v_peak``/``steps``, ``telemetry`` (a
     ChunkTelemetry) and, when gated, ``gate``.  CUDA tensors run one launch
-    of the stack kernel, CPU tensors its plain version.
+    of a stack kernel, CPU tensors the plain version.
     """
     args, meta = stack_operands(pixels_u8, state_u32, weights,
                                 num_steps=num_steps, v_rest=v_rest,
                                 init=init, gate=gate)
-    outs = fused_snn.fused_snn_stack(
+    run = (fused_snn.fused_snn_stack_streamed if streamed
+           else fused_snn.fused_snn_stack)
+    outs = run(
         *args, chunk_steps=num_steps if chunk_steps is None else chunk_steps,
         window_steps=num_steps, decay_shift=decay_shift,
         v_threshold=v_threshold, v_rest=v_rest, v_min=v_min, v_max=v_max,

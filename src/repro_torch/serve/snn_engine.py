@@ -11,12 +11,15 @@ datapath together, with two scheduling ideas:
     live lanes are compacted to the front of the tile (stable order) and
     the freed slots admit queued images (continuous batching).
 
-On a CUDA device the chunk is ONE launch of the encode→LIF stack kernel
+On a CUDA device the chunk is ONE launch of an encode→LIF stack kernel
 (``kernels.ops.fused_snn_stack_op`` with the gate state), which advances
 every lane ``chunk_steps`` steps through every layer and runs the
-stability gate per step.  The ``reference`` backend runs the same datapath
-as per-step torch ops over ``core.snn.snn_int_stack_step``.  Both give the
-same lane-state evolution for the same seeds.
+stability gate per step: the resident kernel (``fused``) or, for a stack
+whose per-lane state it cannot hold, the weight-streaming kernel
+(``fused_streamed``).  The ``reference`` backend runs the same datapath as
+per-step torch ops over ``core.snn.snn_int_stack_step``.  All give the
+same lane-state evolution for the same seeds.  The staged kernels cannot
+resume mid-window, so the engine never runs them.
 
 Each fresh request's PRNG lanes are seeded from ``seed + request_id``, so
 a request's window is a pure function of its id: results do not depend on
@@ -37,8 +40,8 @@ import torch
 
 from ..core import lif as lif_mod
 from ..core import prng as prng_mod
-from ..core.snn import (SNNConfig, readout_pred, resolve_backend,
-                        snn_int_stack_step)
+from ..core.snn import (SNNConfig, fused_unsupported_reason, readout_pred,
+                        resolve_backend, snn_int_stack_step)
 from ..core.telemetry import ChunkTelemetry, EngineLoad
 from ..device import resolve_device
 from ..kernels import ops
@@ -114,12 +117,13 @@ def stream_chunk(lanes: LaneState, weights: tuple, *, chunk_steps: int,
     """Advance every active lane by up to ``chunk_steps`` window steps.
 
     ``backend="fused"`` runs the whole chunk (every layer, every step, the
-    stability gate) as one launch of the stack kernel; ``"reference"``
-    steps the same datapath with torch ops.  A retired or inactive lane is
-    frozen: PRNG, membranes, counters and its add counter stop.  Returns
-    ``(lanes', ChunkTelemetry)``.
+    stability gate) as one launch of the resident stack kernel,
+    ``"fused_streamed"`` as one launch of the weight-streaming kernel;
+    ``"reference"`` steps the same datapath with torch ops.  A retired or
+    inactive lane is frozen: PRNG, membranes, counters and its add counter
+    stop.  Returns ``(lanes', ChunkTelemetry)``.
     """
-    if backend == "fused":
+    if backend in ("fused", "fused_streamed"):
         k = ops.fused_snn_stack_op(
             lanes.px, lanes.rng, weights, num_steps=num_steps,
             chunk_steps=chunk_steps, decay_shift=lif_cfg.decay_shift,
@@ -131,7 +135,8 @@ def stream_chunk(lanes: LaneState, weights: tuple, *, chunk_steps: int,
                   "steps": lanes.steps},
             gate={"active": lanes.active, "prev": lanes.gate_prev,
                   "streak": lanes.gate_streak},
-            patience=patience, readout=readout, sparse_skip=sparse_skip)
+            patience=patience, readout=readout, sparse_skip=sparse_skip,
+            streamed=backend == "fused_streamed")
         return LaneState(
             px=lanes.px, rng=k["prng_state"], v=k["v"], en=k["en"],
             v_peak=k["v_peak"], counts=k["spike_counts"],
@@ -221,9 +226,11 @@ class SNNStreamEngine:
     (numpy arrays or tensors; see ``repro_torch.convert.params_from_jax``).
     ``device`` None is the CUDA card (raises without one); pass
     ``device="cpu"`` for the plain PyTorch paths.  ``backend`` None/"auto"
-    resolves to ``fused`` (the stack kernel) on a card, raising when the
-    stack does not fit its shared memory, and to ``reference`` on the CPU;
-    ``"fused"`` on the CPU runs the kernel's plain version.  ``adaptive`` configures the
+    resolves on a card through the resumable chain ``fused`` →
+    ``fused_streamed`` (the resident stack kernel, else the
+    weight-streaming one), raising when neither holds the stack, and to
+    ``reference`` on the CPU; ``"fused"`` or ``"fused_streamed"`` on the
+    CPU runs the kernels' plain version.  ``adaptive`` configures the
     telemetry controller (None = the REPRO_ADAPTIVE_DISPATCH default,
     frozen): it only moves value-neutral knobs, so results are the same
     either way.
@@ -243,15 +250,28 @@ class SNNStreamEngine:
                 f"unknown readout {cfg.readout!r}: the streaming engine "
                 f"implements 'count', 'first_spike' and 'membrane'")
         self.device = resolve_device(device)
-        weights = self._place_weights(
-            tuple(layer["w_q"] for layer in params_q["layers"]))
-        self.layer_sizes = tuple([int(weights[0].shape[0])]
-                                 + [int(w.shape[1]) for w in weights])
+        codes = tuple(layer["w_q"] for layer in params_q["layers"])
+        self.layer_sizes = tuple([int(codes[0].shape[0])]
+                                 + [int(w.shape[1]) for w in codes])
+        requested = "auto" if backend is None else backend
         self.backend = resolve_backend(
-            cfg, "auto" if backend is None else backend, len(weights),
-            layer_sizes=self.layer_sizes, local_batch=batch_size,
-            device=self.device)
-        if self.backend == "fused":
+            cfg, requested, len(codes), layer_sizes=self.layer_sizes,
+            local_batch=batch_size, device=self.device)
+        if self.backend == "staged":
+            # a chunk resumes mid-window, which the staged kernels cannot
+            if requested == "staged":
+                raise ValueError(
+                    "streaming chunk backend must be 'fused', "
+                    "'fused_streamed' or 'reference' (the staged kernels "
+                    "cannot resume mid-window); got 'staged'")
+            why = fused_unsupported_reason(cfg, len(codes), self.layer_sizes,
+                                           batch_size, streamed=True)
+            raise ValueError(
+                f"no resumable stack kernel holds this stack: {why} — the "
+                f"staged kernels cannot resume mid-window; pass "
+                f"backend='reference' to serve it in plain PyTorch")
+        weights = self._place_weights(codes)
+        if self.backend in ("fused", "fused_streamed"):
             ops.validate_weight_codes(weights)
         self.engine_id = int(engine_id)
         self.bank = WeightBank(weights, version=int(initial_weight_version))
@@ -274,7 +294,8 @@ class SNNStreamEngine:
         self._lane_versions = np.zeros(batch_size, np.int64)
         self._service_ewma: float | None = None
         self._retired_total = 0
-        self.dispatches = 0       # chunk executions (kernel launches on fused)
+        self.dispatches = 0       # chunk executions (kernel launches on a
+                                  # fused backend)
 
     @property
     def weights(self) -> tuple:
@@ -492,7 +513,7 @@ class SNNStreamEngine:
             raise ValueError(
                 f"rollout cannot change the topology: engine serves "
                 f"{self.layer_sizes}, new weights are {sizes}")
-        if self.backend == "fused":
+        if self.backend in ("fused", "fused_streamed"):
             ops.validate_weight_codes(ws)
         return self.bank.begin(ws)
 

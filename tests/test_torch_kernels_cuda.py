@@ -1,8 +1,10 @@
-"""The port's CUDA stack kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here needs an NVIDIA GPU and nvcc; without a card they skip
-(decided inside the fixture, so every worker collects the same tests).
-Run them on a machine with a card: ``PYTHONPATH=src python -m pytest -m cuda
+K1 and K2 (the resident and the weight-streaming stack kernels), K4 (the
+encoder) and K5 (the LIF layer), and the backends built on them.  Every
+test here needs an NVIDIA GPU and nvcc; without a card they skip (decided
+inside the fixture, so every worker collects the same tests).  Run them on
+a machine with a card: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_kernels_cuda.py``.  Every comparison is integer equality.
 """
 
@@ -13,8 +15,9 @@ import pytest
 import torch
 
 from repro_torch.configs import snn_mnist as cfgs
+from repro_torch.core import snn
 from repro_torch.core.prng import seed_state
-from repro_torch.kernels import fused_snn, ops
+from repro_torch.kernels import fused_snn, lif_step, ops, poisson_encode
 from repro_torch.serve import SNNStreamEngine
 
 pytestmark = pytest.mark.cuda
@@ -43,11 +46,18 @@ def _assert_equal(got, want, what):
         assert torch.equal(a, b), (what, i)
 
 
-def _problem(cfg, b, dev, seed):
+def _problem(cfg, b, dev, seed, fan_in_scale=None):
+    """Seeded pixels, PRNG state and codes; ``fan_in_scale`` draws the
+    codes from normal(0, scale / sqrt(fan-in)) (for the wide stack)."""
     rng = np.random.default_rng(seed)
     sizes = cfg.layer_sizes
-    ws = tuple(torch.from_numpy(np.clip(np.round(rng.normal(6, 40, (i, o))),
-                                        -256, 255).astype(np.int16)).to(dev)
+
+    def code(i, o):
+        mean, std = (6, 40) if fan_in_scale is None else \
+            (0, fan_in_scale / np.sqrt(i))
+        return np.clip(np.round(rng.normal(mean, std, (i, o))), -256, 255)
+
+    ws = tuple(torch.from_numpy(code(i, o).astype(np.int16)).to(dev)
                for i, o in zip(sizes[:-1], sizes[1:]))
     px = rng.integers(0, 256, (b, sizes[0]), dtype=np.uint8)
     px[:, : sizes[0] // 3] = 0
@@ -63,12 +73,11 @@ _CASES = [(name, readout, gated, ss)
           for gated in (False, True) for ss in (True, False)]
 
 
-@pytest.mark.parametrize("name,readout,gated,sparse_skip", _CASES)
-def test_kernel_equals_plain_chunked(card, name, readout, gated,
-                                     sparse_skip):
-    cfg = dataclasses.replace(getattr(cfgs, name), readout=readout)
-    b = 61
-    px, st, ws = _problem(cfg, b, card, seed=len(name))
+def _check_chunks(card, kernel, cfg, px, st, ws, readout, gated,
+                  sparse_skip):
+    """Five gated or ungated 4-step launches of ``kernel``, each equal to
+    the plain version on the same operands."""
+    b = px.shape[0]
     lif = cfg.lif
     kw = dict(window_steps=cfg.num_steps, decay_shift=lif.decay_shift,
               v_threshold=lif.v_threshold, v_rest=lif.v_rest,
@@ -87,20 +96,139 @@ def test_kernel_equals_plain_chunked(card, name, readout, gated,
         args, meta = ops.stack_operands(px, st, ws, num_steps=cfg.num_steps,
                                         v_rest=lif.v_rest, init=init,
                                         gate=gate)
-        before = fused_snn.fused_snn_stack.launches
-        got = fused_snn.fused_snn_stack(*args, chunk_steps=4,
-                                        block_b=meta["block_b"], **kw)
+        before = kernel.launches
+        got = kernel(*args, chunk_steps=4, block_b=meta["block_b"], **kw)
         torch.cuda.synchronize()
-        assert fused_snn.fused_snn_stack.launches == before + 1
+        assert kernel.launches == before + 1
         want = fused_snn.fused_snn_stack_plain(*args, chunk_steps=4,
                                                block_b=meta["block_b"], **kw)
-        _assert_equal(got, want, name)
+        _assert_equal(got, want, cfg.layer_sizes)
         res = ops.stack_results(got, meta)
         st = res["prng_state"]
         init = {"v": res["v"], "en": res["en"], "v_peak": res["v_peak"],
                 "counts": res["spike_counts"], "first": res["first_spike_t"],
                 "steps": res["steps"]}
         gate = res.get("gate")
+
+
+@pytest.mark.parametrize("name,readout,gated,sparse_skip", _CASES)
+def test_kernel_equals_plain_chunked(card, name, readout, gated,
+                                     sparse_skip):
+    cfg = dataclasses.replace(getattr(cfgs, name), readout=readout)
+    px, st, ws = _problem(cfg, 61, card, seed=len(name))
+    _check_chunks(card, fused_snn.fused_snn_stack, cfg, px, st, ws, readout,
+                  gated, sparse_skip)
+
+
+@pytest.mark.parametrize("name,readout,prune,scale,gated,sparse_skip", [
+    ("SNN_CONFIG_WIDE", "count", False, 170, False, True),
+    ("SNN_CONFIG_WIDE", "first_spike", True, 350, True, False),
+    ("SNN_CONFIG_DEEP", "count", False, None, True, True),
+    ("SNN_CONFIG", "membrane", False, None, False, False),
+])
+def test_streamed_kernel_equals_plain_chunked(card, name, readout, prune,
+                                              scale, gated, sparse_skip):
+    cfg = dataclasses.replace(getattr(cfgs, name), readout=readout,
+                              active_pruning=prune)
+    px, st, ws = _problem(cfg, 37, card, seed=len(name) + 1,
+                          fan_in_scale=scale)
+    _check_chunks(card, fused_snn.fused_snn_stack_streamed, cfg, px, st, ws,
+                  readout, gated, sparse_skip)
+
+
+def test_streamed_kernel_equals_resident(card):
+    cfg = cfgs.SNN_CONFIG_DEEP
+    px, st, ws = _problem(cfg, 45, card, seed=2)
+    args, meta = ops.stack_operands(px, st, ws, num_steps=cfg.num_steps)
+    kw = dict(chunk_steps=20, window_steps=20, decay_shift=4,
+              v_threshold=128, active_pruning=True, block_b=meta["block_b"])
+    _assert_equal(fused_snn.fused_snn_stack_streamed(*args, **kw),
+                  fused_snn.fused_snn_stack(*args, **kw), "K2 vs K1")
+
+
+def test_streamed_kernel_refuses_misaligned_weights(card):
+    cfg = cfgs.SNN_CONFIG
+    px, st, ws = _problem(cfg, 8, card, seed=3)
+    args, meta = ops.stack_operands(px, st, ws, num_steps=20)
+    w = args[2][0]
+    flat = torch.empty(w.numel() + 1, dtype=torch.int16, device=card)
+    shifted = flat[1:].view(w.shape)          # contiguous, 2-byte offset
+    shifted.copy_(w)
+    bad = list(args)
+    bad[2] = (shifted,)
+    before = fused_snn.fused_snn_stack_streamed.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_snn.fused_snn_stack_streamed(*bad, chunk_steps=2,
+                                           window_steps=20, decay_shift=4,
+                                           v_threshold=128,
+                                           block_b=meta["block_b"])
+    assert fused_snn.fused_snn_stack_streamed.launches == before
+
+
+@pytest.mark.parametrize("b,n,t", [(13, 200, 7), (8, 784, 20)])
+def test_encoder_kernel_equals_plain(card, b, n, t):
+    rng = np.random.default_rng(b)
+    px = torch.from_numpy(rng.integers(0, 256, (b, n), dtype=np.uint8)) \
+        .to(card)
+    st = seed_state(b, (b, n), device=card)
+    before = poisson_encode.poisson_encode.launches
+    got = ops.poisson_encode_op(px, st, t)
+    torch.cuda.synchronize()
+    assert poisson_encode.poisson_encode.launches == before + 1
+    _assert_equal(got, poisson_encode.poisson_encode_plain(px, st, t), "K4")
+
+
+@pytest.mark.parametrize("prune", [False, True])
+@pytest.mark.parametrize("lo,hi", [(-256, 255), (-2000, 2000)])
+def test_lif_kernel_equals_plain(card, prune, lo, hi):
+    rng = np.random.default_rng(hi)
+    T, B, K, N = 6, 16, 200, 256
+    spikes = torch.from_numpy(rng.integers(0, 2, (T, B, K), dtype=np.uint8)) \
+        .to(card)
+    w = torch.from_numpy(rng.integers(lo, hi + 1, (K, N)).astype(np.int16)) \
+        .to(card)
+    kw = dict(decay_shift=4, v_threshold=128, active_pruning=prune)
+    before = lif_step.lif_forward.launches
+    got = lif_step.lif_forward(spikes, w, **kw)
+    torch.cuda.synchronize()
+    assert lif_step.lif_forward.launches == before + 1
+    _assert_equal(got, lif_step.lif_forward_plain(spikes, w, **kw), "K5")
+    assert int(got[0].sum()) > 0
+
+
+def test_staged_backend_equals_reference_on_card(card):
+    cfg = dataclasses.replace(cfgs.SNN_CONFIG_DEEP, readout="first_spike",
+                              active_pruning=True)
+    px, st, ws = _problem(cfg, 21, card, seed=5)
+    p = {"layers": [{"w_q": w} for w in ws]}
+    before = (poisson_encode.poisson_encode.launches,
+              lif_step.lif_forward.launches)
+    got = snn.snn_apply_int(p, px, st, cfg, backend="staged")
+    assert (poisson_encode.poisson_encode.launches,
+            lif_step.lif_forward.launches) == (before[0] + 1, before[1] + 3)
+    want = snn.snn_apply_int(p, px, st, cfg, backend="reference")
+    for key in ("pred", "spike_counts", "v_trace", "first_spike_t",
+                "v_final", "active_adds", "prng_state", "v_peak",
+                "telemetry"):
+        _assert_equal(got[key], want[key], key)
+
+
+def test_auto_chain_on_card(card):
+    """auto: the narrow nine-layer stack goes to the staged kernels in
+    snn_apply_int, and the engine and the chunked window refuse it."""
+    cfg = dataclasses.replace(cfgs.SNN_CONFIG_DEEP, layer_sizes=(64,) * 10)
+    px, st, ws = _problem(cfg, 9, card, seed=6, fan_in_scale=170)
+    p = {"layers": [{"w_q": w} for w in ws]}
+    before = lif_step.lif_forward.launches
+    got = snn.snn_apply_int(p, px, st, cfg)
+    assert lif_step.lif_forward.launches == before + 9
+    want = snn.snn_apply_int(p, px, st, cfg, backend="reference")
+    _assert_equal(got["spike_counts"], want["spike_counts"], "9 x 64")
+    with pytest.raises(ValueError, match="cannot resume"):
+        snn.snn_window_chunk(p, px, snn.snn_window_init(p, st, cfg), cfg,
+                             chunk_steps=4)
+    with pytest.raises(ValueError, match="no resumable stack kernel"):
+        SNNStreamEngine(p, cfg)
 
 
 def test_kernel_refuses_bad_operands(card):
@@ -119,25 +247,33 @@ def test_kernel_refuses_bad_operands(card):
         fused_snn.fused_snn_stack(*bad, **kw)
 
 
-def test_engine_fused_equals_reference_on_card(card):
+@pytest.mark.parametrize("name,backend,kernel", [
+    ("SNN_CONFIG_PRUNED", "fused", fused_snn.fused_snn_stack),
+    ("SNN_CONFIG_WIDE", "fused_streamed", fused_snn.fused_snn_stack_streamed),
+])
+def test_engine_fused_equals_reference_on_card(card, name, backend, kernel):
     rng = np.random.default_rng(4)
-    cfg = cfgs.SNN_CONFIG_PRUNED
-    p = {"layers": [{"w_q": np.clip(np.round(rng.normal(6, 40, (784, 10))),
-                                    -256, 255).astype(np.int16)}]}
+    cfg = getattr(cfgs, name)
+    sizes = cfg.layer_sizes
+    wide = name == "SNN_CONFIG_WIDE"        # codes scaled to fan-in there
+    p = {"layers": [{"w_q": np.clip(np.round(rng.normal(
+        0 if wide else 6, 170 / np.sqrt(i) if wide else 40, (i, o))),
+        -256, 255).astype(np.int16)} for i, o in zip(sizes[:-1], sizes[1:])]}
     imgs = rng.integers(0, 256, (40, 784), dtype=np.uint8)
     res = {}
-    for backend in ("fused", "reference"):
+    for b in (None, "reference"):
         eng = SNNStreamEngine(p, cfg, batch_size=16, chunk_steps=4,
-                              patience=2, seed=3, backend=backend)
+                              patience=2, seed=3, backend=b)
+        assert eng.backend == (backend if b is None else b)
         for im in imgs:
             eng.submit(im)
-        before = fused_snn.fused_snn_stack.launches
-        res[backend] = eng.run()
-        launched = fused_snn.fused_snn_stack.launches - before
-        assert launched == (eng.dispatches if backend == "fused" else 0)
-    assert sorted(res["fused"]) == list(range(40))
+        before = kernel.launches
+        res[b] = eng.run()
+        launched = kernel.launches - before
+        assert launched == (eng.dispatches if b is None else 0)
+    assert sorted(res[None]) == list(range(40))
     for rid, r in res["reference"].items():
-        f = res["fused"][rid]
+        f = res[None][rid]
         assert (f.pred, f.steps, f.adds, f.early_exit) == \
             (r.pred, r.steps, r.adds, r.early_exit)
         np.testing.assert_array_equal(f.spike_counts, r.spike_counts)

@@ -194,6 +194,12 @@ def test_readout_pred_ties_and_long_windows():
 
 
 def test_resolve_backend_hopper_model():
+    """On a CUDA device ``auto`` walks fused → fused_streamed → staged by the
+    kernels' shared-memory model (pure logic, no card needed); the engine
+    and the chunked window stop at fused_streamed and raise past it; plain
+    PyTorch runs on the card only when named."""
+    import types
+    from repro_torch.serve import SNNStreamEngine
     cfg = tcfgs.SNN_CONFIG
     assert tsnn.resolve_backend(cfg, device="cpu") == "reference"
     assert tsnn.resolve_backend(cfg, device="cuda",
@@ -202,16 +208,41 @@ def test_resolve_backend_hopper_model():
     assert tsnn.resolve_backend(deep, n_layers=3, device="cuda") == "fused"
     wide = tcfgs.SNN_CONFIG_WIDE
     assert tsnn.fused_unsupported_reason(wide, 3) is not None
-    # on the card, auto never falls back to plain PyTorch: it raises
-    for b in (None, "auto", "fused"):
-        with pytest.raises(ValueError, match="does not support"):
-            tsnn.resolve_backend(wide, b, 3, device="cuda")
-    assert tsnn.resolve_backend(wide, "reference", 3,
-                                device="cuda") == "reference"
-    assert tsnn.resolve_backend(wide, n_layers=3, device="cpu") == "reference"
-    for b in ("staged", "fused_streamed", "nope"):
-        with pytest.raises(ValueError):
-            tsnn.resolve_backend(cfg, b, device="cuda")
+    assert tsnn.fused_unsupported_reason(wide, 3, streamed=True) is None
+    for b in (None, "auto", "fused_streamed"):
+        assert tsnn.resolve_backend(wide, b, 3,
+                                    device="cuda") == "fused_streamed"
+    with pytest.raises(ValueError, match="does not support.*fused_streamed"):
+        tsnn.resolve_backend(wide, "fused", 3, device="cuda")
+    # nine layers of 64: past both stack kernels' 8-layer parameter block
+    narrow = (64,) * 10
+    ncfg = dataclasses.replace(deep, layer_sizes=narrow)
+    for streamed in (False, True):
+        assert "8-layer" in tsnn.fused_unsupported_reason(ncfg, 9,
+                                                          streamed=streamed)
+    assert tsnn.resolve_backend(ncfg, n_layers=9, device="cuda") == "staged"
+    with pytest.raises(ValueError, match="fused_streamed.*'staged'"):
+        tsnn.resolve_backend(ncfg, "fused_streamed", 9, device="cuda")
+    p = {"layers": [{"w_q": np.zeros((64, 64), np.int16)}] * 9}
+    with pytest.raises(ValueError, match="no resumable stack kernel"):
+        SNNStreamEngine(p, ncfg, device="cuda")
+    on_card = types.SimpleNamespace(shape=(4, 64), device=torch.device("cuda"))
+    state = tsnn.snn_window_init(p, torch.ones((4, 64), dtype=torch.int32)
+                                 .view(torch.uint32), ncfg)
+    for b in (None, "staged"):
+        with pytest.raises(ValueError, match="cannot resume mid-window"):
+            tsnn.snn_window_chunk(p, on_card, state, ncfg, chunk_steps=4,
+                                  backend=b)
+    with pytest.raises(ValueError, match="cannot resume"):
+        SNNStreamEngine(p, ncfg, backend="staged", device="cpu")
+    # reference on the card only by name
+    for c, n in ((cfg, 1), (wide, 3), (ncfg, 9)):
+        assert tsnn.resolve_backend(c, "reference", n,
+                                    device="cuda") == "reference"
+        assert tsnn.resolve_backend(c, n_layers=n, device="cpu") == \
+            "reference"
+    with pytest.raises(ValueError, match="unknown"):
+        tsnn.resolve_backend(cfg, "nope", device="cuda")
     assert tsnn.fused_unsupported_reason(cfg, 0) is not None
 
 
