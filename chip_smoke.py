@@ -27,16 +27,38 @@ result line):
    (K4 + one K5 per layer) equal to the reference backend on the wide
    stack; ``auto`` resolving to the staged kernels for a stack no stack
    kernel holds.
+   K3, the partial contraction of one model shard, in 14 cases (the wide
+   stack's shard shapes 784→512 and 2048→512, its replicated head
+   2048→10 and the 784→5 head shard of a 2-way axis; 1,021 lanes padded to
+   1,024; input densities 0, ~6%, ~14% and 100%; enables all on, 80%
+   random, and dead 128-column tiles in some blocks; sparse_skip on and
+   off), current and skipped counts integer-equal; K6, the spike matmul,
+   masked, dot and auto on both sides of the density threshold at
+   (1,024, 2048→2048) at 5.8% and 10.4% density and (1,021, 784→10),
+   outputs and telemetry equal.
 4. serve — ``SNNStreamEngine`` with ``backend=None`` serves 4,096 seeded
    images twice: the paper's 784→10 classifier through K1, and the wide
    784→2048→2048→10 stack through K2 (batch 1024, chunk 4, patience 2,
    seeded random weight codes).  Every launch of each main path is
    counted, the results must equal the reference backend's on the card id
-   for id, and the wide stack's hidden layers must spike at 1–50%.
+   for id, and the wide stack's hidden layers must spike at 1–50%.  Then
+   ``ShardedSNNStreamEngine`` serves the same 4,096 wide-stack requests on
+   a 1×4 (data × model) mesh of the one card through K3 alone (no K1 or
+   K2 launch), with results equal to the K2 run's id for id; it is served
+   again with speculative dispatch off, on, on and off, and once more
+   under ``torch.profiler`` for the device busy share of that run's wall
+   time; a 2×2 mesh serves 1,024 of
+   them and a 1×2 mesh serves the 784→10 requests (its head sharded
+   5 + 5), each equal to the single-device run.  The K6 path routes a
+   wide hidden layer's 20-step spike train through ``spike_matmul_op``'s
+   density dispatch.
 5. times — each kernel and its plain version at the main path's shapes,
    with the bound: the larger of the bytes the function must move
    (unpadded shapes, each input read once, each output written once) at
-   3.35 TB/s and its integer operations at the card's INT32 rate.
+   3.35 TB/s and its integer operations at the card's INT32 rate; for K3
+   (each wide layer's shard shape) and K6 (both realisations) also one
+   ``torch.matmul`` in float32 (TF32 off) on the same operands, exact
+   here because |Σ| < 2^24.
 
 The second-to-last lines are the ``{"kernels": [...]}`` record and the
 nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``.
@@ -64,7 +86,7 @@ from repro_torch.configs import snn_mnist as cfgs  # noqa: E402
 from repro_torch.core import snn  # noqa: E402
 from repro_torch.core.prng import seed_state  # noqa: E402
 from repro_torch.kernels import (_build, fused_snn, lif_step, ops,  # noqa: E402
-                                 poisson_encode)
+                                 poisson_encode, spike_matmul)
 from repro_torch.serve import SNNStreamEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
@@ -84,12 +106,18 @@ KERNELS = {
     "K2": ("fused_snn_stack_streamed", CSRC + "fused_snn_streamed.cu",
            "src/repro/kernels/fused_snn.py:554 (streamed=True, :355-421)",
            fused_snn.fused_snn_stack_streamed),
+    "K3": ("partial_contraction", CSRC + "partial_contraction.cu",
+           "src/repro/kernels/fused_snn.py:275",
+           fused_snn.partial_contraction),
     "K4": ("poisson_encode", CSRC + "poisson_encode.cu",
            "src/repro/kernels/poisson_encode.py:49",
            poisson_encode.poisson_encode),
     "K5": ("lif_forward", CSRC + "lif_step.cu",
            "src/repro/kernels/lif_step.py:70", lif_step.lif_forward),
+    "K6": ("spike_matmul", CSRC + "spike_matmul.cu",
+           "src/repro/kernels/spike_matmul.py:64", spike_matmul.spike_matmul),
 }
+MESH_WIDE = (1, 4)            # (data, model) shards of the one card
 
 
 def reset_counts() -> None:
@@ -440,6 +468,128 @@ def phase_staged(dev, wide_params) -> dict:
                    "cases": n_k5}}
 
 
+def _pad(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Zero-pad a 2-D tensor's rows and columns up to multiples."""
+    out = torch.zeros((t.shape[0] + (-t.shape[0]) % rows,
+                       t.shape[1] + (-t.shape[1]) % cols), dtype=t.dtype,
+                      device=t.device)
+    out[:t.shape[0], :t.shape[1]] = t
+    return out
+
+
+def _k3_operands(rng, B, n_in, n_out, density, en_kind, dev):
+    """Padded K3 operands: spikes at ``density``, enables all on, 80%
+    random, or dead in whole 128-column tiles of every other block."""
+    x = torch.from_numpy(rng.random((B, n_in)) < density).to(dev)
+    if en_kind == "all":
+        en = np.ones((B, n_out), bool)
+    elif en_kind == "80%":
+        en = rng.random((B, n_out)) < 0.8
+    else:
+        en = rng.random((B, n_out)) < 0.8
+        for b in range(0, B, 16):                 # every other 8-lane block
+            for c in range(0, n_out, 256):        # every other column tile
+                en[b:b + 8, c:c + 128] = False
+    w = torch.from_numpy(rng.integers(-256, 256, (n_in, n_out))
+                         .astype(np.int16)).to(dev)
+    bb, lane = fused_snn.BLOCK_B, fused_snn.LANE
+    return (_pad(x.to(torch.uint8), bb, lane),
+            _pad(torch.from_numpy(en).to(dev).to(torch.uint8), bb, lane),
+            _pad(w, lane, lane))
+
+
+# (n_in, n_out, input density, enables, sparse_skip)
+K3_CASES = [(784, 512, 0.14, "all", True), (784, 512, 0.14, "80%", False),
+            (784, 512, 1.0, "dead", True), (784, 512, 0.06, "dead", False),
+            (2048, 512, 0.06, "all", True), (2048, 512, 0.06, "dead", True),
+            (2048, 512, 0.14, "80%", False), (2048, 512, 0.0, "all", True),
+            (2048, 10, 0.06, "all", True), (2048, 10, 1.0, "80%", False),
+            (2048, 10, 0.14, "dead", True), (784, 5, 0.14, "all", True),
+            (784, 5, 0.0, "80%", False), (784, 5, 1.0, "dead", True)]
+
+
+def phase_k3_vs_plain(dev) -> tuple[int, int]:
+    """K3 on every case against its plain version on the same padded
+    operands, current and skipped counts."""
+    rng = np.random.default_rng(SEED + 13)
+    t0 = time.perf_counter()
+    err, skipped_any, dead_zeroed = 0, 0, 0
+    for n_in, n_out, dens, en_kind, ss in K3_CASES:
+        x, en, w = _k3_operands(rng, CHECK_BATCH, n_in, n_out, dens, en_kind,
+                                dev)
+        got = fused_snn.partial_contraction(x, en, w, sparse_skip=ss)
+        torch.cuda.synchronize()
+        want = fused_snn.partial_contraction_plain(x, en, w, sparse_skip=ss)
+        e = _max_abs_err(got, want)
+        if e:
+            raise AssertionError(f"K3 != plain on {n_in}->{n_out} density "
+                                 f"{dens} enables {en_kind} sparse_skip={ss}"
+                                 f" (max |err| {e})")
+        err = max(err, e)
+        skipped_any += int(got[1].sum())
+        if ss and en_kind == "dead" and dens > 0:
+            dense = fused_snn.partial_contraction_plain(x, en, w,
+                                                        sparse_skip=False)[0]
+            dead_zeroed += int(((got[0] == 0) & (dense != 0)).sum())
+        log(f"[K3-vs-plain] B={CHECK_BATCH} {n_in}->{n_out} density {dens:.2f}"
+            f" enables {en_kind:4s} sparse_skip={ss!s:5s}: current and "
+            f"skipped equal (skipped tile pairs {int(got[1].sum())})")
+    if not (skipped_any and dead_zeroed):
+        raise AssertionError("the K3 cases never exercised the tile skip")
+    log(f"[K3-vs-plain] {len(K3_CASES)} cases equal; {dead_zeroed} raw "
+        f"currents of dead tiles are 0 where the dense product is not; "
+        f"{time.perf_counter() - t0:.2f} s")
+    return len(K3_CASES), err
+
+
+def _k6_case(rng, B, K, N, density, dev):
+    s = torch.from_numpy((rng.random((B, K)) < density).astype(np.uint8))
+    w = torch.from_numpy(rng.integers(-256, 256, (K, N)).astype(np.int16))
+    count = np.float32(int(s.count_nonzero()))
+    density_f32 = count * (np.float32(1) / np.float32(B * K))
+    return s.to(dev), w.to(dev), density_f32
+
+
+def phase_k6_vs_plain(dev) -> tuple[int, int]:
+    """K6 through ``spike_matmul_op`` in every mode against the plain
+    version on the same padded operands; the telemetry against the
+    density computed on the host."""
+    rng = np.random.default_rng(SEED + 17)
+    n_cases, err = 0, 0
+    bB, bK, bN = spike_matmul.BLOCK
+    for B, K, N, dens in ((1024, 2048, 2048, 0.058),
+                          (1024, 2048, 2048, 0.104), (1021, 784, 10, 0.2)):
+        s, w, d = _k6_case(rng, B, K, N, dens, dev)
+        want_out = None
+        for mode, thr in (("masked", None), ("dot", None),
+                          ("auto", float(d) * 2), ("auto", float(d) / 2)):
+            out, tel = ops.spike_matmul_op(s, w, mode=mode,
+                                           density_threshold=thr,
+                                           with_telemetry=True)
+            torch.cuda.synchronize()
+            masked = mode == "masked" or (mode == "auto" and
+                                          d < np.float32(thr))
+            plain = spike_matmul.spike_matmul_plain(
+                _pad(s, bB, bK), _pad(w, bK, bN),
+                torch.tensor(masked, device=dev))[:B, :N]
+            e = _max_abs_err(out, plain)
+            if e or bool(tel.used_masked) != masked or \
+                    float(tel.density) != float(d):
+                raise AssertionError(
+                    f"K6 {mode} (threshold {thr}) at ({B}, {K}->{N}): max "
+                    f"|err| {e}, telemetry ({float(tel.density)}, "
+                    f"{bool(tel.used_masked)}) vs ({float(d)}, {masked})")
+            if want_out is not None and _max_abs_err(out, want_out):
+                raise AssertionError("K6's realisations differ")
+            want_out = out
+            err = max(err, e)
+            n_cases += 1
+        log(f"[K6-vs-plain] ({B}, {K}->{N}) density {float(d):.4f}: masked, "
+            f"dot, auto above and below the threshold equal to the plain "
+            f"version, to each other and in telemetry")
+    return n_cases, err
+
+
 # ---------------------------------------------------------------------------
 # 4. serve
 # ---------------------------------------------------------------------------
@@ -586,7 +736,136 @@ def phase_serve(imgs, params, cfg, tag, backend) -> dict:
     log(f"[serve] {name} reference backend on the card: {ref_wall:.3f} s = "
         f"{len(want) / ref_wall:.1f} requests/s; results equal id for id")
     return {"launches": launched[tag], "chunks": eng.dispatches,
-            "requests_per_s": len(results) / wall}
+            "requests_per_s": len(results) / wall, "results": results}
+
+
+def _same_results(got, want, what) -> None:
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: {len(got)} results for {len(want)}")
+    for rid, w in want.items():
+        g = got[rid]
+        if (g.pred, g.steps, g.adds, g.early_exit, g.weight_version) != \
+                (w.pred, w.steps, w.adds, w.early_exit, w.weight_version) \
+                or not np.array_equal(g.spike_counts, w.spike_counts):
+            raise AssertionError(f"{what}: request {rid}: {g} != {w}")
+
+
+def _device_busy_ms(run) -> tuple[float, float, list]:
+    """Device time of every kernel ``run()`` launches, summed over the
+    kernel events of a ``torch.profiler`` trace (the operators that launch
+    them carry the same time again, so they are left out; 0.0 when the
+    trace holds no device time), the wall time of that same profiled
+    ``run()`` in ms, and the eight kernels with the most device time:
+    (name, ms, calls)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops_ = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+    ops_.sort(key=lambda o: -o[1])
+    return sum(ms for _, ms, _ in ops_), wall_ms, ops_[:8]
+
+
+def phase_mesh_serve(imgs, params, cfg, mesh, lanes, want, dev,
+                     profile=False) -> dict:
+    """Serve ``imgs`` with ``ShardedSNNStreamEngine`` on a (data × model)
+    mesh of the one card, ``backend=None``: every contraction must run
+    through K3, no stack kernel may launch, and the results must equal the
+    single-device run's ``want`` id for id.  With ``profile`` the same
+    serve then runs four more times, speculation off, on, on, off (each
+    equal to ``want``), and once more under ``torch.profiler`` for the
+    device busy share of that profiled run's own wall time."""
+    nd, md = mesh
+    name = "SNN_CONFIG_WIDE" if cfg is cfgs.SNN_CONFIG_WIDE else "SNN_CONFIG"
+    knobs = cfgs.SNNStreamMeshConfig(num_devices=nd, model_devices=md,
+                                     lanes_per_device=lanes,
+                                     chunk_steps=SERVE_CHUNK)
+
+    def engine(**kw):
+        return cfgs.make_stream_engine(params, cfg,
+                                       dataclasses.replace(knobs, **kw),
+                                       devices=[dev] * (nd * md),
+                                       patience=SERVE_PATIENCE, seed=SEED)
+
+    eng = engine()
+    if eng.backend not in ("fused", "fused_streamed"):
+        raise AssertionError(f"auto backend resolved to {eng.backend!r}")
+    for im in imgs:
+        eng.submit(im)
+    spent = _time_methods(eng, _TIMED + ("_advance",))
+    torch.cuda.synchronize()
+    reset_counts()                                # the main path starts
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()                           # the main path ended
+    if launched["K3"] == 0 or any(n for k, n in launched.items()
+                                  if k != "K3"):
+        raise AssertionError(f"the {nd}x{md} mesh serve launched {launched}")
+    _same_results(results, {rid: want[rid] for rid in results},
+                  f"{nd}x{md} mesh vs single device")
+    if len(results) != len(imgs):
+        raise AssertionError(f"{len(results)} results for {len(imgs)}")
+    sizes = "->".join(str(n) for n in cfg.layer_sizes)
+    log(f"[mesh] {name} {sizes} on a {nd}x{md} (data x model) mesh of one "
+        f"card, {lanes} lanes per data shard, chunk={SERVE_CHUNK} "
+        f"patience={SERVE_PATIENCE} backend={eng.backend} (K3 per step, "
+        f"layer and shard; layer ways {eng.model_ways}): {len(results)} "
+        f"requests in {wall:.3f} s = {len(results) / wall:.1f} requests/s, "
+        f"{eng.stats['chunks']} chunks, {eng.dispatches} chunk dispatches "
+        f"(spec_used {eng.stats['spec_used']}, spec_wasted "
+        f"{eng.stats['spec_wasted']}), {launched['K3']} K3 launches; "
+        f"results equal to the single-device run id for id")
+    log(f"[mesh] {name} {nd}x{md} host time by engine method (ms, calls): "
+        + ", ".join(f"{n} {sec * 1e3:.2f} ({calls})"
+                    for n, (sec, calls) in spent.items()))
+    out = {"launches": launched["K3"], "chunks": eng.stats["chunks"],
+           "requests_per_s": len(results) / wall}
+    if not profile:
+        return out
+    out["overlap"] = []
+    for overlap in (False, True, True, False):
+        again = engine(overlap=overlap)
+        for im in imgs:
+            again.submit(im)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = again.run()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        _same_results(got, want, f"{nd}x{md} mesh, overlap={overlap}")
+        k3 = counts()["K3"]
+        out["overlap"].append({"overlap": overlap, "s": sec,
+                               "requests_per_s": len(got) / sec,
+                               "K3": k3, **again.stats})
+        log(f"[mesh] {name} {nd}x{md} overlap={overlap}: {len(got)} "
+            f"requests in {sec:.6f} s = {len(got) / sec:.1f} requests/s, "
+            f"{again.stats['chunks']} chunks (spec_used "
+            f"{again.stats['spec_used']}, spec_wasted "
+            f"{again.stats['spec_wasted']}), {k3} K3 launches; results "
+            f"equal")
+    again = engine()
+    for im in imgs:
+        again.submit(im)
+    busy, prof_ms, top = _device_busy_ms(again.run)
+    log(f"[mesh] {name} {nd}x{md} device time summed from a torch.profiler "
+        f"trace of one more identical run (overlap={knobs.overlap}): "
+        f"{busy:.3f} ms of that profiled run's {prof_ms:.3f} ms wall time "
+        f"= {busy / prof_ms * 100:.2f}% busy; most device time (ms, "
+        f"calls): " + "; ".join(f"{k[:60]} {ms:.3f} ({n})"
+                                for k, ms, n in top))
+    out["device_busy_ms"] = busy
+    out["profiled_wall_ms"] = prof_ms
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -643,21 +922,26 @@ def _plain_ms(fn, m) -> float:
     return e0.elapsed_time(e1) / m
 
 
-def _bound(tag, fn_bytes, n_ops, ms, plain_ms, what) -> dict:
+def _bound(tag, fn_bytes, n_ops, ms, plain_ms, what,
+           library_ms=None) -> dict:
     t_bytes = fn_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT32_OPS_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
     log(f"[times] {tag} {what}: {ms * 1e3:.2f} us/launch on the device; "
         f"plain version {plain_ms * 1e3:.1f} us")
+    lib = ("no single PyTorch call computes this function, so there is no "
+           "library time" if library_ms is None else
+           f"torch.matmul in float32 (TF32 off) on the same operands "
+           f"{library_ms * 1e3:.2f} us")
     log(f"[times] {tag} bound: the function moves {fn_bytes} B "
         f"({fn_bytes / 1e6:.3f} MB, unpadded) at 3.35 TB/s -> "
         f"{t_bytes * 1e3:.3f} us; {n_ops} int32 ops at "
         f"{INT32_OPS_PER_S / 1e12:.2f} T/s -> {t_ops * 1e3:.3f} us; bound "
         f"{bound_ms * 1e3:.3f} us ({bound_ms / ms * 100:.2f}% of the "
-        f"kernel's time); no single PyTorch call computes this function, "
-        f"so there is no library time")
+        f"kernel's time); {lib}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
 
 
 def _time_stack(tag, cfg, imgs, params, dev, kernel, n, m) -> dict:
@@ -738,7 +1022,94 @@ def phase_times(imgs, params, wide_params, dev) -> dict:
         "K5", T * B * K + K * N * 2 + T * B * N * 5 + B * N * 4,
         adds + 10 * T * B * N, ms, plain,
         f"T={T} B={B} {K}->{N} (input density {float(x.float().mean()):.4f})")
+    # K5's contraction alone (not its function: the LIF recurrence follows)
+    # is one float32 product over the whole spike train
+    xf, wf = x.reshape(T * B, K).float(), w1.float()
+    times["K5"]["contraction_library_ms"] = _device_ms(
+        lambda: torch.matmul(xf, wf), 20)
+    log(f"[times] K5 its contraction alone, one torch.matmul in float32 "
+        f"({T * B}, {K}) x ({K}, {N}): "
+        f"{times['K5']['contraction_library_ms'] * 1e3:.2f} us")
+    times["K6_path"] = phase_k6_path(x, w1)
+    times["K3"] = _time_k3(dev)
+    times["K6"] = _time_k6(dev)
     return times
+
+
+def phase_k6_path(x, w) -> dict:
+    """The K6 path: a wide hidden layer's contraction of each step of a
+    20-step spike train through ``spike_matmul_op``'s density dispatch
+    (``auto``, the default threshold), held against one float64 product."""
+    T = x.shape[0]
+    reset_counts()                                # the K6 path starts
+    outs = [ops.spike_matmul_op(x[t], w, with_telemetry=True)
+            for t in range(T)]
+    torch.cuda.synchronize()
+    launched = counts()                           # the K6 path ended
+    if launched["K6"] != T or any(n for k, n in launched.items()
+                                  if k != "K6"):
+        raise AssertionError(f"the K6 path launched {launched}")
+    want = torch.matmul(x.to(torch.float64), w.to(torch.float64))
+    got = torch.stack([o for o, _ in outs])
+    err = _max_abs_err(got, want.to(torch.int32))
+    if err:
+        raise AssertionError(f"K6 path != plain (max |err| {err})")
+    dens = [float(t.density) for _, t in outs]
+    masked = sum(bool(t.used_masked) for _, t in outs)
+    log(f"[K6-path] {T} steps of ({x.shape[1]}, {x.shape[2]}->{w.shape[1]}) "
+        f"through spike_matmul_op(mode='auto'): {launched['K6']} K6 "
+        f"launches, equal to one float64 product; densities "
+        f"{min(dens):.4f}-{max(dens):.4f}, masked in {masked} of {T}")
+    return {"launches": launched["K6"], "max_abs_err": err}
+
+
+def _time_k3(dev) -> dict:
+    """K3 at the 1x4 wide serve's three per-launch shapes: 1,024 lanes of
+    784->512 and 2048->512 shards and the replicated 2048->10 head, at
+    the wide stack's per-layer input densities, every neuron enabled."""
+    rng = np.random.default_rng(SEED + 19)
+    out = {}
+    for n_in, n_out, dens in ((784, 512, 0.1367), (2048, 512, 0.1042),
+                              (2048, 10, 0.0576)):
+        x, en, w = _k3_operands(rng, SERVE_BATCH, n_in, n_out, dens, "all",
+                                dev)
+        ms = _device_ms(lambda: fused_snn.partial_contraction(x, en, w), 200)
+        plain = _plain_ms(
+            lambda: fused_snn.partial_contraction_plain(x, en, w), 10)
+        xf = x[:, :n_in].float()
+        wf = w[:n_in, :n_out].float()
+        lib = _device_ms(lambda: torch.matmul(xf, wf), 200)
+        if _max_abs_err(torch.matmul(xf, wf).to(torch.int32),
+                        fused_snn.partial_contraction(x, en, w)[0][:, :n_out]):
+            raise AssertionError("the float32 product is not exact here")
+        nnz = int(x.sum())
+        fn_bytes = (SERVE_BATCH * (n_in + n_out * 5) + n_in * n_out * 2
+                    + SERVE_BATCH // fused_snn.BLOCK_B * 4)
+        out[f"{n_in}->{n_out}"] = _bound(
+            "K3", fn_bytes, nnz * n_out, ms, plain,
+            f"B={SERVE_BATCH} {n_in}->{n_out} (input density "
+            f"{nnz / (SERVE_BATCH * n_in):.4f}, every neuron enabled)", lib)
+    return out
+
+
+def _time_k6(dev) -> dict:
+    """K6 in both realisations at (1,024, 2048->2048), 5.8% density."""
+    rng = np.random.default_rng(SEED + 23)
+    B, K, N = SERVE_BATCH, 2048, 2048
+    s, w, _ = _k6_case(rng, B, K, N, 0.058, dev)
+    xf, wf = s.float(), w.float()
+    lib = _device_ms(lambda: torch.matmul(xf, wf), 50)
+    nnz = int(s.count_nonzero())
+    out = {}
+    for mode in ("masked", "dot"):
+        flag = torch.tensor(mode == "masked", device=dev)
+        ms = _device_ms(lambda: spike_matmul.spike_matmul(s, w, flag), 50)
+        plain = _plain_ms(
+            lambda: spike_matmul.spike_matmul_plain(s, w, flag), 5)
+        out[mode] = _bound(
+            "K6", B * K + K * N * 2 + B * N * 4, nnz * N, ms, plain,
+            f"{mode} B={B} {K}->{N} (density {nnz / (B * K):.4f})", lib)
+    return out
 
 
 def main() -> int:
@@ -748,7 +1119,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     checks = {"K1": phase_kernel_vs_plain(dev),
-              "K2": phase_streamed_vs_plain(dev)}
+              "K2": phase_streamed_vs_plain(dev),
+              "K3": phase_k3_vs_plain(dev),
+              "K6": phase_k6_vs_plain(dev)}
     rng = np.random.default_rng(SEED + 1)
     params = _serve_params(rng)
     imgs = _images(rng, SERVE_REQUESTS)
@@ -757,7 +1130,21 @@ def main() -> int:
     serve = {"K1": phase_serve(imgs, params, cfgs.SNN_CONFIG, "K1", "fused"),
              "K2": phase_serve(imgs, wide_params, cfgs.SNN_CONFIG_WIDE, "K2",
                                "fused_streamed")}
+    wide_want = serve["K2"].pop("results")
+    serve["K3"] = phase_mesh_serve(imgs, wide_params, cfgs.SNN_CONFIG_WIDE,
+                                   MESH_WIDE, SERVE_BATCH, wide_want, dev,
+                                   profile=True)
+    phase_mesh_serve(imgs[:SERVE_BATCH], wide_params, cfgs.SNN_CONFIG_WIDE,
+                     (2, 2), SERVE_BATCH // 2, wide_want, dev)
+    phase_mesh_serve(imgs, params, cfgs.SNN_CONFIG, (1, 2), SERVE_BATCH,
+                     serve["K1"].pop("results"), dev)
     times = phase_times(imgs, params, wide_params, dev)
+    staged["K6"] = times.pop("K6_path")
+    # the per-launch time a kernel's row reports: K3 at its most frequent
+    # serve shape (the 2048->512 shard), K6 masked (what auto picks at the
+    # wide stack's densities); the others are kept beside it
+    k3_shapes, k6_modes = times["K3"], times["K6"]
+    times["K3"], times["K6"] = k3_shapes["2048->512"], k6_modes["masked"]
     record = []
     for tag, (name, source, replaces, _) in KERNELS.items():
         if tag in serve:
@@ -767,15 +1154,24 @@ def main() -> int:
                      "requests_per_s": serve[tag]["requests_per_s"],
                      "chunks": serve[tag]["chunks"]}
         else:
-            extra = staged[tag]
-        t = times[tag]
+            extra = dict(staged[tag])
+        if tag == "K3":
+            extra["device_busy_ms"] = serve["K3"]["device_busy_ms"]
+            extra["profiled_wall_ms"] = serve["K3"]["profiled_wall_ms"]
+            extra["overlap_runs"] = serve["K3"]["overlap"]
+            extra["shapes"] = k3_shapes
+        if tag == "K6":
+            extra["cases"], extra["max_abs_err"] = checks["K6"][0], max(
+                checks["K6"][1], extra["max_abs_err"])
+            extra["dot"] = k6_modes["dot"]
+        t = dict(times[tag])
         record.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": extra.pop("launches"),
-            "max_abs_err": extra.pop("max_abs_err"), "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None, "match": True,
-            **extra})
+            "max_abs_err": extra.pop("max_abs_err"), "ms": t.pop("ms"),
+            "plain_ms": t.pop("plain_ms"), "bound_ms": t.pop("bound_ms"),
+            "bound_by": t.pop("bound_by"), "library_ms": t.pop("library_ms"),
+            "match": True, **t, **extra})
     print(json.dumps({"kernels": record}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

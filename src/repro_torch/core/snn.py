@@ -34,10 +34,12 @@ import torch
 from ..kernels import fused_snn, ops
 from ..kernels.ops import V_PEAK_INIT
 from . import encoding, lif, prng
-from .telemetry import ChunkTelemetry, layer_tile_skips, resolve_sparse_skip
+from .telemetry import (ChunkTelemetry, layer_tile_skips, model_tile_skips,
+                        resolve_sparse_skip)
 
 __all__ = ["SNNConfig", "readout_pred", "encode_lif_timestep",
-           "snn_int_stack_step", "snn_apply_int", "resolve_backend",
+           "snn_int_stack_step", "snn_int_stack_step_sharded",
+           "snn_apply_int", "resolve_backend",
            "fused_unsupported_reason", "SNNWindowState", "snn_window_init",
            "snn_window_chunk"]
 
@@ -71,7 +73,8 @@ def _param_sizes(params_q: dict) -> tuple[int, ...]:
 def fused_unsupported_reason(cfg: SNNConfig, n_layers: int,
                              layer_sizes: tuple[int, ...] | None = None,
                              local_batch: int | None = None, *,
-                             streamed: bool = False) -> str | None:
+                             streamed: bool = False,
+                             model_shards: int = 1) -> str | None:
     """Why a CUDA stack kernel cannot run this stack (None = it can).
 
     The Hopper feasibility model.  The resident kernel keeps each lane's
@@ -82,10 +85,15 @@ def fused_unsupported_reason(cfg: SNNConfig, n_layers: int,
     ring of weight slabs there (``stack_streamed_smem_bytes``).  One thread
     block may claim up to ``SMEM_LIMIT_BYTES`` (232,448 B on sm_90).  Both
     kernels' parameter blocks hold ``MAX_LAYERS`` layers, and their spike
-    indices are uint16.
+    indices are uint16.  On a ``model_shards``-way model axis every layer
+    that divides (``kernels.fused_snn.layer_shard_ways``) holds only its
+    output-column shard per peer, so the check runs on the per-shard
+    widths, as the reference judges VMEM per shard.
     """
     if n_layers < 1:
         return "the network has no layers"
+    if model_shards < 1:
+        return f"model_shards={model_shards} is not a positive shard count"
     if n_layers > fused_snn.MAX_LAYERS:
         return (f"{n_layers} layers exceed the stack kernels' "
                 f"{fused_snn.MAX_LAYERS}-layer parameter block")
@@ -94,6 +102,8 @@ def fused_unsupported_reason(cfg: SNNConfig, n_layers: int,
         sizes = cfg.layer_sizes
     if sizes is None:
         return None
+    ways = fused_snn.layer_shard_ways(sizes, model_shards)
+    sizes = (sizes[0],) + tuple(int(n) // w for n, w in zip(sizes[1:], ways))
     lane = fused_snn.LANE
     padded = [int(n) + (-int(n)) % lane for n in sizes]
     if max(padded) > 65535:
@@ -104,8 +114,11 @@ def fused_unsupported_reason(cfg: SNNConfig, n_layers: int,
     if need > fused_snn.SMEM_LIMIT_BYTES:
         kind = "streamed working set" if streamed else \
             "shared-memory carve-up"
-        return (f"{kind} {need} B for layer_sizes={tuple(sizes)} exceeds "
-                f"the {fused_snn.SMEM_LIMIT_BYTES} B a thread block may use")
+        shard = (f" on a {model_shards}-way model axis"
+                 if model_shards > 1 else "")
+        return (f"{kind} {need} B for layer_sizes={tuple(sizes)}{shard} "
+                f"exceeds the {fused_snn.SMEM_LIMIT_BYTES} B a thread block "
+                f"may use")
     return None
 
 
@@ -113,6 +126,7 @@ def resolve_backend(cfg: SNNConfig, backend: str | None = None,
                     n_layers: int = 1, *,
                     layer_sizes: tuple[int, ...] | None = None,
                     local_batch: int | None = None,
+                    model_shards: int = 1,
                     device: str | torch.device = "cuda") -> str:
     """Pick the integer-engine backend that runs on ``device``.
 
@@ -123,13 +137,15 @@ def resolve_backend(cfg: SNNConfig, backend: str | None = None,
     ``reference``.  An explicit ``fused`` or ``fused_streamed`` that its
     kernel cannot run raises, naming the next rung, instead of degrading;
     plain PyTorch runs on the card only when the caller names
-    ``reference``.
+    ``reference``.  ``model_shards`` scopes the shared-memory check to one
+    model peer's shard (see :func:`fused_unsupported_reason`).
     """
     b = backend if backend is not None else cfg.backend
 
     def reason(streamed: bool) -> str | None:
         return fused_unsupported_reason(cfg, n_layers, layer_sizes,
-                                        local_batch, streamed=streamed)
+                                        local_batch, streamed=streamed,
+                                        model_shards=model_shards)
 
     if b == "auto":
         if torch.device(device).type != "cuda":
@@ -340,30 +356,95 @@ def snn_int_stack_step(rng: torch.Tensor, pixels_u8: torch.Tensor,
                        lif_cfg: lif.LIFConfig, *, dot_impl: str = "int32",
                        active_pruning: bool = False,
                        sparse_skip: bool | None = None):
-    """One timestep through the whole layer stack.
+    """One timestep through the whole layer stack: the one-shard case of
+    :func:`snn_int_stack_step_sharded` with the plain contraction.
 
     Returns ``(rng, new_states, fired_out, adds, tel)``: ``adds`` the
     executed-add count summed over layers, ``tel`` this step's telemetry
     row — ``n_spk``/``n_en`` (L, B) int32 and ``tiles`` (L, n_blocks).
     """
+    return snn_int_stack_step_sharded(
+        rng, pixels_u8, states, tuple((w,) for w in weights), lif_cfg,
+        model_shards=1, dot_impl=dot_impl, active_pruning=active_pruning,
+        sparse_skip=sparse_skip)
+
+
+def snn_int_stack_step_sharded(rng: torch.Tensor, pixels_u8: torch.Tensor,
+                               states: tuple, weights: tuple,
+                               lif_cfg: lif.LIFConfig, *, model_shards: int,
+                               dot_impl: str = "int32",
+                               active_pruning: bool = False,
+                               sparse_skip: bool | None = None,
+                               contraction: str = "plain"):
+    """One timestep through the whole layer stack on a ``model_shards``-way
+    model axis (1 = no model axis, :func:`snn_int_stack_step`).
+
+    Layer state, pixels and PRNG lanes arrive full, on the data shard's
+    device.  ``weights[l]`` is a tuple of the layer's per-peer weight
+    shards in peer order: the LANE-padded output-column shards of a layer
+    that splits (``kernels.fused_snn.layer_shard_ways``), each on its
+    peer's device, or one whole matrix for a layer that replicates.  Per
+    sharded layer each peer takes its membrane and enable columns, runs
+    the partial Σ W·S of the full input-spike vector against its shard
+    (``contraction="kernel"`` launches ``kernels.ops.
+    partial_contraction_op``, ``"plain"`` the reference integer dot and
+    ``layer_tile_skips``, the same integers), steps LIF on the shard, and
+    the shards' fired spikes and membranes concatenate back to full (the
+    spike exchange; a peer copy where peers sit on other devices).  A
+    replicated layer runs once, since every peer would compute it alike.
+    Counts, pruning and the telemetry run on the full arrays, so all of it
+    equals the one-shard step.
+
+    Returns ``(rng, new_states, fired_out, adds, tel)`` as
+    :func:`snn_int_stack_step` does; ``tel["tiles"]`` is
+    (L, model_shards · n_blocks): each peer's own skipped tile pairs,
+    model-inner, a replicated layer's listed once per peer
+    (``core.telemetry.model_tile_skips``).
+    """
     ss = resolve_sparse_skip(sparse_skip)
-    rng, st0, fired, s_t = encode_lif_timestep(
-        rng, pixels_u8, states[0], weights[0], lif_cfg, dot_impl=dot_impl,
-        active_pruning=active_pruning)
-    n_spk = [s_t.sum(-1, dtype=torch.int32)]
-    n_en = [states[0].enable.sum(-1, dtype=torch.int32)]
-    tiles = [layer_tile_skips(s_t, states[0].enable, sparse_skip=ss)]
-    adds = n_spk[0] * n_en[0]
-    new_states = [st0]
-    x = fired
-    for st, layer_w in zip(states[1:], weights[1:]):
+    home = pixels_u8.device
+    rng = prng.xorshift32_step(rng)
+    x = pixels_u8 > prng.uniform_u8(rng)
+
+    def contract(spikes, en, w):
+        if contraction == "kernel":
+            return ops.partial_contraction_op(spikes, en, w, sparse_skip=ss)
+        if contraction != "plain":
+            raise ValueError(f"unknown contraction {contraction!r}")
+        w = w[:spikes.shape[-1], :en.shape[-1]]
+        return (lif.synaptic_current_int(spikes, w, dot_impl),
+                layer_tile_skips(spikes, en, sparse_skip=ss))
+
+    n_spk, n_en, tiles, new_states = [], [], [], []
+    adds = torch.zeros(pixels_u8.shape[:-1], dtype=torch.int32, device=home)
+    for st, shards in zip(states, weights):
         n_spk.append(x.sum(-1, dtype=torch.int32))
         n_en.append(st.enable.sum(-1, dtype=torch.int32))
-        tiles.append(layer_tile_skips(x, st.enable, sparse_skip=ss))
-        current = lif.synaptic_current_int(x, layer_w, dot_impl)
-        current = torch.where(st.enable, current, 0)
-        new_st, fired = lif.lif_step_int(st, current, lif_cfg)
         adds = adds + n_spk[-1] * n_en[-1]
+        if len(shards) == 1:
+            current, skipped = contract(x, st.enable, shards[0])
+            tiles.append(model_tile_skips([skipped], model_shards))
+            current = torch.where(st.enable, current, 0)
+            new_st, fired = lif.lif_step_int(st, current, lif_cfg)
+        else:
+            n_sh = st.v.shape[-1] // len(shards)
+            v_parts, fired_parts, skips = [], [], []
+            for m, w_m in enumerate(shards):
+                peer = w_m.device
+                cols = slice(m * n_sh, (m + 1) * n_sh)
+                en_sh = st.enable[:, cols].to(peer)
+                cur_sh, skipped = contract(x.to(peer), en_sh, w_m)
+                cur_sh = torch.where(en_sh, cur_sh, 0)
+                new_sh, fired_sh = lif.lif_step_int(
+                    lif.LIFStateInt(v=st.v[:, cols].to(peer), enable=en_sh),
+                    cur_sh, lif_cfg)
+                v_parts.append(new_sh.v.to(home))
+                fired_parts.append(fired_sh.to(home))
+                skips.append(skipped.to(home))
+            tiles.append(model_tile_skips(skips, model_shards))
+            fired = torch.cat(fired_parts, dim=-1)
+            new_st = lif.LIFStateInt(v=torch.cat(v_parts, dim=-1),
+                                     enable=st.enable)
         if active_pruning:
             new_st = new_st._replace(enable=new_st.enable & ~fired)
         new_states.append(new_st)

@@ -8,6 +8,14 @@ bit-checkable across backends: the CUDA stack kernel emits it as kernel
 outputs, the plain paths re-derive it.  The tile leaf is defined by the
 reference launch geometry (128-wide neuron tiles, ``block_b_for`` batch
 blocks), whatever tiling a kernel uses internally.
+
+On a (data × model) mesh (port of ``telemetry_partition_specs``' layout)
+the per-lane leaves concatenate the data shards' lanes, each derived from
+the full gathered arrays, and the tile leaf concatenates per-shard skip
+counts on the block axis, data-outer and model-inner: every model peer
+counts the tile pairs of its own weight shard, and a replicated layer is
+listed once per peer (:func:`model_tile_skips`,
+:func:`concat_shard_telemetry`).
 """
 
 from __future__ import annotations
@@ -17,9 +25,11 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["ChunkTelemetry", "EngineLoad", "DEFAULT_SPIKE_DENSITY_THRESHOLD",
+__all__ = ["ChunkTelemetry", "EngineLoad", "MatmulTelemetry",
+           "DEFAULT_SPIKE_DENSITY_THRESHOLD",
            "resolve_density_threshold", "resolve_sparse_skip", "tiles_total",
-           "layer_tile_skips", "concat_telemetry"]
+           "layer_tile_skips", "concat_telemetry", "model_tile_skips",
+           "concat_shard_telemetry"]
 
 DEFAULT_SPIKE_DENSITY_THRESHOLD = 0.25
 
@@ -84,6 +94,14 @@ class EngineLoad(NamedTuple):
         return self.lanes_busy / max(1, self.lanes_total)
 
 
+class MatmulTelemetry(NamedTuple):
+    """Side channel of one ``spike_matmul_op`` call (0-dim tensors on the
+    operands' device)."""
+
+    density: torch.Tensor      # float32: observed batch spike density
+    used_masked: torch.Tensor  # bool: the masked realisation ran
+
+
 def _pad128(n: int) -> int:
     from ..kernels.fused_snn import LANE
     return n + (-n) % LANE
@@ -134,4 +152,25 @@ def concat_telemetry(chunks) -> ChunkTelemetry:
     """Concatenate per-chunk records along the step axis."""
     chunks = list(chunks)
     return ChunkTelemetry(*[torch.cat([getattr(c, f) for c in chunks])
+                            for f in ChunkTelemetry._fields])
+
+
+def model_tile_skips(per_peer, model_shards: int) -> torch.Tensor:
+    """One layer's tile row on a ``model_shards``-way model axis.
+
+    ``per_peer`` holds each model peer's skipped-tile counts per batch
+    block, (n_blocks,) each, in peer order; concatenated model-inner.  A
+    replicated layer gives one count, which every peer would have counted
+    alike, so it is listed ``model_shards`` times.
+    """
+    if len(per_peer) == 1:
+        return per_peer[0].repeat(model_shards)
+    return torch.cat(list(per_peer))
+
+
+def concat_shard_telemetry(parts) -> ChunkTelemetry:
+    """The mesh's record from its data shards' records, in data order:
+    lanes and batch blocks concatenate data-outer."""
+    parts = list(parts)
+    return ChunkTelemetry(*[torch.cat([getattr(p, f) for p in parts], dim=-1)
                             for f in ChunkTelemetry._fields])

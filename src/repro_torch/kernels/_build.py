@@ -39,11 +39,15 @@ _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"fused_snn_stack": _CSRC / "fused_snn_stack.cu",
            "fused_snn_streamed": _CSRC / "fused_snn_streamed.cu",
            "poisson_encode": _CSRC / "poisson_encode.cu",
-           "lif_step": _CSRC / "lif_step.cu"}
+           "lif_step": _CSRC / "lif_step.cu",
+           "partial_contraction": _CSRC / "partial_contraction.cu",
+           "spike_matmul": _CSRC / "spike_matmul.cu"}
 _ENTRY = {"fused_snn_stack": "repro_fused_snn_stack",
           "fused_snn_streamed": "repro_fused_snn_streamed",
           "poisson_encode": "repro_poisson_encode",
-          "lif_step": "repro_lif_forward"}
+          "lif_step": "repro_lif_forward",
+          "partial_contraction": "repro_partial_contraction",
+          "spike_matmul": "repro_spike_matmul"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -24,6 +24,15 @@ kernel to the plain version.
 All arrays arrive padded, as ``kernels.ops.fused_snn_stack_op`` pads them:
 batch to the ``block_b`` block, every neuron axis to ``LANE``.  Weights are
 the int16 codes, (n_l_pad, n_{l+1}_pad).
+
+The model-axis datapath's building block lives here too:
+:func:`partial_contraction` (port of ``partial_contraction_pallas``) is one
+layer's Σ W·S of the full input-spike vector against one output-column
+weight shard, for one step, with the same tile skip; it launches
+``csrc/partial_contraction.cu`` for CUDA tensors and runs
+:func:`partial_contraction_plain` for CPU tensors, counting launches in
+``partial_contraction.launches``.  :func:`layer_shard_ways` says which
+layers split over a model axis.
 """
 
 from __future__ import annotations
@@ -32,11 +41,14 @@ import torch
 
 from ..core.prng import from_carrier, to_carrier
 from ._build import check_operand, launch
+from .lif_step import _wrap32
 
 __all__ = ["LANE", "BLOCK_B", "MAX_LAYERS", "SMEM_LIMIT_BYTES",
            "SLAB_ROWS", "STAGES", "READOUTS", "block_b_for",
            "stack_smem_bytes", "stack_streamed_smem_bytes", "fused_snn_stack",
-           "fused_snn_stack_streamed", "fused_snn_stack_plain"]
+           "fused_snn_stack_streamed", "fused_snn_stack_plain",
+           "layer_shard_ways", "partial_contraction",
+           "partial_contraction_plain"]
 
 LANE = 128              # every neuron axis pads to this (telemetry tile width)
 BLOCK_B = 8             # lanes per batch block: one warp per lane, and the
@@ -54,6 +66,21 @@ def block_b_for(batch: int | None = None) -> int:
     """Batch block launched for a ``batch``-row tile: always ``BLOCK_B``
     (batches pad up to it), which is also the telemetry's block geometry."""
     return BLOCK_B
+
+
+def layer_shard_ways(layer_sizes, model_shards: int) -> tuple[int, ...]:
+    """Effective model-axis shard count per layer (len = n_layers).
+
+    A layer's output-neuron dimension shards ``model_shards``-way only
+    when its raw width divides evenly: contiguous column slices of equal
+    width concatenate back to the single-device contraction.  A layer that
+    does not divide (the 10-class head on a 4-way axis) replicates: every
+    model peer would compute it whole, and it needs no spike exchange.
+    """
+    if model_shards <= 1:
+        return tuple(1 for _ in layer_sizes[1:])
+    return tuple(int(model_shards) if int(n) % int(model_shards) == 0 else 1
+                 for n in layer_sizes[1:])
 
 
 def stack_smem_bytes(padded_sizes, block_b: int = BLOCK_B) -> int:
@@ -393,3 +420,74 @@ def fused_snn_stack_streamed(*operands, **options):
 
 fused_snn_stack.launches = 0
 fused_snn_stack_streamed.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the model axis: one layer's partial contraction against a column shard
+# ---------------------------------------------------------------------------
+
+def partial_contraction_plain(x_u8, en_u8, w_i16, *, sparse_skip: bool = True,
+                              block_b: int = BLOCK_B):
+    """The partial-contraction kernel's function in plain PyTorch.
+
+    ``x_u8`` (B, n_in_pad) spikes, ``en_u8`` (B, n_out_pad) the shard's
+    enables, ``w_i16`` (n_in_pad, n_out_pad) the shard's codes.  Returns
+    ``(current (B, n_out_pad) int32, skipped (n_blocks,) int32)``.  With
+    ``sparse_skip`` a 128×128 tile pair is skipped, adding nothing, when
+    its K-slice holds no spike in the 8-lane block or its output slice no
+    enabled neuron; the second case zeroes raw currents the dense product
+    would not, as the reference kernel's tile skip does.  Σ W·S runs as a
+    float64 product (exact) and wraps to int32.
+    """
+    cur = _wrap32(torch.matmul(x_u8.to(torch.float64),
+                               w_i16.to(torch.float64)).to(torch.int64))
+    skipped = _block_tile_skips(x_u8 != 0, en_u8 != 0, block_b, sparse_skip)
+    if sparse_skip:
+        Bp, n_out = en_u8.shape
+        nb = Bp // block_b
+        live = en_u8.reshape(nb, block_b, n_out // LANE, LANE).amax(
+            dim=(1, 3)) != 0                              # (nb, n_tiles)
+        live = live.repeat_interleave(block_b, 0).repeat_interleave(LANE, 1)
+        cur = torch.where(live, cur, 0)
+    return cur, skipped
+
+
+def partial_contraction(x_u8, en_u8, w_i16, *, sparse_skip: bool = True,
+                        block_b: int = BLOCK_B):
+    """One layer, one step: Σ W·S of the full spike vector against one
+    output-column weight shard, on padded operands.
+
+    ``x_u8`` (B, n_in) uint8, ``en_u8`` (B, n_out) uint8, ``w_i16``
+    (n_in, n_out) int16, B a multiple of ``block_b`` (8) and both widths
+    of ``LANE``; every operand contiguous (a column slice of a wider
+    weight matrix is not: place each shard as its own tensor).  Outputs as
+    :func:`partial_contraction_plain`.  CUDA tensors launch the kernel
+    (one launch, counted in ``partial_contraction.launches``); CPU tensors
+    run the plain version.
+    """
+    dev = x_u8.device
+    Bp, n_in = x_u8.shape
+    n_out = w_i16.shape[1]
+    if block_b != BLOCK_B or Bp % block_b or n_in % LANE or n_out % LANE:
+        raise ValueError(f"partial contraction takes a batch that is a "
+                         f"multiple of {BLOCK_B} and widths that are "
+                         f"multiples of {LANE}, got B={Bp}, n_in={n_in}, "
+                         f"n_out={n_out}, block_b={block_b}")
+    check_operand(x_u8, "x_u8", torch.uint8, (Bp, n_in), dev)
+    check_operand(en_u8, "en_u8", torch.uint8, (Bp, n_out), dev)
+    check_operand(w_i16, "w_i16", torch.int16, (n_in, n_out), dev)
+    if dev.type == "cpu":
+        return partial_contraction_plain(x_u8, en_u8, w_i16,
+                                         sparse_skip=sparse_skip,
+                                         block_b=block_b)
+    if dev.type != "cuda":
+        raise ValueError(f"no partial-contraction kernel for device {dev}")
+    cur = torch.empty((Bp, n_out), dtype=torch.int32, device=dev)
+    skipped = torch.zeros((Bp // block_b,), dtype=torch.int32, device=dev)
+    launch("partial_contraction", [x_u8, en_u8, w_i16, cur, skipped],
+           [Bp, n_in, n_out, int(sparse_skip)], dev)
+    partial_contraction.launches += 1
+    return cur, skipped
+
+
+partial_contraction.launches = 0

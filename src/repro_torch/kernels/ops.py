@@ -1,11 +1,12 @@
 """Public wrappers of the port's kernels: padding, masks, unpadding.
 
 Port of ``repro.kernels.ops``' ``poisson_encode_op``, ``lif_forward_op``,
-``fused_snn_stack_op`` and ``validate_weight_codes``.  Each wrapper pads
-its operands to the launch blocks, runs the kernel's launcher (the CUDA
-kernel for CUDA tensors, its plain version for CPU tensors) and cuts the
-results back to the true shapes.  The stack op also disables padded
-neurons and padded batch rows.
+``fused_snn_stack_op``, ``partial_contraction_op``, ``spike_matmul_op``
+and ``validate_weight_codes``.  Each wrapper pads its operands to the
+launch blocks, runs the kernel's launcher (the CUDA kernel for CUDA
+tensors, its plain version for CPU tensors) and cuts the results back to
+the true shapes.  The stack op also disables padded neurons and padded
+batch rows.
 """
 
 from __future__ import annotations
@@ -13,12 +14,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core.telemetry import ChunkTelemetry, resolve_sparse_skip
-from . import fused_snn, lif_step, poisson_encode
+from ..core.telemetry import (ChunkTelemetry, MatmulTelemetry,
+                              resolve_density_threshold, resolve_sparse_skip)
+from . import fused_snn, lif_step, poisson_encode, spike_matmul
 
 __all__ = ["poisson_encode_op", "lif_forward_op", "fused_snn_stack_op",
-           "stack_operands", "stack_results", "validate_weight_codes",
-           "V_PEAK_INIT"]
+           "partial_contraction_op", "spike_matmul_op", "stack_operands",
+           "stack_results", "validate_weight_codes", "V_PEAK_INIT"]
 
 # window-start sentinel for the carried peak-membrane accumulator: the
 # first real membrane value always wins the max-fold
@@ -241,3 +243,87 @@ def fused_snn_stack_op(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
         sparse_skip=resolve_sparse_skip(sparse_skip),
         block_b=meta["block_b"])
     return stack_results(outs, meta)
+
+
+def partial_contraction_op(spikes: torch.Tensor, en: torch.Tensor,
+                           w_q: torch.Tensor, *,
+                           sparse_skip: bool | None = None):
+    """One layer's Σ W·S against an output-column weight shard.
+
+    The model-axis datapath's per-shard contraction: ``spikes`` (B, n_in)
+    bool is the full input-spike vector, ``en`` (B, n_out) bool and
+    ``w_q`` the shard's enables and codes.  ``w_q`` is (n_in, n_out), or
+    already LANE-padded to (pad(n_in), pad(n_out)) as the sharded engine
+    places it; a padded shard goes to the kernel as it is (it must be
+    contiguous), an unpadded one is padded here.  Pads the batch to the
+    ``block_b_for`` block and both neuron axes to 128, launches
+    :func:`kernels.fused_snn.partial_contraction` and cuts back.
+
+    Returns ``(current (B, n_out) int32, skipped (n_blocks,) int32)``: the
+    raw current (zero across an output tile with no enabled neuron in the
+    8-lane block when the tile skip is on, as in the reference kernel) and
+    the skipped tile pairs per block, the geometry
+    ``core.telemetry.layer_tile_skips`` gives for this shard.
+    """
+    ss = resolve_sparse_skip(sparse_skip)
+    B, n_in = spikes.shape
+    n_out = en.shape[1]
+    lane = fused_snn.LANE
+    bB = fused_snn.block_b_for(B)
+    pads = (n_in + (-n_in) % lane, n_out + (-n_out) % lane)
+    w = w_q.to(torch.int16)
+    if tuple(w.shape) == (n_in, n_out) and (n_in, n_out) != pads:
+        w = _pad2(w, lane, lane)
+    elif tuple(w.shape) != pads:
+        raise ValueError(f"weight shard {tuple(w_q.shape)} fits neither "
+                         f"({n_in}, {n_out}) nor its padded {pads}")
+    x = _pad2(spikes.to(torch.uint8), bB, lane)
+    e = _pad2(en.to(torch.uint8), bB, lane)
+    cur, skipped = fused_snn.partial_contraction(x, e, w, sparse_skip=ss,
+                                                 block_b=bB)
+    return cur[:B, :n_out], skipped
+
+
+def spike_matmul_op(spikes: torch.Tensor, w_q: torch.Tensor, *,
+                    mode: str = "auto",
+                    density_threshold: float | None = None,
+                    with_telemetry: bool = False):
+    """Event-driven spike × weight contraction: (B, K) {0,1} × (K, N) int
+    codes → (B, N) int32.
+
+    ``mode="auto"`` picks the realisation from the batch's observed spike
+    density, on the device: the masked (select-and-add) kernel below the
+    threshold, the multiply-accumulate (``dot``) kernel at or above it.
+    The density is the exact non-zero count times the float32 reciprocal
+    of B·K, so it equals the reference's ``mean`` bit for bit while
+    B·K < 2^24; the
+    threshold (``density_threshold``, None = config/env/default via
+    ``resolve_density_threshold``) is a float32 tensor, and the launched
+    kernel reads the resulting flag, so nothing waits for the host.
+    ``mode="masked"`` / ``"dot"`` force one realisation; all give the same
+    result.  ``with_telemetry=True`` also returns a ``MatmulTelemetry``
+    (0-dim tensors: the density and which realisation ran).
+    """
+    if mode not in ("auto", "masked", "dot"):
+        raise ValueError(f"unknown spike-matmul mode {mode!r}")
+    dev = spikes.device
+    B, K = spikes.shape
+    N = w_q.shape[1]
+    bB, bK, bN = spike_matmul.BLOCK
+    s = _pad2(spikes.to(torch.uint8), bB, bK)
+    w = _pad2(w_q.to(torch.int16), bK, bN)
+    # the reference's mean divides by the constant B·K, which XLA compiles
+    # into a product with its float32 reciprocal: do the same, bit for bit
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    density = torch.count_nonzero(spikes).to(torch.float32) * (
+        one / torch.tensor(B * K, dtype=torch.float32, device=dev))
+    if mode == "auto":
+        threshold = torch.tensor(resolve_density_threshold(density_threshold),
+                                 dtype=torch.float32, device=dev)
+        used_masked = density < threshold
+    else:
+        used_masked = torch.tensor(mode == "masked", device=dev)
+    out = spike_matmul.spike_matmul(s, w, used_masked)[:B, :N]
+    if with_telemetry:
+        return out, MatmulTelemetry(density=density, used_masked=used_masked)
+    return out

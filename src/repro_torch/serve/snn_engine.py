@@ -17,7 +17,8 @@ every lane ``chunk_steps`` steps through every layer and runs the
 stability gate per step: the resident kernel (``fused``) or, for a stack
 whose per-lane state it cannot hold, the weight-streaming kernel
 (``fused_streamed``).  The ``reference`` backend runs the same datapath as
-per-step torch ops over ``core.snn.snn_int_stack_step``.  All give the
+per-step torch ops over ``core.snn.snn_int_stack_step_sharded`` (one shard
+without a model axis).  All give the
 same lane-state evolution for the same seeds.  The staged kernels cannot
 resume mid-window, so the engine never runs them.
 
@@ -25,9 +26,14 @@ Each fresh request's PRNG lanes are seeded from ``seed + request_id``, so
 a request's window is a pure function of its id: results do not depend on
 the slot, the chunk split or the engine that served it.
 
+:class:`ShardedSNNStreamEngine` spreads the lane tile over the data axis of
+a device mesh and, on a model axis, each layer's output columns over the
+model peers, with one partial-contraction launch per (step, layer, shard)
+and a spike exchange between layers.
+
 Not ported yet: the fault-injection harness and its degradation ladder,
-and the tuned dispatch cache.  This engine is the reference package's
-engine with no injector armed and no cache.
+and the tuned dispatch cache.  These engines are the reference package's
+engines with no injector armed and no cache.
 """
 
 from __future__ import annotations
@@ -41,17 +47,22 @@ import torch
 from ..core import lif as lif_mod
 from ..core import prng as prng_mod
 from ..core.snn import (SNNConfig, fused_unsupported_reason, readout_pred,
-                        resolve_backend, snn_int_stack_step)
-from ..core.telemetry import ChunkTelemetry, EngineLoad
+                        resolve_backend, snn_int_stack_step_sharded)
+from ..core.telemetry import (ChunkTelemetry, EngineLoad,
+                              concat_shard_telemetry)
 from ..device import resolve_device
+from ..distributed.sharding import DeviceMesh, make_2d_device_mesh
 from ..kernels import ops
+from ..kernels.fused_snn import LANE, layer_shard_ways
 from ..kernels.ops import V_PEAK_INIT
 from .early_exit import StabilityGateState, stability_step
 from .rollout import WeightBank, merge_version_chunks, select_lanes
 from .telemetry import AdaptiveDispatchConfig, make_controller, \
     summarize_chunk
 
-__all__ = ["SNNStreamEngine", "LaneState", "RequestResult", "stream_chunk"]
+__all__ = ["SNNStreamEngine", "ShardedSNNStreamEngine", "LaneState",
+           "RequestResult", "stream_chunk", "split_lanes", "shard_weights",
+           "sharded_stream_chunk"]
 
 
 class LaneState(NamedTuple):
@@ -113,7 +124,8 @@ def stream_chunk(lanes: LaneState, weights: tuple, *, chunk_steps: int,
                  num_steps: int, lif_cfg: lif_mod.LIFConfig, dot_impl: str,
                  active_pruning: bool, patience: int, readout: str = "count",
                  backend: str = "reference",
-                 sparse_skip: bool | None = None):
+                 sparse_skip: bool | None = None,
+                 model_shards: int | None = None):
     """Advance every active lane by up to ``chunk_steps`` window steps.
 
     ``backend="fused"`` runs the whole chunk (every layer, every step, the
@@ -122,8 +134,18 @@ def stream_chunk(lanes: LaneState, weights: tuple, *, chunk_steps: int,
     ``"reference"`` steps the same datapath with torch ops.  A retired or
     inactive lane is frozen: PRNG, membranes, counters and its add counter
     stop.  Returns ``(lanes', ChunkTelemetry)``.
+
+    ``model_shards`` switches to the model-axis datapath
+    (``core.snn.snn_int_stack_step_sharded``): ``weights`` are then
+    per-layer tuples of per-peer shards (:func:`shard_weights`).  A stack
+    kernel cannot host the spike exchange between layers, so a ``fused``
+    or ``fused_streamed`` backend becomes one partial-contraction launch
+    per (step, layer, shard), and ``reference`` the plain contraction; the
+    gate and freeze below run on the full gathered arrays either way.
     """
-    if backend in ("fused", "fused_streamed"):
+    if backend not in ("fused", "fused_streamed", "reference"):
+        raise ValueError(f"unknown chunk backend {backend!r}")
+    if backend != "reference" and model_shards is None:
         k = ops.fused_snn_stack_op(
             lanes.px, lanes.rng, weights, num_steps=num_steps,
             chunk_steps=chunk_steps, decay_shift=lif_cfg.decay_shift,
@@ -145,19 +167,20 @@ def stream_chunk(lanes: LaneState, weights: tuple, *, chunk_steps: int,
             adds=lanes.adds + k["active_adds"].sum(0, dtype=torch.int32),
             active=k["gate"]["active"],
             weight_version=lanes.weight_version), k["telemetry"]
-    if backend != "reference":
-        raise ValueError(f"unknown chunk backend {backend!r}")
-
+    contraction = "plain" if backend == "reference" else "kernel"
+    if model_shards is None:
+        weights, model_shards = tuple((w,) for w in weights), 1
     st = lanes
     tspk, ten, ttile = [], [], []
     for _ in range(chunk_steps):
         act = st.active
         layer_states = tuple(lif_mod.LIFStateInt(v=v, enable=e)
                              for v, e in zip(st.v, st.en))
-        rng, new_states, fired, adds_t, tel = snn_int_stack_step(
+        rng, new_states, fired, adds_t, tel = snn_int_stack_step_sharded(
             st.rng, st.px, layer_states, weights, lif_cfg,
-            dot_impl=dot_impl, active_pruning=active_pruning,
-            sparse_skip=sparse_skip)
+            model_shards=model_shards, dot_impl=dot_impl,
+            active_pruning=active_pruning, sparse_skip=sparse_skip,
+            contraction=contraction)
         counts = st.counts + fired.to(torch.int32)
         first = torch.where(fired & (st.first == num_steps),
                             st.steps[:, None], st.first)
@@ -253,26 +276,11 @@ class SNNStreamEngine:
         codes = tuple(layer["w_q"] for layer in params_q["layers"])
         self.layer_sizes = tuple([int(codes[0].shape[0])]
                                  + [int(w.shape[1]) for w in codes])
-        requested = "auto" if backend is None else backend
-        self.backend = resolve_backend(
-            cfg, requested, len(codes), layer_sizes=self.layer_sizes,
-            local_batch=batch_size, device=self.device)
-        if self.backend == "staged":
-            # a chunk resumes mid-window, which the staged kernels cannot
-            if requested == "staged":
-                raise ValueError(
-                    "streaming chunk backend must be 'fused', "
-                    "'fused_streamed' or 'reference' (the staged kernels "
-                    "cannot resume mid-window); got 'staged'")
-            why = fused_unsupported_reason(cfg, len(codes), self.layer_sizes,
-                                           batch_size, streamed=True)
-            raise ValueError(
-                f"no resumable stack kernel holds this stack: {why} — the "
-                f"staged kernels cannot resume mid-window; pass "
-                f"backend='reference' to serve it in plain PyTorch")
-        weights = self._place_weights(codes)
+        self.backend = self._resolve_backend(
+            cfg, "auto" if backend is None else backend, batch_size)
         if self.backend in ("fused", "fused_streamed"):
-            ops.validate_weight_codes(weights)
+            ops.validate_weight_codes(codes)
+        weights = self._place_weights(codes)
         self.engine_id = int(engine_id)
         self.bank = WeightBank(weights, version=int(initial_weight_version))
         self.cfg = cfg
@@ -296,6 +304,28 @@ class SNNStreamEngine:
         self._retired_total = 0
         self.dispatches = 0       # chunk executions (kernel launches on a
                                   # fused backend)
+
+    def _resolve_backend(self, cfg: SNNConfig, requested: str,
+                         batch_size: int) -> str:
+        """The chunk backend for a tile of ``batch_size`` lanes: the
+        resumable stack kernels only, since a chunk resumes mid-window."""
+        n_layers = len(self.layer_sizes) - 1
+        b = resolve_backend(cfg, requested, n_layers,
+                            layer_sizes=self.layer_sizes,
+                            local_batch=batch_size, device=self.device)
+        if b != "staged":
+            return b
+        if requested == "staged":
+            raise ValueError(
+                "streaming chunk backend must be 'fused', 'fused_streamed' "
+                "or 'reference' (the staged kernels cannot resume "
+                "mid-window); got 'staged'")
+        why = fused_unsupported_reason(cfg, n_layers, self.layer_sizes,
+                                       batch_size, streamed=True)
+        raise ValueError(
+            f"no resumable stack kernel holds this stack: {why} — the staged "
+            f"kernels cannot resume mid-window; pass backend='reference' to "
+            f"serve it in plain PyTorch")
 
     @property
     def weights(self) -> tuple:
@@ -506,16 +536,16 @@ class SNNStreamEngine:
     def begin_rollout(self, params_q: dict) -> int:
         """Publish new weights without draining: new admissions bind the
         returned version, in-flight lanes finish on their own."""
-        ws = self._place_weights(
-            tuple(layer["w_q"] for layer in params_q["layers"]))
-        sizes = tuple([int(ws[0].shape[0])] + [int(w.shape[1]) for w in ws])
+        codes = tuple(layer["w_q"] for layer in params_q["layers"])
+        sizes = tuple([int(codes[0].shape[0])]
+                      + [int(w.shape[1]) for w in codes])
         if sizes != self.layer_sizes:
             raise ValueError(
                 f"rollout cannot change the topology: engine serves "
                 f"{self.layer_sizes}, new weights are {sizes}")
         if self.backend in ("fused", "fused_streamed"):
-            ops.validate_weight_codes(ws)
-        return self.bank.begin(ws)
+            ops.validate_weight_codes(codes)
+        return self.bank.begin(self._place_weights(codes))
 
     # ---- dispatch -------------------------------------------------------
     def _advance(self, lanes: LaneState, weights: tuple):
@@ -578,3 +608,301 @@ class SNNStreamEngine:
             self.step()
         self._admit_and_compact()
         return self.results
+
+
+# ---------------------------------------------------------------------------
+# the (data × model) lane mesh
+# ---------------------------------------------------------------------------
+
+def _device_grid(mesh: DeviceMesh, axis_name: str,
+                 model_axis_name: str) -> list[list[torch.device]]:
+    """The mesh's devices as rows of data shards × columns of model peers
+    (one column when the mesh has no model axis)."""
+    names = mesh.axis_names
+    if axis_name not in names:
+        raise ValueError(f"mesh {names} has no {axis_name!r} axis")
+    used = [axis_name] + ([model_axis_name] if model_axis_name in names
+                          else [])
+    if any(mesh.shape[n] > 1 for n in names if n not in used):
+        raise ValueError(f"mesh {names} has axes other than {used} wider "
+                         f"than 1")
+    order = [names.index(n) for n in used]
+    order += [i for i in range(len(names)) if i not in order]
+    grid = np.transpose(mesh.devices, order).reshape(
+        mesh.shape[axis_name], -1)
+    return [list(row) for row in grid]
+
+
+def split_lanes(lanes: LaneState, devices) -> list[LaneState]:
+    """The lane tile cut into ``len(devices)`` contiguous row blocks, block
+    ``d`` on ``devices[d]`` (data shard ``d``'s home device): the port of
+    the data axis of ``lane_partition_specs``.  Lane state never splits on
+    the model axis, so a row means the same on any mesh."""
+    per = lanes.px.shape[0] // len(devices)
+    return [_map(lambda a, d=d, dev=dev: a[d * per:(d + 1) * per].to(dev),
+                 lanes) for d, dev in enumerate(devices)]
+
+
+def _cat_lanes(parts, device) -> LaneState:
+    """Inverse of :func:`split_lanes`: the data shards' tiles, in order,
+    as one tile on ``device``."""
+    def cat(leaves):
+        return torch.cat([a.to(device) for a in leaves])
+
+    return LaneState(*[
+        tuple(cat(ls) for ls in zip(*f)) if isinstance(f[0], tuple)
+        else cat(f) for f in zip(*parts)])
+
+
+def _lane_pad(w: torch.Tensor) -> torch.Tensor:
+    """A new zero-padded copy of ``w`` with both axes a multiple of LANE."""
+    k, n = w.shape
+    out = torch.zeros((k + (-k) % LANE, n + (-n) % LANE), dtype=torch.int16)
+    out[:k, :n] = w
+    return out
+
+
+def shard_weights(codes: tuple, grid, model_ways: tuple | None) -> tuple:
+    """Place the weight codes for a mesh: the port of
+    ``weight_partition_specs``.
+
+    Returns one entry per data shard (row of ``grid``).  Without a model
+    axis (``model_ways`` None) an entry holds each layer's (n_in, n_out)
+    int16 codes on the shard's home device.  With one, it holds per layer
+    a tuple of per-peer tensors: for a layer that splits ``ways``-way its
+    contiguous output-column shards, each on its peer's device, and for a
+    replicated layer the whole matrix on the home device; every one its
+    own contiguous, LANE-padded int16 tensor, so no launch pads or copies
+    it.  A device named more than once in the grid holds each tensor once.
+    """
+    placed = {}
+
+    def put(key, dev, make):
+        if (key, dev) not in placed:
+            placed[(key, dev)] = make().to(dev).contiguous()
+        return placed[(key, dev)]
+
+    codes = tuple(torch.as_tensor(w).to(torch.int16) for w in codes)
+    out = []
+    for row in grid:
+        if model_ways is None:
+            out.append(tuple(put((l, 0), row[0], lambda w=w: w.clone())
+                             for l, w in enumerate(codes)))
+            continue
+        layers = []
+        for l, (w, ways) in enumerate(zip(codes, model_ways)):
+            n_sh = w.shape[1] // ways
+            layers.append(tuple(
+                put((l, m), row[m],
+                    lambda w=w, m=m: _lane_pad(w[:, m * n_sh:(m + 1) * n_sh]))
+                for m in range(ways)))
+        out.append(tuple(layers))
+    return tuple(out)
+
+
+def sharded_stream_chunk(lanes: LaneState, weights: tuple, devices, *,
+                         model_shards: int | None = None, **chunk_kw):
+    """One chunk on a mesh: the port of ``make_sharded_stream_chunk``.
+
+    Splits the lane tile over the data shards (:func:`split_lanes`, shard
+    ``d`` to ``devices[d]``), runs :func:`stream_chunk` on each with its
+    entry of :func:`shard_weights` (the model-axis datapath when
+    ``model_shards`` is given) and joins the tiles and the telemetry
+    (``core.telemetry.concat_shard_telemetry``: lanes and blocks
+    data-outer) on the tile's device.  Every op of the chunk is per lane,
+    so the result equals :func:`stream_chunk` on the whole tile.
+    """
+    home = lanes.px.device
+    outs = [stream_chunk(part, w, model_shards=model_shards, **chunk_kw)
+            for part, w in zip(split_lanes(lanes, devices), weights)]
+    tel = concat_shard_telemetry(
+        [ChunkTelemetry(*[a.to(home) for a in t]) for _, t in outs])
+    return _cat_lanes([o for o, _ in outs], home), tel
+
+
+class ShardedSNNStreamEngine(SNNStreamEngine):
+    """(Data × model)-parallel lane mesh over the streaming engine (port of
+    ``repro.serve.ShardedSNNStreamEngine``).
+
+    The lane tile is sharded over the ``axis_name`` axis of a
+    ``distributed.sharding.DeviceMesh``: data shard ``d`` owns
+    ``batch_size // n_devices`` contiguous lane slots and runs the chunk
+    on them.  If the mesh also carries a ``model_axis_name`` axis wider
+    than 1 (``make_2d_device_mesh``), every layer whose width divides it
+    splits its weight columns over the model peers: each peer contracts
+    the full input-spike vector against its shard (one partial-contraction
+    launch per step, layer and shard on a fused backend), steps LIF on its
+    columns, and the shards' spikes and membranes concatenate at the layer
+    boundary.  Layers that do not divide replicate and run once per data
+    shard.  Results equal :class:`SNNStreamEngine`'s on the same seeds;
+    lane rows never encode the mesh, so ``snapshot_lanes`` / ``adopt``
+    move requests between any two engines.
+
+    The mesh may name one device more than once (four model shards on one
+    card); the shards then run one after the other on it.  On a card,
+    ``backend`` None / ``"auto"`` resolves, without a model axis, to the
+    stack kernel that holds one data shard's lanes, and on a model axis to
+    ``fused``: there every fused backend runs the partial-contraction
+    kernel, whatever the stack's width.  Plain PyTorch runs the
+    contraction only when ``backend="reference"`` is named.
+
+    Scheduling differences from the base engine:
+
+      * **Block-local compaction**: retired lanes are compacted within
+        their data shard's slot block, never across blocks.
+      * **Round-robin admission**: queued requests fill freed slots
+        cycling across the data shards' blocks.
+      * **Speculative dispatch** (``overlap=True``; off by default): after
+        committing chunk *k* the engine enqueues chunk *k+1* on its output
+        before the host reads chunk *k*'s retirements back.  If that
+        readback leads to a compaction, or the controller's chunk length
+        moved, the speculation is discarded and the chunk runs again from
+        the compacted tile; the chunk is a pure function of the tile, so
+        using it never changes results.  ``stats["spec_used"]`` /
+        ``stats["spec_wasted"]`` count the outcomes.  On one CUDA stream
+        the readback waits for the speculative chunk, so it overlaps
+        nothing, and a chunk that retires any lane wastes it.
+    """
+
+    def __init__(self, params_q: dict, cfg: SNNConfig, *,
+                 mesh: DeviceMesh | None = None, axis_name: str = "data",
+                 model_axis_name: str = "model",
+                 lanes_per_device: int | None = None,
+                 batch_size: int | None = None, chunk_steps: int = 4,
+                 patience: int = 2, seed: int = 0,
+                 backend: str | None = None, overlap: bool = False,
+                 adaptive: AdaptiveDispatchConfig | None = None,
+                 engine_id: int = 0, initial_weight_version: int = 0):
+        if mesh is None:
+            mesh = make_2d_device_mesh(
+                model_devices=1, axis_names=(axis_name, model_axis_name))
+        if model_axis_name == axis_name:
+            raise ValueError(
+                f"model_axis_name {model_axis_name!r} must differ from the "
+                f"lane axis {axis_name!r}")
+        self._grid = _device_grid(mesh, axis_name, model_axis_name)
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self.n_devices = mesh.shape[axis_name]
+        self.model_axis_name = model_axis_name
+        self.model_devices = mesh.shape.get(model_axis_name, 1)
+        self.model_axis = (model_axis_name if self.model_devices > 1
+                           else None)
+        w_shapes = [tuple(layer["w_q"].shape) for layer in params_q["layers"]]
+        sizes = tuple([w_shapes[0][0]] + [s[1] for s in w_shapes])
+        self.model_ways = layer_shard_ways(sizes, self.model_devices)
+        if batch_size is None:
+            batch_size = (8 if lanes_per_device is None
+                          else lanes_per_device) * self.n_devices
+        elif (lanes_per_device is not None
+              and batch_size != lanes_per_device * self.n_devices):
+            raise ValueError(
+                f"conflicting tile shape: batch_size={batch_size} but "
+                f"lanes_per_device={lanes_per_device} × "
+                f"{self.n_devices} devices = "
+                f"{lanes_per_device * self.n_devices} — pass one or the "
+                f"other")
+        if batch_size % self.n_devices:
+            raise ValueError(
+                f"batch_size={batch_size} must divide evenly over the "
+                f"{self.n_devices}-device {axis_name!r} axis")
+        self.local_batch = batch_size // self.n_devices
+        self.overlap = overlap
+        self.stats = {"chunks": 0, "spec_used": 0, "spec_wasted": 0}
+        self._spec: tuple | None = None
+        self._spec_src: LaneState | None = None
+        self._spec_steps: int | None = None
+        super().__init__(params_q, cfg, batch_size=batch_size,
+                         chunk_steps=chunk_steps, patience=patience,
+                         seed=seed, backend=backend, adaptive=adaptive,
+                         engine_id=engine_id,
+                         initial_weight_version=initial_weight_version,
+                         device=self._grid[0][0])
+
+    def _resolve_backend(self, cfg: SNNConfig, requested: str,
+                         batch_size: int) -> str:
+        """Without a model axis: the stack kernel that holds one data
+        shard's lanes.  On one: a fused backend is the partial-contraction
+        kernel, which keeps no per-lane state in shared memory, so no stack
+        kernel's feasibility model applies; ``auto`` takes it on a card."""
+        if (self.model_axis is None
+                or requested not in ("auto", "fused", "fused_streamed")):
+            return super()._resolve_backend(cfg, requested,
+                                            batch_size // self.n_devices)
+        if requested == "auto":
+            return "fused" if self.device.type == "cuda" else "reference"
+        return requested
+
+    # ---- device placement ----------------------------------------------
+    def _place_weights(self, weights: tuple) -> tuple:
+        return shard_weights(weights, self._grid,
+                             self.model_ways if self.model_axis else None)
+
+    def _advance(self, lanes: LaneState, weights: tuple):
+        self.dispatches += 1
+        return sharded_stream_chunk(
+            lanes, weights, [row[0] for row in self._grid],
+            model_shards=self.model_devices if self.model_axis else None,
+            chunk_steps=self.controller.chunk_steps,
+            num_steps=self.cfg.num_steps, lif_cfg=self.cfg.lif,
+            dot_impl=self.cfg.dot_impl,
+            active_pruning=self.cfg.active_pruning, patience=self.patience,
+            readout=self.cfg.readout, backend=self.backend,
+            sparse_skip=self.cfg.sparse_skip)
+
+    # ---- scheduling -----------------------------------------------------
+    def _admit_and_compact(self) -> list[int]:
+        """Block-local compaction + round-robin admission (see class doc)."""
+        if not self._needs_compaction():
+            return []
+        occupied = np.array([r is not None for r in self.lane_req])
+        st = self._host_tile()
+        done_ids = self._harvest(st, occupied & ~st.active)
+        order, lane_req, free_slots = [], [], []
+        for d in range(self.n_devices):
+            lo = d * self.local_batch
+            block = np.arange(lo, lo + self.local_batch)
+            keep = occupied[block] & st.active[block]
+            live, free = block[keep], block[~keep]
+            order.extend(live.tolist() + free.tolist())
+            lane_req.extend([self.lane_req[int(i)] for i in live]
+                            + [None] * len(free))
+            free_slots.append(list(range(lo + len(live),
+                                         lo + self.local_batch)))
+        st = _map(lambda a: a[np.asarray(order, np.int64)], st)
+        self.lane_req = lane_req
+        while (self.queue or self._adoptions) and any(free_slots):
+            for d in range(self.n_devices):
+                if not (self.queue or self._adoptions):
+                    break
+                if free_slots[d]:
+                    self._admit_into(st, free_slots[d].pop(0))
+        self._sync_versions(st)
+        self.lanes = self._upload(st)
+        return done_ids
+
+    def step(self) -> list[int]:
+        """Admit + run one chunk, with chunk k+1 enqueued speculatively."""
+        done = self._admit_and_compact()
+        if (self._spec is not None and self.lanes is self._spec_src
+                and self._spec_steps == self.controller.chunk_steps):
+            # the tile is the very one the speculation ran from and the
+            # controller still wants its chunk length: it IS this chunk
+            src = self._spec_src
+            nxt, tel = self._spec
+            self.stats["spec_used"] += 1
+        else:
+            if self._spec is not None:
+                self.stats["spec_wasted"] += 1
+            src = self.lanes
+            nxt, tel = self._dispatch_versions(src)
+        self._spec = self._spec_src = self._spec_steps = None
+        self.lanes = nxt
+        self.stats["chunks"] += 1
+        self._observe(src, nxt, tel)
+        if self.overlap and (self.queue
+                             or any(r is not None for r in self.lane_req)):
+            self._spec_src = nxt
+            self._spec_steps = self.controller.chunk_steps
+            self._spec = self._dispatch_versions(nxt)
+        return done

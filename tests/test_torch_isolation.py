@@ -35,7 +35,9 @@ def test_no_jax_or_reference_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.convert,"
-            " repro_torch.configs.snn_mnist, repro_torch.kernels.ops;"
+            " repro_torch.configs.snn_mnist, repro_torch.kernels.ops,"
+            " repro_torch.distributed.sharding,"
+            " repro_torch.kernels.spike_matmul;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

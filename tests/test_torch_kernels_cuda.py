@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-K1 and K2 (the resident and the weight-streaming stack kernels), K4 (the
-encoder) and K5 (the LIF layer), and the backends built on them.  Every
+K1 and K2 (the resident and the weight-streaming stack kernels), K3 (the
+partial contraction of a model shard), K4 (the encoder), K5 (the LIF
+layer) and K6 (the spike matmul), and the backends and engines built on
+them.  Every
 test here needs an NVIDIA GPU and nvcc; without a card they skip (decided
 inside the fixture, so every worker collects the same tests).  Run them on
 a machine with a card: ``PYTHONPATH=src python -m pytest -m cuda
@@ -17,7 +19,8 @@ import torch
 from repro_torch.configs import snn_mnist as cfgs
 from repro_torch.core import snn
 from repro_torch.core.prng import seed_state
-from repro_torch.kernels import fused_snn, lif_step, ops, poisson_encode
+from repro_torch.kernels import (fused_snn, lif_step, ops, poisson_encode,
+                                 spike_matmul)
 from repro_torch.serve import SNNStreamEngine
 
 pytestmark = pytest.mark.cuda
@@ -277,3 +280,82 @@ def test_engine_fused_equals_reference_on_card(card, name, backend, kernel):
         assert (f.pred, f.steps, f.adds, f.early_exit) == \
             (r.pred, r.steps, r.adds, r.early_exit)
         np.testing.assert_array_equal(f.spike_counts, r.spike_counts)
+
+
+@pytest.mark.parametrize("sparse_skip", [True, False])
+@pytest.mark.parametrize("B,n_in,n_out,density,dead_tiles", [
+    (1021, 784, 512, 0.14, False), (64, 2048, 512, 0.06, True),
+    (40, 2048, 10, 1.0, False), (24, 784, 5, 0.0, True)])
+def test_partial_contraction_kernel_equals_plain(card, B, n_in, n_out,
+                                                 density, dead_tiles,
+                                                 sparse_skip):
+    rng = np.random.default_rng(n_in + n_out)
+    x = torch.from_numpy(rng.random((B, n_in)) < density).to(card)
+    en = rng.random((B, n_out)) < 0.8
+    if dead_tiles:
+        en[:8] = False                    # block 0 has no enabled neuron
+    en = torch.from_numpy(en).to(card)
+    w = torch.from_numpy(rng.integers(-256, 256, (n_in, n_out))
+                         .astype(np.int16)).to(card)
+    before = fused_snn.partial_contraction.launches
+    got = ops.partial_contraction_op(x, en, w, sparse_skip=sparse_skip)
+    torch.cuda.synchronize()
+    assert fused_snn.partial_contraction.launches == before + 1
+    want = ops.partial_contraction_op(x.cpu(), en.cpu(), w.cpu(),
+                                      sparse_skip=sparse_skip)
+    _assert_equal(tuple(t.cpu() for t in got), want, "K3")
+
+
+@pytest.mark.parametrize("mode", ["masked", "dot", "auto"])
+@pytest.mark.parametrize("B,K,N,density", [(1024, 2048, 2048, 0.058),
+                                           (1021, 784, 10, 0.2)])
+def test_spike_matmul_kernel_equals_plain(card, B, K, N, density, mode):
+    rng = np.random.default_rng(K)
+    s = torch.from_numpy((rng.random((B, K)) < density).astype(np.uint8)) \
+        .to(card)
+    w = torch.from_numpy(rng.integers(-2000, 2001, (K, N)).astype(np.int16)) \
+        .to(card)
+    before = spike_matmul.spike_matmul.launches
+    got, tel = ops.spike_matmul_op(s, w, mode=mode, density_threshold=0.1,
+                                   with_telemetry=True)
+    torch.cuda.synchronize()
+    assert spike_matmul.spike_matmul.launches == before + 1
+    want, want_tel = ops.spike_matmul_op(s.cpu(), w.cpu(), mode=mode,
+                                         density_threshold=0.1,
+                                         with_telemetry=True)
+    _assert_equal(got.cpu(), want, "K6")
+    _assert_equal(tuple(t.cpu() for t in tel), tuple(want_tel), "K6 tel")
+
+
+def test_model_sharded_engine_equals_single_on_card(card):
+    """784→64→10 on a 1×2 mesh of the card (both layers sharded): K3 runs
+    every contraction and the results equal the single-device engine's."""
+    from repro_torch.configs.snn_mnist import (SNNStreamMeshConfig,
+                                               make_stream_engine)
+    rng = np.random.default_rng(8)
+    cfg = dataclasses.replace(cfgs.SNN_CONFIG_DEEP, layer_sizes=(784, 64, 10))
+    p = {"layers": [{"w_q": np.clip(np.round(rng.normal(0, 170 / np.sqrt(i),
+                                                        (i, o))), -256, 255)
+                     .astype(np.int16)} for i, o in ((784, 64), (64, 10))]}
+    imgs = rng.integers(0, 256, (40, 784), dtype=np.uint8)
+    knobs = SNNStreamMeshConfig(num_devices=1, model_devices=2,
+                                lanes_per_device=16)
+    eng = make_stream_engine(p, cfg, knobs, devices=[card] * 2, patience=2,
+                             seed=3)
+    assert eng.backend == "fused" and eng.model_ways == (2, 2)
+    ref = SNNStreamEngine(p, cfg, batch_size=16, patience=2, seed=3)
+    for im in imgs:
+        eng.submit(im)
+        ref.submit(im)
+    before = (fused_snn.partial_contraction.launches,
+              fused_snn.fused_snn_stack.launches)
+    got = eng.run()
+    assert fused_snn.partial_contraction.launches > before[0]
+    assert fused_snn.fused_snn_stack.launches == before[1]
+    want = ref.run()
+    assert sorted(got) == sorted(want) == list(range(40))
+    for rid, r in want.items():
+        g = got[rid]
+        assert (g.pred, g.steps, g.adds, g.early_exit) == \
+            (r.pred, r.steps, r.adds, r.early_exit)
+        np.testing.assert_array_equal(g.spike_counts, r.spike_counts)
