@@ -27,12 +27,15 @@ result line):
    (K4 + one K5 per layer) equal to the reference backend on the wide
    stack; ``auto`` resolving to the staged kernels for a stack no stack
    kernel holds.
-   K3, the partial contraction of one model shard, in 14 cases (the wide
-   stack's shard shapes 784→512 and 2048→512, its replicated head
-   2048→10 and the 784→5 head shard of a 2-way axis; 1,021 lanes padded to
-   1,024; input densities 0, ~6%, ~14% and 100%; enables all on, 80%
-   random, and dead 128-column tiles in some blocks; sparse_skip on and
-   off), current and skipped counts integer-equal; K6, the spike matmul,
+   K3, the partial contraction of one model shard on its packed int8
+   planes, in 24 cases (the wide stack's shard shapes 784→512 and
+   2048→512, its replicated head 2048→10 and the 784→5 head shard of a
+   2-way axis, plus 4096-deep shards; 1,021 lanes padded to 1,024, and
+   1,000 and 24 lanes, which are not multiples of the kernel's 64-lane
+   tile; input densities 0, ~6%, ~14% and 100%; enables all on, 80%
+   random, and dead 128-column tiles in every other 8-lane block; codes
+   random or at -256 and 255 in every column; sparse_skip on and off),
+   current and skipped counts integer-equal; K6, the spike matmul,
    masked, dot and auto on both sides of the density threshold at
    (1,024, 2048→2048) at 5.8% and 10.4% density and (1,021, 784→10),
    outputs and telemetry equal.
@@ -56,9 +59,12 @@ result line):
    with the bound: the larger of the bytes the function must move
    (unpadded shapes, each input read once, each output written once) at
    3.35 TB/s and its integer operations at the card's INT32 rate; for K3
-   (each wide layer's shard shape) and K6 (both realisations) also one
-   ``torch.matmul`` in float32 (TF32 off) on the same operands, exact
-   here because |Σ| < 2^24.
+   and K6, whose function is a contraction of the two int8 weight planes,
+   the operations are the shorter of the executed adds at the INT32 rate
+   and 2·B·K·N·2 int8 operations at the tensor cores' 1,979 T/s (the
+   add-only bound is kept beside it).  For K3 (each wide layer's shard
+   shape) and K6 (both realisations) also one ``torch.matmul`` in float32
+   (TF32 off) on the same operands, exact here because |Σ| < 2^24.
 
 The second-to-last lines are the ``{"kernels": [...]}`` record and the
 nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``.
@@ -94,6 +100,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 # two operations on 128 FP32 lanes per SM; an SM has 64 INT32 lanes and an
 # add is one operation, so a quarter of it.
 INT32_OPS_PER_S = 67e12 / 4
+INT8_TC_OPS_PER_S = 1979e12   # H100 SXM dense int8 tensor cores (data sheet)
 SEED = 0
 SERVE_BATCH, SERVE_CHUNK, SERVE_PATIENCE, SERVE_REQUESTS = 1024, 4, 2, 4096
 CHECK_BATCH = 1021            # pads to 1024: exercises the batch padding
@@ -158,7 +165,9 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     infos = _build.build_all()
     log(f"[build] {len(infos)} kernel source(s) in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s; " + subprocess.run(
+            [_build._nvcc(), "--version"], capture_output=True,
+            text=True).stdout.strip().splitlines()[-1])
     for name, info in infos.items():
         how = "cached build" if info.cached else f"nvcc {info.seconds:.2f} s"
         log(f"[build] {name}: {how} -> {info.path.relative_to(ROOT)}")
@@ -477,9 +486,14 @@ def _pad(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return out
 
 
-def _k3_operands(rng, B, n_in, n_out, density, en_kind, dev):
-    """Padded K3 operands: spikes at ``density``, enables all on, 80%
-    random, or dead in whole 128-column tiles of every other block."""
+def _k3_operands(rng, B, n_in, n_out, density, en_kind, dev,
+                 codes="random"):
+    """Padded K3 operands: spikes at ``density``; enables all on, 80%
+    random, or dead in whole 128-column tiles of every other 8-lane block;
+    codes random in [-256, 255] or (``"extremes"``) with every column
+    holding -256 and 255.  Returns ``(x, en, planes, codes)``: the planes
+    as the engine places them, the padded int16 codes for the library
+    product."""
     x = torch.from_numpy(rng.random((B, n_in)) < density).to(dev)
     if en_kind == "all":
         en = np.ones((B, n_out), bool)
@@ -490,22 +504,46 @@ def _k3_operands(rng, B, n_in, n_out, density, en_kind, dev):
         for b in range(0, B, 16):                 # every other 8-lane block
             for c in range(0, n_out, 256):        # every other column tile
                 en[b:b + 8, c:c + 128] = False
-    w = torch.from_numpy(rng.integers(-256, 256, (n_in, n_out))
-                         .astype(np.int16)).to(dev)
+    w = rng.integers(-256, 256, (n_in, n_out)).astype(np.int16)
+    if codes == "extremes":
+        w[0::3], w[1::3] = -256, 255
+    w = _pad(torch.from_numpy(w).to(dev), fused_snn.LANE, fused_snn.LANE)
     bb, lane = fused_snn.BLOCK_B, fused_snn.LANE
     return (_pad(x.to(torch.uint8), bb, lane),
             _pad(torch.from_numpy(en).to(dev).to(torch.uint8), bb, lane),
-            _pad(w, lane, lane))
+            fused_snn.pack_weights(w), w)
 
 
-# (n_in, n_out, input density, enables, sparse_skip)
-K3_CASES = [(784, 512, 0.14, "all", True), (784, 512, 0.14, "80%", False),
-            (784, 512, 1.0, "dead", True), (784, 512, 0.06, "dead", False),
-            (2048, 512, 0.06, "all", True), (2048, 512, 0.06, "dead", True),
-            (2048, 512, 0.14, "80%", False), (2048, 512, 0.0, "all", True),
-            (2048, 10, 0.06, "all", True), (2048, 10, 1.0, "80%", False),
-            (2048, 10, 0.14, "dead", True), (784, 5, 0.14, "all", True),
-            (784, 5, 0.0, "80%", False), (784, 5, 1.0, "dead", True)]
+# (B, n_in, n_out, input density, enables, sparse_skip, codes); n_out is
+# also the shard's n_valid.  B = 1,000 and 24 are not multiples of the
+# kernel's 64-lane tile; the dead pattern kills every other 8-lane block,
+# one half of each 16-lane MMA fragment.
+K3_CASES = [
+    (CHECK_BATCH, 784, 512, 0.14, "all", True, "random"),
+    (CHECK_BATCH, 784, 512, 0.14, "80%", False, "random"),
+    (CHECK_BATCH, 784, 512, 1.0, "dead", True, "random"),
+    (CHECK_BATCH, 784, 512, 0.06, "dead", False, "random"),
+    (CHECK_BATCH, 2048, 512, 0.06, "all", True, "random"),
+    (CHECK_BATCH, 2048, 512, 0.06, "dead", True, "random"),
+    (CHECK_BATCH, 2048, 512, 0.14, "80%", False, "random"),
+    (CHECK_BATCH, 2048, 512, 0.0, "all", True, "random"),
+    (CHECK_BATCH, 2048, 10, 0.06, "all", True, "random"),
+    (CHECK_BATCH, 2048, 10, 1.0, "80%", False, "random"),
+    (CHECK_BATCH, 2048, 10, 0.14, "dead", True, "random"),
+    (CHECK_BATCH, 784, 5, 0.14, "all", True, "random"),
+    (CHECK_BATCH, 784, 5, 0.0, "80%", False, "random"),
+    (CHECK_BATCH, 784, 5, 1.0, "dead", True, "random"),
+    (1000, 2048, 512, 0.10, "dead", True, "random"),
+    (1000, 784, 10, 0.14, "80%", True, "random"),
+    (24, 2048, 512, 0.14, "dead", True, "random"),
+    (24, 784, 5, 0.5, "all", False, "random"),
+    (CHECK_BATCH, 4096, 512, 0.10, "dead", True, "random"),
+    (CHECK_BATCH, 4096, 256, 0.14, "80%", False, "random"),
+    (CHECK_BATCH, 2048, 5, 1.0, "all", True, "extremes"),
+    (CHECK_BATCH, 2048, 10, 1.0, "dead", True, "extremes"),
+    (CHECK_BATCH, 784, 10, 1.0, "80%", False, "extremes"),
+    (CHECK_BATCH, 2048, 512, 1.0, "dead", True, "extremes"),
+]
 
 
 def phase_k3_vs_plain(dev) -> tuple[int, int]:
@@ -514,26 +552,30 @@ def phase_k3_vs_plain(dev) -> tuple[int, int]:
     rng = np.random.default_rng(SEED + 13)
     t0 = time.perf_counter()
     err, skipped_any, dead_zeroed = 0, 0, 0
-    for n_in, n_out, dens, en_kind, ss in K3_CASES:
-        x, en, w = _k3_operands(rng, CHECK_BATCH, n_in, n_out, dens, en_kind,
-                                dev)
-        got = fused_snn.partial_contraction(x, en, w, sparse_skip=ss)
+    for B, n_in, n_out, dens, en_kind, ss, codes in K3_CASES:
+        x, en, wp, _ = _k3_operands(rng, B, n_in, n_out, dens, en_kind, dev,
+                                    codes)
+        got = fused_snn.partial_contraction(x, en, wp, n_valid=n_out,
+                                            sparse_skip=ss)
         torch.cuda.synchronize()
-        want = fused_snn.partial_contraction_plain(x, en, w, sparse_skip=ss)
+        want = fused_snn.partial_contraction_plain(x, en, wp, n_valid=n_out,
+                                                   sparse_skip=ss)
         e = _max_abs_err(got, want)
         if e:
-            raise AssertionError(f"K3 != plain on {n_in}->{n_out} density "
-                                 f"{dens} enables {en_kind} sparse_skip={ss}"
-                                 f" (max |err| {e})")
+            raise AssertionError(f"K3 != plain on B={B} {n_in}->{n_out} "
+                                 f"density {dens} enables {en_kind} "
+                                 f"sparse_skip={ss} codes {codes} (max "
+                                 f"|err| {e})")
         err = max(err, e)
         skipped_any += int(got[1].sum())
         if ss and en_kind == "dead" and dens > 0:
-            dense = fused_snn.partial_contraction_plain(x, en, w,
-                                                        sparse_skip=False)[0]
+            dense = fused_snn.partial_contraction_plain(
+                x, en, wp, n_valid=n_out, sparse_skip=False)[0]
             dead_zeroed += int(((got[0] == 0) & (dense != 0)).sum())
-        log(f"[K3-vs-plain] B={CHECK_BATCH} {n_in}->{n_out} density {dens:.2f}"
-            f" enables {en_kind:4s} sparse_skip={ss!s:5s}: current and "
-            f"skipped equal (skipped tile pairs {int(got[1].sum())})")
+        log(f"[K3-vs-plain] B={B} {n_in}->{n_out} density {dens:.2f}"
+            f" enables {en_kind:4s} sparse_skip={ss!s:5s} codes {codes}: "
+            f"current and skipped equal (skipped tile pairs "
+            f"{int(got[1].sum())})")
     if not (skipped_any and dead_zeroed):
         raise AssertionError("the K3 cases never exercised the tile skip")
     log(f"[K3-vs-plain] {len(K3_CASES)} cases equal; {dead_zeroed} raw "
@@ -923,25 +965,38 @@ def _plain_ms(fn, m) -> float:
 
 
 def _bound(tag, fn_bytes, n_ops, ms, plain_ms, what,
-           library_ms=None) -> dict:
+           library_ms=None, tc_ops=None) -> dict:
+    """The least time the card could take: the larger of the bytes at
+    3.35 TB/s and the operations, the executed int32 operations at the
+    INT32 rate or, where the function is a contraction of the two int8
+    planes (``tc_ops``, 2 * B * K * N * 2), those at the int8 tensor-core
+    rate, whichever is shorter."""
     t_bytes = fn_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT32_OPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
+    t_tc = None if tc_ops is None else tc_ops / INT8_TC_OPS_PER_S * 1e3
+    t_op_min = t_ops if t_tc is None else min(t_ops, t_tc)
+    bound_ms = max(t_bytes, t_op_min)
     log(f"[times] {tag} {what}: {ms * 1e3:.2f} us/launch on the device; "
         f"plain version {plain_ms * 1e3:.1f} us")
     lib = ("no single PyTorch call computes this function, so there is no "
            "library time" if library_ms is None else
            f"torch.matmul in float32 (TF32 off) on the same operands "
            f"{library_ms * 1e3:.2f} us")
+    tc = ("" if t_tc is None else
+          f"; {tc_ops} int8 tensor-core ops at "
+          f"{INT8_TC_OPS_PER_S / 1e12:.0f} T/s -> {t_tc * 1e3:.3f} us")
     log(f"[times] {tag} bound: the function moves {fn_bytes} B "
         f"({fn_bytes / 1e6:.3f} MB, unpadded) at 3.35 TB/s -> "
         f"{t_bytes * 1e3:.3f} us; {n_ops} int32 ops at "
-        f"{INT32_OPS_PER_S / 1e12:.2f} T/s -> {t_ops * 1e3:.3f} us; bound "
-        f"{bound_ms * 1e3:.3f} us ({bound_ms / ms * 100:.2f}% of the "
+        f"{INT32_OPS_PER_S / 1e12:.2f} T/s -> {t_ops * 1e3:.3f} us{tc}; "
+        f"bound {bound_ms * 1e3:.3f} us ({bound_ms / ms * 100:.2f}% of the "
         f"kernel's time); {lib}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if t_bytes >= t_op_min else "operations",
+           "library_ms": library_ms}
+    if t_tc is not None:     # the bound without the tensor cores, beside it
+        out["add_bound_ms"] = max(t_bytes, t_ops)
+    return out
 
 
 def _time_stack(tag, cfg, imgs, params, dev, kernel, n, m) -> dict:
@@ -1071,16 +1126,20 @@ def _time_k3(dev) -> dict:
     out = {}
     for n_in, n_out, dens in ((784, 512, 0.1367), (2048, 512, 0.1042),
                               (2048, 10, 0.0576)):
-        x, en, w = _k3_operands(rng, SERVE_BATCH, n_in, n_out, dens, "all",
-                                dev)
-        ms = _device_ms(lambda: fused_snn.partial_contraction(x, en, w), 200)
-        plain = _plain_ms(
-            lambda: fused_snn.partial_contraction_plain(x, en, w), 10)
+        x, en, wp, w = _k3_operands(rng, SERVE_BATCH, n_in, n_out, dens,
+                                    "all", dev)
+
+        def k3():
+            return fused_snn.partial_contraction(x, en, wp, n_valid=n_out)
+
+        ms = _device_ms(k3, 200)
+        plain = _plain_ms(lambda: fused_snn.partial_contraction_plain(
+            x, en, wp, n_valid=n_out), 10)
         xf = x[:, :n_in].float()
         wf = w[:n_in, :n_out].float()
         lib = _device_ms(lambda: torch.matmul(xf, wf), 200)
         if _max_abs_err(torch.matmul(xf, wf).to(torch.int32),
-                        fused_snn.partial_contraction(x, en, w)[0][:, :n_out]):
+                        k3()[0][:, :n_out]):
             raise AssertionError("the float32 product is not exact here")
         nnz = int(x.sum())
         fn_bytes = (SERVE_BATCH * (n_in + n_out * 5) + n_in * n_out * 2
@@ -1088,7 +1147,8 @@ def _time_k3(dev) -> dict:
         out[f"{n_in}->{n_out}"] = _bound(
             "K3", fn_bytes, nnz * n_out, ms, plain,
             f"B={SERVE_BATCH} {n_in}->{n_out} (input density "
-            f"{nnz / (SERVE_BATCH * n_in):.4f}, every neuron enabled)", lib)
+            f"{nnz / (SERVE_BATCH * n_in):.4f}, every neuron enabled)", lib,
+            tc_ops=2 * SERVE_BATCH * n_in * n_out * 2)
     return out
 
 
@@ -1108,7 +1168,8 @@ def _time_k6(dev) -> dict:
             lambda: spike_matmul.spike_matmul_plain(s, w, flag), 5)
         out[mode] = _bound(
             "K6", B * K + K * N * 2 + B * N * 4, nnz * N, ms, plain,
-            f"{mode} B={B} {K}->{N} (density {nnz / (B * K):.4f})", lib)
+            f"{mode} B={B} {K}->{N} (density {nnz / (B * K):.4f})", lib,
+            tc_ops=2 * B * K * N * 2)
     return out
 
 

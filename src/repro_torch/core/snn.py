@@ -383,7 +383,9 @@ def snn_int_stack_step_sharded(rng: torch.Tensor, pixels_u8: torch.Tensor,
     device.  ``weights[l]`` is a tuple of the layer's per-peer weight
     shards in peer order: the LANE-padded output-column shards of a layer
     that splits (``kernels.fused_snn.layer_shard_ways``), each on its
-    peer's device, or one whole matrix for a layer that replicates.  Per
+    peer's device, or one whole matrix for a layer that replicates; on a
+    model axis each is the int8 planes of ``kernels.fused_snn.
+    pack_weights`` (``serve.shard_weights``), else int16 codes.  Per
     sharded layer each peer takes its membrane and enable columns, runs
     the partial Σ W·S of the full input-spike vector against its shard
     (``contraction="kernel"`` launches ``kernels.ops.
@@ -411,6 +413,8 @@ def snn_int_stack_step_sharded(rng: torch.Tensor, pixels_u8: torch.Tensor,
             return ops.partial_contraction_op(spikes, en, w, sparse_skip=ss)
         if contraction != "plain":
             raise ValueError(f"unknown contraction {contraction!r}")
+        if w.dtype == torch.int8:              # a placed shard's planes
+            w = fused_snn.unpack_weights(w)
         w = w[:spikes.shape[-1], :en.shape[-1]]
         return (lif.synaptic_current_int(spikes, w, dot_impl),
                 layer_tile_skips(spikes, en, sparse_skip=ss))

@@ -6,9 +6,8 @@
 // stability-gate readout with its first-index argmax.  The encoder
 // (poisson_encode.cu) and LIF (lif_step.cu) kernels take the xorshift32
 // step and the LIF update from here too, so every kernel runs one copy of
-// the datapath's arithmetic.  The partial-contraction (partial_contraction.cu)
-// and spike-matmul (spike_matmul.cu) kernels share the event-driven row
-// lists at the end.
+// the datapath's arithmetic.  The spike-matmul kernel (spike_matmul.cu)
+// takes the event-driven row lists at the end.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -238,7 +237,7 @@ __device__ inline void gate_step(const int32_t* cnt, const int32_t* first,
   act = !done && steps < window;
 }
 
-// ---- event-driven row lists (partial_contraction.cu, spike_matmul.cu) -------
+// ---- event-driven row lists (spike_matmul.cu) --------------------------------
 // Run by a block of TILE threads for the 8-lane batch block starting at
 // row0 of x (row stride ld): thread t reads the spikes of input k =
 // k0 + t of the block's 8 lanes.  Lists, in order, the inputs on which any

@@ -28,10 +28,11 @@ the int16 codes, (n_l_pad, n_{l+1}_pad).
 The model-axis datapath's building block lives here too:
 :func:`partial_contraction` (port of ``partial_contraction_pallas``) is one
 layer's Σ W·S of the full input-spike vector against one output-column
-weight shard, for one step, with the same tile skip; it launches
-``csrc/partial_contraction.cu`` for CUDA tensors and runs
-:func:`partial_contraction_plain` for CPU tensors, counting launches in
-``partial_contraction.launches``.  :func:`layer_shard_ways` says which
+weight shard, for one step, with the same tile skip; the shard arrives as
+the two int8 planes of :func:`pack_weights`.  It launches
+``csrc/partial_contraction.cu`` (int8 tensor cores) for CUDA tensors and
+runs :func:`partial_contraction_plain` for CPU tensors, counting launches
+in ``partial_contraction.launches``.  :func:`layer_shard_ways` says which
 layers split over a model axis.
 """
 
@@ -47,8 +48,8 @@ __all__ = ["LANE", "BLOCK_B", "MAX_LAYERS", "SMEM_LIMIT_BYTES",
            "SLAB_ROWS", "STAGES", "READOUTS", "block_b_for",
            "stack_smem_bytes", "stack_streamed_smem_bytes", "fused_snn_stack",
            "fused_snn_stack_streamed", "fused_snn_stack_plain",
-           "layer_shard_ways", "partial_contraction",
-           "partial_contraction_plain"]
+           "layer_shard_ways", "pack_weights", "unpack_weights",
+           "partial_contraction", "partial_contraction_plain"]
 
 LANE = 128              # every neuron axis pads to this (telemetry tile width)
 BLOCK_B = 8             # lanes per batch block: one warp per lane, and the
@@ -426,24 +427,54 @@ fused_snn_stack_streamed.launches = 0
 # the model axis: one layer's partial contraction against a column shard
 # ---------------------------------------------------------------------------
 
-def partial_contraction_plain(x_u8, en_u8, w_i16, *, sparse_skip: bool = True,
+def pack_weights(w_i16: torch.Tensor) -> torch.Tensor:
+    """Split 9-bit signed codes (n_in, n_out) into two int8 planes.
+
+    ``w = 2*hi + lo`` with ``hi = w >> 1`` (arithmetic) and ``lo = w & 1``,
+    exact for every code in [-256, 255].  Returns a new contiguous
+    ``(2, n_out, n_in)`` int8 tensor, plane 0 = hi, plane 1 = lo, each
+    column's K values contiguous: the ``.col`` B operand of the
+    partial-contraction kernel's int8 ``mma.sync``.  The JAX package's
+    ``pack_weights`` keeps ``(2, n_in, n_out)``; this layout is its
+    transpose on purpose.
+    """
+    w = w_i16.to(torch.int16)
+    hi = torch.bitwise_right_shift(w, 1)
+    lo = w - 2 * hi                                   # in {0, 1}
+    return torch.stack([hi, lo]).transpose(1, 2).to(torch.int8).contiguous()
+
+
+def unpack_weights(w_packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_weights`: (2, n_out, n_in) int8 planes →
+    (n_in, n_out) int16 codes ``2*hi + lo``."""
+    w = w_packed.to(torch.int16)
+    return (2 * w[0] + w[1]).transpose(0, 1)
+
+
+def partial_contraction_plain(x_u8, en_u8, w_packed, *, n_valid=None,
+                              sparse_skip: bool = True,
                               block_b: int = BLOCK_B):
     """The partial-contraction kernel's function in plain PyTorch.
 
-    ``x_u8`` (B, n_in_pad) spikes, ``en_u8`` (B, n_out_pad) the shard's
-    enables, ``w_i16`` (n_in_pad, n_out_pad) the shard's codes.  Returns
-    ``(current (B, n_out_pad) int32, skipped (n_blocks,) int32)``.  With
-    ``sparse_skip`` a 128×128 tile pair is skipped, adding nothing, when
-    its K-slice holds no spike in the 8-lane block or its output slice no
-    enabled neuron; the second case zeroes raw currents the dense product
-    would not, as the reference kernel's tile skip does.  Σ W·S runs as a
-    float64 product (exact) and wraps to int32.
+    ``x_u8`` (B, n_in_pad) spikes (0 or 1), ``en_u8`` (B, n_out_pad) the
+    shard's enables, ``w_packed`` (2, n_out_pad, n_in_pad) the shard's
+    int8 planes (:func:`pack_weights`).  Returns ``(current (B, n_out_pad)
+    int32, skipped (n_blocks,) int32)``.  With ``sparse_skip`` a 128×128
+    tile pair is skipped, adding nothing, when its K-slice holds no spike
+    in the 8-lane block or its output slice no enabled neuron; the second
+    case zeroes raw currents the dense product would not, as the reference
+    kernel's tile skip does.  Columns from ``ceil(n_valid / 8) * 8`` on
+    are 0, as the kernel leaves them.  Σ W·S runs as a float64 product of
+    the unpacked codes (exact) and wraps to int32.
     """
+    Bp, n_out = en_u8.shape
     cur = _wrap32(torch.matmul(x_u8.to(torch.float64),
-                               w_i16.to(torch.float64)).to(torch.int64))
+                               unpack_weights(w_packed).to(torch.float64))
+                  .to(torch.int64))
+    n_valid = n_out if n_valid is None else int(n_valid)
+    cur[:, -(-n_valid // 8) * 8:] = 0          # past the columns K3 computes
     skipped = _block_tile_skips(x_u8 != 0, en_u8 != 0, block_b, sparse_skip)
     if sparse_skip:
-        Bp, n_out = en_u8.shape
         nb = Bp // block_b
         live = en_u8.reshape(nb, block_b, n_out // LANE, LANE).amax(
             dim=(1, 3)) != 0                              # (nb, n_tiles)
@@ -452,40 +483,54 @@ def partial_contraction_plain(x_u8, en_u8, w_i16, *, sparse_skip: bool = True,
     return cur, skipped
 
 
-def partial_contraction(x_u8, en_u8, w_i16, *, sparse_skip: bool = True,
-                        block_b: int = BLOCK_B):
+def partial_contraction(x_u8, en_u8, w_packed, *, n_valid=None,
+                        sparse_skip: bool = True, block_b: int = BLOCK_B):
     """One layer, one step: Σ W·S of the full spike vector against one
     output-column weight shard, on padded operands.
 
-    ``x_u8`` (B, n_in) uint8, ``en_u8`` (B, n_out) uint8, ``w_i16``
-    (n_in, n_out) int16, B a multiple of ``block_b`` (8) and both widths
-    of ``LANE``; every operand contiguous (a column slice of a wider
-    weight matrix is not: place each shard as its own tensor).  Outputs as
-    :func:`partial_contraction_plain`.  CUDA tensors launch the kernel
-    (one launch, counted in ``partial_contraction.launches``); CPU tensors
-    run the plain version.
+    ``x_u8`` (B, n_in) uint8 holding 0 or 1, ``en_u8`` (B, n_out) uint8,
+    ``w_packed`` (2, n_out, n_in) int8 planes (:func:`pack_weights`), B a
+    multiple of ``block_b`` (8) and both widths of ``LANE``; every operand
+    contiguous and 16-byte aligned (a slice of a wider tensor is not
+    contiguous: place each shard as its own tensor).  ``n_valid`` (default
+    ``n_out``) is the shard's real column count, ``n_out - LANE < n_valid
+    <= n_out``; contract: the planes' columns from ``n_valid`` on are zero
+    (the padding ``serve.shard_weights`` places), so the kernel computes
+    only ``ceil(n_valid / 8) * 8`` columns and writes 0 to the rest.
+    Outputs as :func:`partial_contraction_plain`.  CUDA tensors launch the
+    kernel (one launch, counted in ``partial_contraction.launches``); CPU
+    tensors run the plain version.
     """
     dev = x_u8.device
     Bp, n_in = x_u8.shape
-    n_out = w_i16.shape[1]
+    n_out = en_u8.shape[1]
+    n_valid = n_out if n_valid is None else int(n_valid)
     if block_b != BLOCK_B or Bp % block_b or n_in % LANE or n_out % LANE:
         raise ValueError(f"partial contraction takes a batch that is a "
                          f"multiple of {BLOCK_B} and widths that are "
                          f"multiples of {LANE}, got B={Bp}, n_in={n_in}, "
                          f"n_out={n_out}, block_b={block_b}")
+    if not n_out - LANE < n_valid <= n_out:
+        raise ValueError(f"n_valid={n_valid} must lie in "
+                         f"({n_out - LANE}, {n_out}]")
     check_operand(x_u8, "x_u8", torch.uint8, (Bp, n_in), dev)
     check_operand(en_u8, "en_u8", torch.uint8, (Bp, n_out), dev)
-    check_operand(w_i16, "w_i16", torch.int16, (n_in, n_out), dev)
+    check_operand(w_packed, "w_packed", torch.int8, (2, n_out, n_in), dev)
     if dev.type == "cpu":
-        return partial_contraction_plain(x_u8, en_u8, w_i16,
+        return partial_contraction_plain(x_u8, en_u8, w_packed,
+                                         n_valid=n_valid,
                                          sparse_skip=sparse_skip,
                                          block_b=block_b)
     if dev.type != "cuda":
         raise ValueError(f"no partial-contraction kernel for device {dev}")
+    if any(t.data_ptr() % 16 for t in (x_u8, en_u8, w_packed)):
+        raise ValueError("the partial-contraction kernel copies 16-byte "
+                         "pieces: x_u8, en_u8 and w_packed must be 16-byte "
+                         "aligned")
     cur = torch.empty((Bp, n_out), dtype=torch.int32, device=dev)
     skipped = torch.zeros((Bp // block_b,), dtype=torch.int32, device=dev)
-    launch("partial_contraction", [x_u8, en_u8, w_i16, cur, skipped],
-           [Bp, n_in, n_out, int(sparse_skip)], dev)
+    launch("partial_contraction", [x_u8, en_u8, w_packed, cur, skipped],
+           [Bp, n_in, n_out, int(sparse_skip), n_valid], dev)
     partial_contraction.launches += 1
     return cur, skipped
 

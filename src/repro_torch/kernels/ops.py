@@ -252,12 +252,15 @@ def partial_contraction_op(spikes: torch.Tensor, en: torch.Tensor,
 
     The model-axis datapath's per-shard contraction: ``spikes`` (B, n_in)
     bool is the full input-spike vector, ``en`` (B, n_out) bool and
-    ``w_q`` the shard's enables and codes.  ``w_q`` is (n_in, n_out), or
-    already LANE-padded to (pad(n_in), pad(n_out)) as the sharded engine
-    places it; a padded shard goes to the kernel as it is (it must be
-    contiguous), an unpadded one is padded here.  Pads the batch to the
-    ``block_b_for`` block and both neuron axes to 128, launches
-    :func:`kernels.fused_snn.partial_contraction` and cuts back.
+    ``w_q`` the shard's enables and weights.  ``w_q`` is either a placed
+    shard, the LANE-padded int8 planes ``(2, pad(n_out), pad(n_in))`` of
+    ``kernels.fused_snn.pack_weights`` as the sharded engine places them,
+    which go to the kernel as they are (they must be contiguous), or
+    unpadded (n_in, n_out) int16 codes, which are padded and packed here
+    per call as the JAX op does.  Pads the batch to the ``block_b_for``
+    block and both neuron axes to 128, launches
+    :func:`kernels.fused_snn.partial_contraction` with ``n_valid = n_out``
+    and cuts back.
 
     Returns ``(current (B, n_out) int32, skipped (n_blocks,) int32)``: the
     raw current (zero across an output tile with no enabled neuron in the
@@ -271,16 +274,18 @@ def partial_contraction_op(spikes: torch.Tensor, en: torch.Tensor,
     lane = fused_snn.LANE
     bB = fused_snn.block_b_for(B)
     pads = (n_in + (-n_in) % lane, n_out + (-n_out) % lane)
-    w = w_q.to(torch.int16)
-    if tuple(w.shape) == (n_in, n_out) and (n_in, n_out) != pads:
-        w = _pad2(w, lane, lane)
-    elif tuple(w.shape) != pads:
-        raise ValueError(f"weight shard {tuple(w_q.shape)} fits neither "
-                         f"({n_in}, {n_out}) nor its padded {pads}")
+    if w_q.dtype == torch.int8 and tuple(w_q.shape) == (2, pads[1], pads[0]):
+        w = w_q
+    elif w_q.dtype != torch.int8 and tuple(w_q.shape) == (n_in, n_out):
+        w = fused_snn.pack_weights(_pad2(w_q.to(torch.int16), lane, lane))
+    else:
+        raise ValueError(f"weight shard {tuple(w_q.shape)} {w_q.dtype} fits "
+                         f"neither ({n_in}, {n_out}) codes nor their packed "
+                         f"planes (2, {pads[1]}, {pads[0]}) int8")
     x = _pad2(spikes.to(torch.uint8), bB, lane)
     e = _pad2(en.to(torch.uint8), bB, lane)
-    cur, skipped = fused_snn.partial_contraction(x, e, w, sparse_skip=ss,
-                                                 block_b=bB)
+    cur, skipped = fused_snn.partial_contraction(x, e, w, n_valid=n_out,
+                                                 sparse_skip=ss, block_b=bB)
     return cur[:B, :n_out], skipped
 
 

@@ -53,7 +53,7 @@ from ..core.telemetry import (ChunkTelemetry, EngineLoad,
 from ..device import resolve_device
 from ..distributed.sharding import DeviceMesh, make_2d_device_mesh
 from ..kernels import ops
-from ..kernels.fused_snn import LANE, layer_shard_ways
+from ..kernels.fused_snn import LANE, layer_shard_ways, pack_weights
 from ..kernels.ops import V_PEAK_INIT
 from .early_exit import StabilityGateState, stability_step
 from .rollout import WeightBank, merge_version_chunks, select_lanes
@@ -671,9 +671,12 @@ def shard_weights(codes: tuple, grid, model_ways: tuple | None) -> tuple:
     int16 codes on the shard's home device.  With one, it holds per layer
     a tuple of per-peer tensors: for a layer that splits ``ways``-way its
     contiguous output-column shards, each on its peer's device, and for a
-    replicated layer the whole matrix on the home device; every one its
-    own contiguous, LANE-padded int16 tensor, so no launch pads or copies
-    it.  A device named more than once in the grid holds each tensor once.
+    replicated layer the whole matrix on the home device; every one
+    LANE-padded with zeros and packed once into its own contiguous
+    ``(2, pad(n_out), pad(n_in))`` int8 planes
+    (``kernels.fused_snn.pack_weights``, the partial-contraction kernel's
+    operand), so no launch pads, packs or copies it.  A device named more
+    than once in the grid holds each tensor once.
     """
     placed = {}
 
@@ -694,7 +697,8 @@ def shard_weights(codes: tuple, grid, model_ways: tuple | None) -> tuple:
             n_sh = w.shape[1] // ways
             layers.append(tuple(
                 put((l, m), row[m],
-                    lambda w=w, m=m: _lane_pad(w[:, m * n_sh:(m + 1) * n_sh]))
+                    lambda w=w, m=m: pack_weights(
+                        _lane_pad(w[:, m * n_sh:(m + 1) * n_sh])))
                 for m in range(ways)))
         out.append(tuple(layers))
     return tuple(out)

@@ -283,20 +283,34 @@ def test_engine_fused_equals_reference_on_card(card, name, backend, kernel):
 
 
 @pytest.mark.parametrize("sparse_skip", [True, False])
-@pytest.mark.parametrize("B,n_in,n_out,density,dead_tiles", [
-    (1021, 784, 512, 0.14, False), (64, 2048, 512, 0.06, True),
-    (40, 2048, 10, 1.0, False), (24, 784, 5, 0.0, True)])
+@pytest.mark.parametrize("B,n_in,n_out,density,enables,codes", [
+    (1021, 784, 512, 0.14, "80%", "random"),
+    (64, 2048, 512, 0.06, "dead", "random"),
+    (40, 2048, 10, 1.0, "80%", "random"),
+    (24, 784, 5, 0.0, "dead", "random"),
+    (1000, 2048, 512, 0.10, "dead", "random"),   # not a multiple of 64
+    (24, 2048, 512, 0.14, "dead", "random"),
+    (1024, 4096, 512, 0.10, "dead", "random"),
+    (1024, 2048, 5, 1.0, "dead", "extremes"),
+    (1024, 2048, 10, 1.0, "80%", "extremes")])
 def test_partial_contraction_kernel_equals_plain(card, B, n_in, n_out,
-                                                 density, dead_tiles,
+                                                 density, enables, codes,
                                                  sparse_skip):
-    rng = np.random.default_rng(n_in + n_out)
+    """K3 through the op, int16 codes packed per call, against the op on
+    the CPU; "dead" kills every other 8-lane block (one half of each
+    16-lane MMA fragment) in every other 128-column tile."""
+    rng = np.random.default_rng(n_in + n_out + B)
     x = torch.from_numpy(rng.random((B, n_in)) < density).to(card)
     en = rng.random((B, n_out)) < 0.8
-    if dead_tiles:
-        en[:8] = False                    # block 0 has no enabled neuron
+    if enables == "dead":
+        for b in range(0, B, 16):
+            for c in range(0, n_out, 256):
+                en[b:b + 8, c:c + 128] = False
     en = torch.from_numpy(en).to(card)
-    w = torch.from_numpy(rng.integers(-256, 256, (n_in, n_out))
-                         .astype(np.int16)).to(card)
+    w = rng.integers(-256, 256, (n_in, n_out)).astype(np.int16)
+    if codes == "extremes":
+        w[0::3], w[1::3] = -256, 255
+    w = torch.from_numpy(w).to(card)
     before = fused_snn.partial_contraction.launches
     got = ops.partial_contraction_op(x, en, w, sparse_skip=sparse_skip)
     torch.cuda.synchronize()
@@ -304,6 +318,30 @@ def test_partial_contraction_kernel_equals_plain(card, B, n_in, n_out,
     want = ops.partial_contraction_op(x.cpu(), en.cpu(), w.cpu(),
                                       sparse_skip=sparse_skip)
     _assert_equal(tuple(t.cpu() for t in got), want, "K3")
+
+
+def test_partial_contraction_kernel_on_placed_planes(card):
+    """A placed packed shard goes to the kernel as it is; columns past
+    n_valid come back 0, the skip counts equal the plain version's."""
+    rng = np.random.default_rng(7)
+    B, n_in, n_out = 1024, 2048, 10
+    x = (torch.from_numpy(rng.random((B, n_in)) < 0.06)
+         .to(torch.uint8).to(card))
+    en = torch.ones((B, 128), dtype=torch.uint8, device=card)
+    w = torch.zeros((n_in, 128), dtype=torch.int16)
+    w[:, :n_out] = torch.from_numpy(
+        rng.integers(-256, 256, (n_in, n_out)).astype(np.int16))
+    wp = fused_snn.pack_weights(w).to(card)
+    got = fused_snn.partial_contraction(x, en, wp, n_valid=n_out)
+    torch.cuda.synchronize()
+    want = fused_snn.partial_contraction_plain(x.cpu(), en.cpu(), wp.cpu(),
+                                               n_valid=n_out)
+    _assert_equal(tuple(t.cpu() for t in got), want, "K3 placed")
+    assert not got[0][:, 16:].any()
+    buf = torch.zeros(B * n_in + 16, dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_snn.partial_contraction(buf[8:8 + B * n_in].view(B, n_in), en,
+                                      wp, n_valid=n_out)
 
 
 @pytest.mark.parametrize("mode", ["masked", "dot", "auto"])

@@ -118,16 +118,22 @@ def test_partial_contraction_op_matches_jax(case, sparse_skip):
 
 
 def test_partial_contraction_refuses_a_noncontiguous_shard():
-    """A column slice of a wider padded matrix goes to the kernel as it
-    is, and the wrapper refuses it instead of copying it per launch."""
+    """A column slice of wider packed planes goes to the kernel as it is,
+    and the wrapper refuses it instead of copying it per launch; unpadded
+    int16 codes are padded and packed per call."""
     x = torch.zeros((8, 128), dtype=torch.bool)
     en = torch.ones((8, 128), dtype=torch.bool)
     wide = torch.zeros((128, 256), dtype=torch.int16)
+    packed = tfused.pack_weights(wide)                  # (2, 256, 128)
     with pytest.raises(ValueError, match="contiguous"):
-        tops.partial_contraction_op(x, en, wide[:, 128:])
+        tops.partial_contraction_op(x, en, packed[:, 128:])
     with pytest.raises(ValueError, match="fits neither"):
         tops.partial_contraction_op(x, en, wide[:100])
+    with pytest.raises(ValueError, match="fits neither"):
+        tops.partial_contraction_op(x, en, packed)
     cur, _ = tops.partial_contraction_op(x, en, wide[:, 128:].contiguous())
+    assert cur.shape == (8, 128)
+    cur, _ = tops.partial_contraction_op(x, en, packed[:, 128:].contiguous())
     assert cur.shape == (8, 128)
 
 
@@ -526,23 +532,30 @@ def test_engine_rejects_bad_meshes():
 
 
 def test_weight_shards_are_placed_once_as_their_own_tensors():
-    """Each column shard is its own contiguous LANE-padded int16 tensor;
-    a device the grid names twice holds each tensor once."""
+    """Each column shard is its own contiguous LANE-padded tensor of packed
+    int8 planes (2, n_out_pad, n_in_pad) that unpack to its codes; a device
+    the grid names twice holds each tensor once."""
     rng = np.random.default_rng(1)
     codes = [l["w_q"] for l in _codes(rng, (200, 256, 10))["layers"]]
     grid = [[CPU, CPU], [CPU, CPU]]
     placed = shard_weights(codes, grid, (2, 1))
     assert [len(layer) for layer in placed[0]] == [2, 1]
     for m, w in enumerate(placed[0][0]):
-        assert w.is_contiguous() and w.dtype == torch.int16
-        assert tuple(w.shape) == (256, 128)
-        np.testing.assert_array_equal(w[:200].numpy(),
+        assert w.is_contiguous() and w.dtype == torch.int8
+        assert tuple(w.shape) == (2, 128, 256)
+        codes_m = tfused.unpack_weights(w).numpy()
+        np.testing.assert_array_equal(codes_m[:200],
                                       codes[0][:, m * 128:(m + 1) * 128])
-        assert not w[200:].any()
-    assert tuple(placed[0][1][0].shape) == (256, 128)
+        assert not codes_m[200:].any() and not w[:, :, 200:].any()
+    head = placed[0][1][0]
+    assert tuple(head.shape) == (2, 128, 256) and head.is_contiguous()
+    np.testing.assert_array_equal(tfused.unpack_weights(head).numpy()[:, :10],
+                                  codes[1])
+    assert not head[:, 10:].any()
     assert placed[1][0][0] is placed[0][0][0]     # one tensor per device
     plain = shard_weights(codes, grid, None)
     assert tuple(plain[0][1].shape) == (256, 10)
+    assert plain[0][1].dtype == torch.int16
 
 
 def test_wide_resolves_fused_on_model_axis():
