@@ -35,10 +35,13 @@ result line):
    tile; input densities 0, ~6%, ~14% and 100%; enables all on, 80%
    random, and dead 128-column tiles in every other 8-lane block; codes
    random or at -256 and 255 in every column; sparse_skip on and off),
-   current and skipped counts integer-equal; K6, the spike matmul,
-   masked, dot and auto on both sides of the density threshold at
-   (1,024, 2048→2048) at 5.8% and 10.4% density and (1,021, 784→10),
-   outputs and telemetry equal.
+   current and skipped counts integer-equal; K6, the spike matmul on the
+   int8 tensor cores, masked, dot and auto on both sides of the density
+   threshold in 12 cases (``K6_CASES``: (1,024, 2048→2048) at 5.8% and
+   10.4% density, (1,021, 784→10), 1,000 and 24 lanes, K = 4,096,
+   densities 0, 0.1% and 100%, signed 9-bit codes, codes over all of
+   int16 and every column holding -32768 and 32767, spike bytes 0/1 and
+   0/1/2/255), outputs and telemetry equal.
 4. serve — ``SNNStreamEngine`` with ``backend=None`` serves 4,096 seeded
    images twice: the paper's 784→10 classifier through K1, and the wide
    784→2048→2048→10 stack through K2 (batch 1024, chunk 4, patience 2,
@@ -584,27 +587,62 @@ def phase_k3_vs_plain(dev) -> tuple[int, int]:
     return len(K3_CASES), err
 
 
-def _k6_case(rng, B, K, N, density, dev):
-    s = torch.from_numpy((rng.random((B, K)) < density).astype(np.uint8))
-    w = torch.from_numpy(rng.integers(-256, 256, (K, N)).astype(np.int16))
-    count = np.float32(int(s.count_nonzero()))
+def _k6_case(rng, B, K, N, density, dev, codes="9-bit", spikes="0/1"):
+    """K6 operands: spikes non-zero at ``density``, of value 1 or (with
+    ``spikes="0/1/2/255"``) 1, 2 or 255; codes signed 9-bit, over all of
+    int16, or (``"int16 extremes"``) with every column holding -32768 and
+    32767.  Returns them with the density as the op computes it."""
+    on = rng.random((B, K)) < density
+    if spikes == "0/1":
+        s = on.astype(np.uint8)
+    else:
+        s = np.where(on, rng.choice(np.array([1, 2, 255], np.uint8), (B, K)),
+                     0).astype(np.uint8)
+    lo, hi = (-256, 256) if codes == "9-bit" else (-(1 << 15), 1 << 15)
+    w = rng.integers(lo, hi, (K, N)).astype(np.int16)
+    if codes == "int16 extremes":
+        w[0::3], w[1::3] = -(1 << 15), (1 << 15) - 1
+    count = np.float32(int(np.count_nonzero(s)))
     density_f32 = count * (np.float32(1) / np.float32(B * K))
-    return s.to(dev), w.to(dev), density_f32
+    return (torch.from_numpy(s).to(dev), torch.from_numpy(w).to(dev),
+            density_f32)
+
+
+# (B, K, N, spike density, codes, spike bytes).  1,021, 1,000 and 24 lanes
+# are not multiples of the kernel's 128-lane tile; 784 pads to 896 and
+# N = 10 to 128; with bytes of 2 and 255 the realisations differ (dot
+# multiplies by the byte, masked counts 1), and sums past int32 wrap.
+K6_CASES = [
+    (1024, 2048, 2048, 0.058, "9-bit", "0/1"),
+    (1024, 2048, 2048, 0.104, "9-bit", "0/1"),
+    (CHECK_BATCH, 784, 10, 0.2, "9-bit", "0/1"),
+    (1024, 2048, 2048, 0.058, "int16 extremes", "0/1"),
+    (1024, 2048, 512, 0.2, "int16", "0/1/2/255"),
+    (1000, 2048, 512, 0.058, "int16 extremes", "0/1/2/255"),
+    (24, 784, 10, 0.2, "int16", "0/1"),
+    (CHECK_BATCH, 4096, 512, 0.058, "int16 extremes", "0/1/2/255"),
+    (1024, 2048, 2048, 0.0, "int16", "0/1"),
+    (1024, 2048, 2048, 0.001, "int16", "0/1"),
+    (1024, 2048, 2048, 1.0, "int16 extremes", "0/1"),
+    (24, 4096, 128, 1.0, "int16", "0/1/2/255"),
+]
 
 
 def phase_k6_vs_plain(dev) -> tuple[int, int]:
     """K6 through ``spike_matmul_op`` in every mode against the plain
     version on the same padded operands; the telemetry against the
-    density computed on the host."""
+    density computed on the host; on 0/1 spikes the realisations against
+    each other."""
     rng = np.random.default_rng(SEED + 17)
+    t0 = time.perf_counter()
     n_cases, err = 0, 0
     bB, bK, bN = spike_matmul.BLOCK
-    for B, K, N, dens in ((1024, 2048, 2048, 0.058),
-                          (1024, 2048, 2048, 0.104), (1021, 784, 10, 0.2)):
-        s, w, d = _k6_case(rng, B, K, N, dens, dev)
-        want_out = None
+    for B, K, N, dens, codes, spikes in K6_CASES:
+        s, w, d = _k6_case(rng, B, K, N, dens, dev, codes, spikes)
+        above = float(d) * 2 if d > 0 else 0.5     # auto runs masked
+        outs = {}
         for mode, thr in (("masked", None), ("dot", None),
-                          ("auto", float(d) * 2), ("auto", float(d) / 2)):
+                          ("auto", above), ("auto", float(d) / 2)):
             out, tel = ops.spike_matmul_op(s, w, mode=mode,
                                            density_threshold=thr,
                                            with_telemetry=True)
@@ -618,17 +656,23 @@ def phase_k6_vs_plain(dev) -> tuple[int, int]:
             if e or bool(tel.used_masked) != masked or \
                     float(tel.density) != float(d):
                 raise AssertionError(
-                    f"K6 {mode} (threshold {thr}) at ({B}, {K}->{N}): max "
+                    f"K6 {mode} (threshold {thr}) at ({B}, {K}->{N}) "
+                    f"density {dens} codes {codes} spikes {spikes}: max "
                     f"|err| {e}, telemetry ({float(tel.density)}, "
                     f"{bool(tel.used_masked)}) vs ({float(d)}, {masked})")
-            if want_out is not None and _max_abs_err(out, want_out):
-                raise AssertionError("K6's realisations differ")
-            want_out = out
+            if masked in outs and _max_abs_err(out, outs[masked]):
+                raise AssertionError("K6's auto differs from its forced "
+                                     "realisation")
+            outs[masked] = out
             err = max(err, e)
             n_cases += 1
-        log(f"[K6-vs-plain] ({B}, {K}->{N}) density {float(d):.4f}: masked, "
-            f"dot, auto above and below the threshold equal to the plain "
-            f"version, to each other and in telemetry")
+        if spikes == "0/1" and _max_abs_err(outs[True], outs[False]):
+            raise AssertionError("K6's realisations differ on 0/1 spikes")
+        log(f"[K6-vs-plain] ({B}, {K}->{N}) density {float(d):.4f} codes "
+            f"{codes} spikes {spikes}: masked, dot, auto above and below "
+            f"the threshold equal to the plain version and in telemetry")
+    log(f"[K6-vs-plain] {n_cases} checks on {len(K6_CASES)} cases equal; "
+        f"{time.perf_counter() - t0:.2f} s")
     return n_cases, err
 
 

@@ -49,12 +49,19 @@ class SNNConfig:
     layer_sizes: tuple[int, ...] = (784, 10)   # paper: single FC 784→10
     num_steps: int = 20                        # simulation window
     lif: lif.LIFConfig = field(default_factory=lif.LIFConfig)
+    weight_bits: int = 8                       # paper: 8-bit codes (+ sign)
     readout: str = "count"                     # count|first_spike|membrane
     active_pruning: bool = False
     dot_impl: str = "int32"                    # reference Σ W·S precision
+    # reference backend, one layer: encode inside the LIF step, one loop
+    # over the window (the JAX package's fused scan)
+    fuse_encoder: bool = False
     backend: str = "auto"         # auto|fused|fused_streamed|staged|reference
     sparse_skip: bool | None = None            # tile-skip telemetry
     spike_density_threshold: float | None = None  # controller baseline
+    # False: the fused-encoder scan keeps no trace, so v_trace,
+    # active_adds, input_spikes, v_peak and telemetry come back None
+    emit_trace: bool = True
 
     @property
     def n_in(self) -> int:
@@ -203,7 +210,10 @@ def snn_apply_int(params_q: dict, pixels_u8: torch.Tensor,
     ``spike_counts``, ``v_trace``, ``v_final``, ``active_adds``,
     ``input_spikes`` (None on the fused backends: the spike train never
     exists there), ``first_spike_t``, ``prng_state``, ``v_peak`` (per-layer
-    tuple) and ``telemetry``.
+    tuple) and ``telemetry``.  The reference backend's fused-encoder scan
+    (``cfg.fuse_encoder`` on one layer) with ``cfg.emit_trace`` off keeps
+    no trace: ``v_trace``, ``active_adds``, ``input_spikes``, ``v_peak``
+    and ``telemetry`` are then None.
     """
     b = resolve_backend(cfg, backend, len(params_q["layers"]),
                         layer_sizes=_param_sizes(params_q),
@@ -219,7 +229,8 @@ def snn_apply_int(params_q: dict, pixels_u8: torch.Tensor,
     vp = res["v_peak"]
     res["pred"] = readout_pred(res["spike_counts"], res["first_spike_t"],
                                res["v_final"], cfg.readout, cfg.num_steps,
-                               v_trace=res["v_trace"], v_peak=vp[-1])
+                               v_trace=res["v_trace"],
+                               v_peak=None if vp is None else vp[-1])
     return res
 
 
@@ -302,24 +313,36 @@ def _apply_int_staged(params_q, pixels_u8, prng_state, cfg: SNNConfig):
 
 
 def _apply_int_reference(params_q, pixels_u8, prng_state, cfg: SNNConfig):
-    """Per-layer torch scans over the materialised spike trains."""
-    spikes, prng_next = encoding.poisson_encode_hw(pixels_u8, prng_state,
-                                                   cfg.num_steps)
-    x = spikes
-    adds = 0
-    res = None
-    layer_ins, layer_outs, layer_vtr = [], [], []
-    for layer in params_q["layers"]:
-        layer_ins.append(x)
-        res = lif.run_lif_int(x, layer["w_q"], cfg.lif,
-                              active_pruning=cfg.active_pruning,
-                              dot_impl=cfg.dot_impl)
-        adds = adds + res["active_adds"]
-        x = res["spikes"]
-        layer_outs.append(x)
-        layer_vtr.append(res["v_trace"])
-    telemetry, v_peak = _derive_stack_telemetry(layer_ins, layer_outs,
-                                                layer_vtr, cfg)
+    """Per-layer torch scans over the materialised spike trains, or, for
+    one layer with ``cfg.fuse_encoder``, one scan that encodes inside the
+    LIF step (:func:`_fused_encode_lif`)."""
+    if cfg.fuse_encoder and len(params_q["layers"]) == 1:
+        res, prng_next = _fused_encode_lif(params_q["layers"][0]["w_q"],
+                                           pixels_u8, prng_state, cfg)
+        spikes, adds = res["input_spikes"], res["active_adds"]
+        layer_ins, layer_outs = [spikes], [res["spikes"]]
+        layer_vtr = [res["v_trace"]]
+    else:
+        spikes, prng_next = encoding.poisson_encode_hw(pixels_u8, prng_state,
+                                                       cfg.num_steps)
+        x = spikes
+        adds = 0
+        res = None
+        layer_ins, layer_outs, layer_vtr = [], [], []
+        for layer in params_q["layers"]:
+            layer_ins.append(x)
+            res = lif.run_lif_int(x, layer["w_q"], cfg.lif,
+                                  active_pruning=cfg.active_pruning,
+                                  dot_impl=cfg.dot_impl)
+            adds = adds + res["active_adds"]
+            x = res["spikes"]
+            layer_outs.append(x)
+            layer_vtr.append(res["v_trace"])
+    if layer_vtr[0] is not None:
+        telemetry, v_peak = _derive_stack_telemetry(layer_ins, layer_outs,
+                                                    layer_vtr, cfg)
+    else:                                  # emit_trace off: no trace kept
+        telemetry, v_peak = None, None
     out_spikes = res["spikes"]
     T = cfg.num_steps
     t_idx = torch.arange(T, dtype=torch.int32,
@@ -330,6 +353,37 @@ def _apply_int_reference(params_q, pixels_u8, prng_state, cfg: SNNConfig):
             "active_adds": adds, "input_spikes": spikes,
             "first_spike_t": first_t, "prng_state": prng_next,
             "v_peak": v_peak, "telemetry": telemetry}
+
+
+def _fused_encode_lif(w_q: torch.Tensor, pixels_u8: torch.Tensor,
+                      prng_state: torch.Tensor, cfg: SNNConfig):
+    """One loop over the window, each step the PRNG step, spike compare,
+    Σ W·S and LIF update of :func:`encode_lif_timestep`: the same integers
+    as the unfused scans.  With ``cfg.emit_trace`` off only the output
+    spikes are kept, and the trace, adds and input spikes are None.
+    Returns ``(res, prng_state)``, ``res`` shaped as ``lif.run_lif_int``'s
+    plus ``input_spikes``."""
+    state = lif.init_state_int(tuple(pixels_u8.shape[:-1])
+                               + (int(w_q.shape[-1]),), cfg.lif,
+                               device=pixels_u8.device)
+    rng = prng_state
+    fired_l, vtr, adds, s_all = [], [], [], []
+    for _ in range(cfg.num_steps):
+        n_en = state.enable.sum(-1, dtype=torch.int32)
+        rng, state, fired, s_t = encode_lif_timestep(
+            rng, pixels_u8, state, w_q, cfg.lif, dot_impl=cfg.dot_impl,
+            active_pruning=cfg.active_pruning)
+        fired_l.append(fired)
+        if cfg.emit_trace:
+            vtr.append(state.v)
+            adds.append(s_t.sum(-1, dtype=torch.int32) * n_en)
+            s_all.append(s_t)
+    res = {"spikes": torch.stack(fired_l), "state": state, "v_trace": None,
+           "active_adds": None, "input_spikes": None}
+    if cfg.emit_trace:
+        res.update(v_trace=torch.stack(vtr), active_adds=torch.stack(adds),
+                   input_spikes=torch.stack(s_all))
+    return res, rng
 
 
 def encode_lif_timestep(rng: torch.Tensor, pixels_u8: torch.Tensor,

@@ -81,6 +81,7 @@
 // compares the column count directly.
 #include <cooperative_groups.h>
 
+#include "mma_common.cuh"
 #include "snn_stack_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -93,40 +94,6 @@ namespace cg = cooperative_groups;
 #define PC_MAX_SPLIT 8  // K slices, the blocks of one cluster
 #define PC_LB (PC_BM / BLOCK_B)  // 8-lane blocks per block
 #define PC_LD (PC_BN + 4)        // ints per row of a received partial tile
-
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
-                                                 bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], unsigned a0, unsigned a1,
-                                       unsigned a2, unsigned a3, unsigned b0,
-                                       unsigned b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
 
 // A stage: the spike tile and both plane tiles of one K tile, rows of 128
 // bytes.  The 16-byte piece c of row r sits at piece c ^ (r % 8), so the

@@ -6,8 +6,8 @@
 // stability-gate readout with its first-index argmax.  The encoder
 // (poisson_encode.cu) and LIF (lif_step.cu) kernels take the xorshift32
 // step and the LIF update from here too, so every kernel runs one copy of
-// the datapath's arithmetic.  The spike-matmul kernel (spike_matmul.cu)
-// takes the event-driven row lists at the end.
+// the datapath's arithmetic.  The tensor-core kernels (partial_contraction.cu,
+// spike_matmul.cu) take its tile constants and raise_smem_cap.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -235,57 +235,4 @@ __device__ inline void gate_step(const int32_t* cnt, const int32_t* first,
   gstreak = has_spike ? streak_raw : 0;
   steps += 1;
   act = !done && steps < window;
-}
-
-// ---- event-driven row lists (spike_matmul.cu) --------------------------------
-// Run by a block of TILE threads for the 8-lane batch block starting at
-// row0 of x (row stride ld): thread t reads the spikes of input k =
-// k0 + t of the block's 8 lanes.  Lists, in order, the inputs on which any
-// lane spikes in rows[] and each one's lane mask (bit l = lane l) in
-// masks[]; returns how many (the same in every thread).  The caller
-// __syncthreads() before the next call rewrites the lists.
-__device__ __forceinline__ int block_spike_rows(const uint8_t* __restrict__ x,
-                                       size_t row0, int ld, int k0,
-                                       uint16_t* rows, uint8_t* masks,
-                                       int* warp_rows) {
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int k = k0 + t;
-  unsigned m = 0;
-#pragma unroll
-  for (int l = 0; l < BLOCK_B; ++l)
-    m |= (x[(row0 + l) * ld + k] != 0 ? 1u : 0u) << l;
-  const unsigned ball = __ballot_sync(FULL_MASK, m != 0);
-  if (lane == 0) warp_rows[warp] = __popc(ball);
-  __syncthreads();
-  int before = 0, n_rows = 0;
-#pragma unroll
-  for (int i = 0; i < TILE / 32; ++i) {
-    before += i < warp ? warp_rows[i] : 0;
-    n_rows += warp_rows[i];
-  }
-  if (m) {
-    const int at = before + __popc(ball & ((1u << lane) - 1u));
-    rows[at] = (uint16_t)k;
-    masks[at] = (uint8_t)m;
-  }
-  __syncthreads();
-  return n_rows;
-}
-
-// Adds weight row rows[i] of column `col` (row stride ld) to the
-// accumulator of every lane in masks[i], for the n_rows listed inputs:
-// a select and an add per lane, no multiplies; unsigned, so a sum wraps
-// in 32 bits as the reference's int32 accumulation does.
-__device__ __forceinline__ void add_spike_rows(const int16_t* __restrict__ w, int ld,
-                                      int col, const uint16_t* rows,
-                                      const uint8_t* masks, int n_rows,
-                                      unsigned (&acc)[BLOCK_B]) {
-  const int16_t* __restrict__ wcol = w + col;
-#pragma unroll 4
-  for (int i = 0; i < n_rows; ++i) {
-    const unsigned mm = masks[i];
-    const unsigned wv = (unsigned)(int)__ldg(wcol + (size_t)rows[i] * ld);
-#pragma unroll
-    for (int l = 0; l < BLOCK_B; ++l) acc[l] += (mm >> l) & 1u ? wv : 0u;
-  }
 }

@@ -47,6 +47,21 @@ def validate_weight_codes(weights) -> None:
                 f"use the staged or reference backend for wider codes")
 
 
+def _int16_codes(w_q: torch.Tensor, op: str) -> torch.Tensor:
+    """``w_q`` as int16 codes: int16 goes through as it is; any other
+    dtype is cast only when every code fits int16 and raises otherwise,
+    since the JAX op would compute such codes exactly where a cast wraps."""
+    if w_q.dtype == torch.int16:
+        return w_q
+    if w_q.numel() and (int(w_q.min()) < -(1 << 15)
+                        or int(w_q.max()) >= 1 << 15):
+        raise ValueError(
+            f"{op} takes int16 weight codes; codes span [{int(w_q.min())}, "
+            f"{int(w_q.max())}], outside [-32768, 32767], and a cast "
+            f"would wrap them")
+    return w_q.to(torch.int16)
+
+
 def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
     """Zero-pad ``axis`` up to a multiple of ``mult`` (uint32 via int32)."""
     pad = (-x.shape[axis]) % mult
@@ -87,14 +102,15 @@ def lif_forward_op(spikes_t: torch.Tensor, w_q: torch.Tensor, *,
 
     Pads batch to 8 and n_out to 128 (padded columns carry zero weights
     and are cut before anything reads them); n_in is not padded.  Any int16
-    code is exact here.
+    code is exact here; codes of a wider dtype outside int16 raise.
     """
     T, B, _ = spikes_t.shape
     n_out = w_q.shape[1]
     bB, bN = lif_step.BLOCK
     spk, vtr, vfin = lif_step.lif_forward(
         _pad_to(spikes_t.to(torch.uint8), 1, bB),
-        _pad_to(w_q.to(torch.int16), 1, bN), decay_shift=decay_shift,
+        _pad_to(_int16_codes(w_q, "lif_forward_op"), 1, bN),
+        decay_shift=decay_shift,
         v_threshold=v_threshold, v_rest=v_rest, v_min=v_min, v_max=v_max,
         active_pruning=active_pruning)
     return spk[:, :B, :n_out], vtr[:, :B, :n_out], vfin[:B, :n_out]
@@ -306,7 +322,8 @@ def spike_matmul_op(spikes: torch.Tensor, w_q: torch.Tensor, *,
     ``resolve_density_threshold``) is a float32 tensor, and the launched
     kernel reads the resulting flag, so nothing waits for the host.
     ``mode="masked"`` / ``"dot"`` force one realisation; all give the same
-    result.  ``with_telemetry=True`` also returns a ``MatmulTelemetry``
+    result.  Any int16 code is exact; codes of a wider dtype outside int16
+    raise.  ``with_telemetry=True`` also returns a ``MatmulTelemetry``
     (0-dim tensors: the density and which realisation ran).
     """
     if mode not in ("auto", "masked", "dot"):
@@ -316,7 +333,7 @@ def spike_matmul_op(spikes: torch.Tensor, w_q: torch.Tensor, *,
     N = w_q.shape[1]
     bB, bK, bN = spike_matmul.BLOCK
     s = _pad2(spikes.to(torch.uint8), bB, bK)
-    w = _pad2(w_q.to(torch.int16), bK, bN)
+    w = _pad2(_int16_codes(w_q, "spike_matmul_op"), bK, bN)
     # the reference's mean divides by the constant B·K, which XLA compiles
     # into a product with its float32 reciprocal: do the same, bit for bit
     one = torch.ones((), dtype=torch.float32, device=dev)

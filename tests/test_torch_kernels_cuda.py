@@ -344,25 +344,64 @@ def test_partial_contraction_kernel_on_placed_planes(card):
                                       wp, n_valid=n_out)
 
 
-@pytest.mark.parametrize("mode", ["masked", "dot", "auto"])
-@pytest.mark.parametrize("B,K,N,density", [(1024, 2048, 2048, 0.058),
-                                           (1021, 784, 10, 0.2)])
-def test_spike_matmul_kernel_equals_plain(card, B, K, N, density, mode):
-    rng = np.random.default_rng(K)
-    s = torch.from_numpy((rng.random((B, K)) < density).astype(np.uint8)) \
-        .to(card)
-    w = torch.from_numpy(rng.integers(-2000, 2001, (K, N)).astype(np.int16)) \
-        .to(card)
+def _k6_operands(rng, B, K, N, density, codes, spikes):
+    """Spikes non-zero at ``density``, of value 1 or (``"bytes"``) 1, 2
+    or 255; codes in ±2000, over all of int16, or (``"extremes"``) with
+    every column holding -32768 and 32767."""
+    on = rng.random((B, K)) < density
+    s = on.astype(np.uint8) if spikes == "01" else np.where(
+        on, rng.choice(np.array([1, 2, 255], np.uint8), (B, K)), 0)
+    lo, hi = (-2000, 2001) if codes == "wide" else (-(1 << 15), 1 << 15)
+    w = rng.integers(lo, hi, (K, N)).astype(np.int16)
+    if codes == "extremes":
+        w[0::3], w[1::3] = -(1 << 15), (1 << 15) - 1
+    return torch.from_numpy(s.astype(np.uint8)), torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("mode", ["masked", "dot", "auto_masked",
+                                  "auto_dot"])
+@pytest.mark.parametrize("B,K,N,density,codes,spikes", [
+    (1024, 2048, 2048, 0.058, "wide", "01"),
+    (1021, 784, 10, 0.2, "wide", "01"),
+    (1000, 2048, 512, 0.058, "extremes", "bytes"),
+    (24, 784, 10, 0.2, "int16", "bytes"),
+    (1024, 4096, 256, 0.058, "extremes", "01"),
+    (1024, 2048, 512, 0.0, "int16", "01"),
+    (1024, 2048, 512, 0.001, "int16", "bytes"),
+    (1024, 2048, 512, 1.0, "extremes", "bytes"),
+])
+def test_spike_matmul_kernel_equals_plain(card, B, K, N, density, codes,
+                                          spikes, mode):
+    """K6 on the int8 tensor cores equals the plain version bit for bit:
+    int16 extremes, spike bytes of 2 and 255 (dot multiplies by them,
+    masked counts 1), lanes that are not multiples of its 128-lane tile,
+    K = 4,096 and densities 0, 0.1% and 100%; ``auto`` on both sides of
+    the threshold, telemetry equal."""
+    rng = np.random.default_rng(K + B)
+    s, w = _k6_operands(rng, B, K, N, density, codes, spikes)
+    kw = dict(mode=mode[:4] if mode.startswith("auto") else mode,
+              density_threshold={"auto_masked": 1.5, "auto_dot": 0.0}.get(
+                  mode, 0.1), with_telemetry=True)
     before = spike_matmul.spike_matmul.launches
-    got, tel = ops.spike_matmul_op(s, w, mode=mode, density_threshold=0.1,
-                                   with_telemetry=True)
+    got, tel = ops.spike_matmul_op(s.to(card), w.to(card), **kw)
     torch.cuda.synchronize()
     assert spike_matmul.spike_matmul.launches == before + 1
-    want, want_tel = ops.spike_matmul_op(s.cpu(), w.cpu(), mode=mode,
-                                         density_threshold=0.1,
-                                         with_telemetry=True)
+    want, want_tel = ops.spike_matmul_op(s, w, **kw)
+    assert bool(want_tel.used_masked) == mode.endswith("masked")
     _assert_equal(got.cpu(), want, "K6")
     _assert_equal(tuple(t.cpu() for t in tel), tuple(want_tel), "K6 tel")
+
+
+def test_spike_matmul_kernel_refuses_misaligned_operands(card):
+    """The kernel copies 16-byte pieces; a view that starts off a 16-byte
+    boundary is refused before the launch, and nothing is counted."""
+    buf = torch.zeros(8 * 128 + 16, dtype=torch.uint8, device=card)
+    w = torch.zeros((128, 128), dtype=torch.int16, device=card)
+    flag = torch.tensor(True, device=card)
+    before = spike_matmul.spike_matmul.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        spike_matmul.spike_matmul(buf[8:8 + 8 * 128].view(8, 128), w, flag)
+    assert spike_matmul.spike_matmul.launches == before
 
 
 def test_model_sharded_engine_equals_single_on_card(card):

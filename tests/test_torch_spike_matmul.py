@@ -102,3 +102,58 @@ def test_spike_matmul_refuses_bad_operands():
                          torch.tensor(True))
     with pytest.raises(ValueError, match="mode"):
         tops.spike_matmul_op(s, w, mode="mxu")
+
+
+def _extreme_case(shape, seed):
+    """Every column holds -32768 and 32767, and the spike bytes are 0, 1,
+    2 and 255: dot multiplies by the byte, masked counts it as 1."""
+    rng = np.random.default_rng(seed)
+    B, K, N = shape
+    w = rng.integers(-(1 << 15), 1 << 15, (K, N)).astype(np.int16)
+    w[0::3], w[1::3] = -(1 << 15), (1 << 15) - 1
+    s = rng.choice(np.array([0, 1, 2, 255], np.uint8), (B, K),
+                   p=[0.6, 0.2, 0.1, 0.1])
+    return s, w
+
+
+@pytest.mark.parametrize("mode", ["masked", "dot", "auto"])
+@pytest.mark.parametrize("shape", [(13, 96, 70), (24, 256, 128)])
+def test_int16_extremes_and_spike_bytes_match_jax(shape, mode):
+    s, w = _extreme_case(shape, seed=shape[1] + len(mode))
+    (got, tel), (want, jtel) = _both(s, w, mode=mode, density_threshold=0.25,
+                                     with_telemetry=True)
+    masked = bool(jtel.used_masked)
+    assert bool(tel.used_masked) == masked == (mode == "masked")
+    x = (s != 0) if masked else s
+    exact = x.astype(np.int64) @ w.astype(np.int64)
+    assert np.abs(exact).max() < 2**31      # no int32 wrap on either side
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), exact)
+
+
+@pytest.mark.parametrize("bad", [1 << 15, -(1 << 15) - 1])
+@pytest.mark.parametrize("op", ["spike_matmul_op", "lif_forward_op"])
+def test_ops_refuse_codes_outside_int16(op, bad):
+    """A cast would wrap such codes where the JAX op computes them
+    exactly, so the port refuses them."""
+    s = torch.zeros((8, 128), dtype=torch.uint8)
+    w = torch.zeros((128, 16), dtype=torch.int32)
+    w[5, 3] = bad
+    with pytest.raises(ValueError, match="int16"):
+        if op == "spike_matmul_op":
+            tops.spike_matmul_op(s, w)
+        else:
+            tops.lif_forward_op(s[None], w, decay_shift=2, v_threshold=64)
+
+
+def test_codes_inside_int16_pass_unchanged():
+    s, w = _extreme_case((8, 128, 16), seed=5)
+    w16 = torch.from_numpy(w)
+    st = torch.from_numpy(s)
+    assert torch.equal(tops.spike_matmul_op(st, w16.to(torch.int32)),
+                       tops.spike_matmul_op(st, w16))
+    kw = dict(decay_shift=2, v_threshold=64)
+    for a, b in zip(tops.lif_forward_op((st != 0)[None], w16.to(torch.int64),
+                                        **kw),
+                    tops.lif_forward_op((st != 0)[None], w16, **kw)):
+        assert torch.equal(a, b)
