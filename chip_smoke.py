@@ -15,13 +15,19 @@ result line):
 3. kernels vs plain — every kernel against its plain PyTorch version on
    the same operands on the card, integer-equal on every output:
    K1, the resident encode→LIF stack kernel, and K2, the weight-streaming
-   one, in 16 cases each (counts, trace, first-spike latch, adds, PRNG
-   state, per-layer v / en / v_peak, steps, gate and the three telemetry
-   leaves; gated and ungated, one 20-step launch and 5 chunks of 4,
-   sparse_skip on and off; K1 on the paper config, the pruned first-spike
-   config, the deep stack and a membrane-readout variant, K2 on the wide
-   stack with two readouts, the deep stack and the membrane variant), and
-   K2 == K1 on the deep stack; K4, the encoder kernel, and K5, the LIF
+   one (Σ W·S on the int8 tensor cores over the weights' two planes, 64
+   lanes per thread-block cluster), in 16 cases each (counts, trace,
+   first-spike latch, adds, PRNG state, per-layer v / en / v_peak, steps,
+   gate and the three telemetry leaves; gated and ungated, one 20-step
+   launch and 5 chunks of 4, sparse_skip on and off; K1 on the paper
+   config, the pruned first-spike config, the deep stack and a
+   membrane-readout variant, K2 on the wide stack with two readouts, the
+   deep stack and the membrane variant); K2 on planes placed once in 16
+   more (``K2_CASES``, shared with the card tests: 1,021 and 24 lanes, one
+   to four layers, codes at -256 and 255 in every column, dead 128-column
+   enable tiles in every other 8-lane block, pruning on, stacks of 4,096
+   and 7,168 columns too wide for the kernel's v / v_peak stages, gated
+   and ungated), and K2 == K1 on the deep stack; K4, the encoder kernel, and K5, the LIF
    kernel, on the wide stack's shapes (K5 with pruning on and off and
    with int16 codes beyond the 9-bit range); the staged backend
    (K4 + one K5 per layer) equal to the reference backend on the wide
@@ -47,7 +53,9 @@ result line):
    784→2048→2048→10 stack through K2 (batch 1024, chunk 4, patience 2,
    seeded random weight codes).  Every launch of each main path is
    counted, the results must equal the reference backend's on the card id
-   for id, and the wide stack's hidden layers must spike at 1–50%.  Then
+   for id, and the wide stack's hidden layers must spike at 1–50%; the
+   wide serve runs once more under ``torch.profiler``, whose trace gives
+   K2's own device time over its launches and the grid it launched.  Then
    ``ShardedSNNStreamEngine`` serves the same 4,096 wide-stack requests on
    a 1×4 (data × model) mesh of the one card through K3 alone (no K1 or
    K2 launch), with results equal to the K2 run's id for id; it is served
@@ -61,11 +69,12 @@ result line):
 5. times — each kernel and its plain version at the main path's shapes,
    with the bound: the larger of the bytes the function must move
    (unpadded shapes, each input read once, each output written once) at
-   3.35 TB/s and its integer operations at the card's INT32 rate; for K3
-   and K6, whose function is a contraction of the two int8 weight planes,
-   the operations are the shorter of the executed adds at the INT32 rate
+   3.35 TB/s and its integer operations at the card's INT32 rate; for K2,
+   K3 and K6, whose contraction runs on two int8 weight planes, the
+   operations are the shorter of the executed adds at the INT32 rate
    and 2·B·K·N·2 int8 operations at the tensor cores' 1,979 T/s (the
-   add-only bound is kept beside it).  For K3 (each wide layer's shard
+   add-only bound is kept beside it).  K2 is timed on planes placed once,
+   as the engine places them.  For K3 (each wide layer's shard
    shape) and K6 (both realisations) also one ``torch.matmul`` in float32
    (TF32 off) on the same operands, exact here because |Σ| < 2^24.
 
@@ -175,7 +184,8 @@ def phase_build() -> None:
         how = "cached build" if info.cached else f"nvcc {info.seconds:.2f} s"
         log(f"[build] {name}: {how} -> {info.path.relative_to(ROOT)}")
         for line in info.log.splitlines():
-            if re.search(r"registers|spill|smem|stack frame|Compiling", line):
+            if re.search(r"registers|spill|smem|stack frame|Compiling|"
+                         r"Function properties", line):
                 log(f"[build]   {line.strip()}")
     for name in _build.SOURCES:
         _build.load_library(name)
@@ -254,10 +264,11 @@ def _run_window(cfg, px, st, ws, kw, gate, chunk, compare,
     holding each launch against the plain version when ``compare``.
     Returns (op-level results per launch, max abs error)."""
     init, results, err = None, [], 0
+    streamed = kernel is fused_snn.fused_snn_stack_streamed
     for _ in range(cfg.num_steps // chunk):
         args, meta = ops.stack_operands(px, st, ws, num_steps=cfg.num_steps,
                                         v_rest=cfg.lif.v_rest, init=init,
-                                        gate=gate)
+                                        gate=gate, streamed=streamed)
         got = kernel(*args, chunk_steps=chunk, block_b=meta["block_b"], **kw)
         torch.cuda.synchronize()
         if compare:
@@ -358,6 +369,10 @@ def phase_streamed_vs_plain(dev) -> tuple[int, int]:
          functools.partial(_fan_in_weights, scale=350.0)),
         ("SNN_CONFIG_DEEP", "count", False, _weights),
         ("SNN_CONFIG", "membrane", False, _weights)])
+    for case in K2_CASES:
+        for gated in (True, False):
+            k2_edge_case(dev, case, gated, SEED + 29 + n_cases)
+            n_cases += 1
     # where both stack kernels run, K2 == K1 output for output
     rng = np.random.default_rng(SEED + 7)
     cfg = cfgs.SNN_CONFIG_DEEP
@@ -365,13 +380,15 @@ def phase_streamed_vs_plain(dev) -> tuple[int, int]:
     px = torch.from_numpy(_images(rng, CHECK_BATCH)).to(dev)
     st = seed_state(SEED + 7, (CHECK_BATCH, cfg.n_in), device=dev)
     for gated in (False, True):
-        args, meta = ops.stack_operands(
-            px, st, ws, num_steps=cfg.num_steps,
-            gate=_gate(CHECK_BATCH, dev) if gated else None)
+        gate = _gate(CHECK_BATCH, dev) if gated else None
+        args, meta = ops.stack_operands(px, st, ws, num_steps=cfg.num_steps,
+                                        gate=gate)
+        planes, _ = ops.stack_operands(px, st, ws, num_steps=cfg.num_steps,
+                                       gate=gate, streamed=True)
         kw = dict(_lif_kw(cfg, cfg.readout, True), chunk_steps=cfg.num_steps,
                   block_b=meta["block_b"])
         k1 = fused_snn.fused_snn_stack(*args, **kw)
-        k2 = fused_snn.fused_snn_stack_streamed(*args, **kw)
+        k2 = fused_snn.fused_snn_stack_streamed(*planes, **kw)
         torch.cuda.synchronize()
         e = _max_abs_err(k2, k1)
         if e:
@@ -379,6 +396,97 @@ def phase_streamed_vs_plain(dev) -> tuple[int, int]:
     log("[K2-vs-K1] SNN_CONFIG_DEEP gated and ungated, T=20: every output "
         "equal")
     return n_cases, err
+
+
+# (lanes, widths, codes, enables, pruning) for K2 on placed planes:
+# 1,021 and 24 lanes are not multiples of its 64-lane cluster; "extremes"
+# puts -256 and 255 in every column, "dead" kills whole 128-column enable
+# tiles in every other 8-lane block; one to four layers; the last two
+# stacks are too wide for the kernel's v / v_peak stages, so its epilogue
+# reads them from device memory.  tests/test_torch_kernels_cuda.py runs
+# the same cases.
+K2_CASES = [
+    (CHECK_BATCH, (784, 2048, 2048, 10), "extremes", "dead", False),
+    (24, (784, 2048, 2048, 10), "fan-in", "dead", True),
+    (CHECK_BATCH, (784, 10), "random", "all", False),
+    (24, (784, 128, 10), "extremes", "dead", True),
+    (CHECK_BATCH, (784, 128, 64, 10), "fan-in", "dead", False),
+    (200, (784, 512, 256, 128, 10), "fan-in", "all", True),
+    (200, (784, 4096, 4096, 10), "fan-in", "dead", False),
+    (24, (784, 7168, 10), "extremes", "all", True),
+]
+
+
+def k2_edge_case(dev, case, gated, seed) -> int:
+    """K2 on planes placed once against the plain version on the codes in
+    one ``K2_CASES`` case: two 4-step chunks of an 8-step window from a
+    carried state with the case's enables, every output equal and one
+    launch per chunk.  Returns the output spikes over both chunks."""
+    b, sizes, kind, enables, prune = case
+    rng = np.random.default_rng(seed)
+    ws = []
+    for i, o in zip(sizes[:-1], sizes[1:]):
+        w = (np.round(rng.normal(0, 350 / np.sqrt(i), (i, o)))
+             if kind == "fan-in" else rng.integers(-256, 256, (i, o)))
+        w = np.clip(w, -256, 255).astype(np.int16)
+        if kind == "extremes":
+            w[0::3], w[1::3] = -256, 255
+        ws.append(torch.from_numpy(w).to(dev))
+    codes = ops.stack_weights(ws, sizes[0])[0]
+    planes = ops.stack_weights(ws, sizes[0], streamed=True)[0]
+    px = torch.from_numpy(_images(rng, b, sizes[0])).to(dev)
+    st = seed_state(seed, (b, sizes[0]), device=dev)
+    en = np.ones((b, sum(sizes[1:])), bool)
+    if enables == "dead":
+        for r in range(0, b, 16):
+            for c in range(0, en.shape[1], 256):
+                en[r:r + 8, c:c + 128] = False
+    en = torch.from_numpy(en).to(dev).split(list(sizes[1:]), dim=1)
+    T = 8
+    init = {"v": tuple(torch.zeros((b, n), dtype=torch.int32, device=dev)
+                       for n in sizes[1:]),
+            "en": tuple(e.contiguous() for e in en), "v_peak": None,
+            "counts": torch.zeros((b, sizes[-1]), dtype=torch.int32,
+                                  device=dev),
+            "first": torch.full((b, sizes[-1]), T, dtype=torch.int32,
+                                device=dev),
+            "steps": torch.zeros(b, dtype=torch.int32, device=dev)}
+    gate = _gate(b, dev) if gated else None
+    kw = dict(window_steps=T, decay_shift=4, v_threshold=128,
+              active_pruning=prune, patience=SERVE_PATIENCE,
+              readout="count", sparse_skip=True, chunk_steps=4)
+    out_spikes = 0
+    for _ in range(T // 4):
+        args, meta = ops.stack_operands(px, st, ws, num_steps=T, init=init,
+                                        gate=gate)
+        args[2] = planes
+        before = fused_snn.fused_snn_stack_streamed.launches
+        got = fused_snn.fused_snn_stack_streamed(
+            *args, block_b=meta["block_b"], **kw)
+        torch.cuda.synchronize()
+        if fused_snn.fused_snn_stack_streamed.launches != before + 1:
+            raise AssertionError("K2 did not count one launch per chunk")
+        want = fused_snn.fused_snn_stack_plain(
+            *args[:2], codes, *args[3:], block_b=meta["block_b"], **kw)
+        e = _max_abs_err(got, want)
+        if e:
+            raise AssertionError(
+                f"K2 != plain on B={b} {sizes} codes {kind} enables "
+                f"{enables} prune={prune} gated={gated} (max |err| {e})")
+        res = ops.stack_results(got, meta)
+        out_spikes += int(res["spike_counts"].sum())
+        st = res["prng_state"]
+        init = {"v": res["v"], "en": res["en"], "v_peak": res["v_peak"],
+                "counts": res["spike_counts"], "first": res["first_spike_t"],
+                "steps": res["steps"]}
+        gate = res.get("gate")
+    if out_spikes == 0:
+        raise AssertionError(f"K2 case B={b} {sizes}: no output spikes")
+    log(f"[K2-vs-plain] planes B={b} {'->'.join(map(str, sizes))} "
+        f"codes {kind:8s} enables {enables:4s} prune={prune!s:5s} "
+        f"gated={gated!s:5s} T={T} 2x4: equal (output spikes summed over "
+        f"chunks {out_spikes})")
+    return out_spikes
 
 
 def phase_staged(dev, wide_params) -> dict:
@@ -755,10 +863,34 @@ def _densities(tels, sizes) -> list[float]:
             for l, k in enumerate(sizes[:-1])]
 
 
+def _kernel_trace(run, name) -> tuple[dict, dict]:
+    """``run()`` under ``torch.profiler``: its result, and the trace's kernel
+    events whose name holds ``name`` as the trace's own JSON (Chrome
+    format, written under ``build/`` and removed) records them: how many,
+    their summed device time in ms and their grid sizes."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    path = ROOT / "build" / f"trace-{name}.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "kernel" and name in e.get("name", "")]
+    path.unlink()
+    return out, {"launches": len(events),
+                 "ms": sum(float(e["dur"]) for e in events) / 1e3,
+                 "grids": sorted({tuple(e.get("args", {}).get("grid", []))
+                                  for e in events})}
+
+
 def phase_serve(imgs, params, cfg, tag, backend) -> dict:
     """Serve ``imgs`` with ``backend=None`` (it must resolve to
     ``backend``, the main path of kernel ``tag``), then again on the
-    reference backend; the results must be equal id for id."""
+    reference backend; the results must be equal id for id.  For K2 the
+    same serve runs once more under ``torch.profiler`` for K2's own device
+    time over its launches and the clusters it launched."""
     name = "SNN_CONFIG_WIDE" if cfg is cfgs.SNN_CONFIG_WIDE else "SNN_CONFIG"
     eng = _engine(params, cfg, None)
     if eng.backend != backend:
@@ -821,8 +953,26 @@ def phase_serve(imgs, params, cfg, tag, backend) -> dict:
         raise AssertionError("the output layer never spiked")
     log(f"[serve] {name} reference backend on the card: {ref_wall:.3f} s = "
         f"{len(want) / ref_wall:.1f} requests/s; results equal id for id")
-    return {"launches": launched[tag], "chunks": eng.dispatches,
-            "requests_per_s": len(results) / wall, "results": results}
+    out = {"launches": launched[tag], "chunks": eng.dispatches,
+           "requests_per_s": len(results) / wall, "results": results}
+    if tag != "K2":
+        return out
+    again = _engine(params, cfg, None)
+    for im in imgs:
+        again.submit(im)
+    got, k2 = _kernel_trace(again.run, "fused_snn_streamed_kernel")
+    _same_results(got, results, f"{name} profiled serve")
+    clusters = -(-SERVE_BATCH // fused_snn.STREAM_LANES)
+    log(f"[serve] {name} profiled once more (torch.profiler trace): "
+        f"{k2['launches']} K2 kernel events taking {k2['ms']:.3f} ms of "
+        f"device time, grids {k2['grids']} (CTAs; {clusters} clusters of 64 "
+        f"lanes at B={SERVE_BATCH}); results equal")
+    if k2["launches"] != again.dispatches:
+        raise AssertionError(f"the trace holds {k2['launches']} K2 launches "
+                             f"of {again.dispatches}")
+    out["serve_device_ms"] = k2["ms"]
+    out["grids"] = k2["grids"]
+    return out
 
 
 def _same_results(got, want, what) -> None:
@@ -1043,8 +1193,12 @@ def _bound(tag, fn_bytes, n_ops, ms, plain_ms, what,
     return out
 
 
-def _time_stack(tag, cfg, imgs, params, dev, kernel, n, m) -> dict:
-    """A stack kernel at its serving shape: B lanes, one gated chunk."""
+def _time_stack(tag, cfg, imgs, params, dev, kernel, n, m,
+                planes=False) -> dict:
+    """A stack kernel at its serving shape: B lanes, one gated chunk; with
+    ``planes`` the weights are packed once, as the engine places them for
+    the streamed kernel, and the bound counts its two-plane product at the
+    int8 tensor-core rate beside the adds."""
     px = torch.from_numpy(imgs[:SERVE_BATCH]).to(dev)
     st = seed_state(SEED, (SERVE_BATCH, cfg.n_in), device=dev)
     ws = tuple(torch.from_numpy(l["w_q"]).to(dev) for l in params["layers"])
@@ -1053,7 +1207,7 @@ def _time_stack(tag, cfg, imgs, params, dev, kernel, n, m) -> dict:
                                device=dev),
             "streak": torch.zeros(SERVE_BATCH, dtype=torch.int32, device=dev)}
     args, meta = ops.stack_operands(px, st, ws, num_steps=cfg.num_steps,
-                                    gate=gate)
+                                    gate=gate, streamed=planes)
     kw = dict(_lif_kw(cfg, cfg.readout, True), chunk_steps=SERVE_CHUNK,
               block_b=meta["block_b"])
     out = kernel(*args, **kw)
@@ -1080,9 +1234,14 @@ def _time_stack(tag, cfg, imgs, params, dev, kernel, n, m) -> dict:
     log(f"[times] {tag} {call_ms * 1e3:.2f} us per wrapper call on the host "
         f"clock; the launch's padded operands are "
         f"{_bytes_of(args) + _bytes_of(out)} B")
+    sizes = cfg.layer_sizes
+    tc_ops = None
+    if planes:
+        tc_ops = (2 * SERVE_BATCH * 2 * SERVE_CHUNK
+                  * sum(i * o for i, o in zip(sizes[:-1], sizes[1:])))
     res = _bound(tag, fn_bytes, n_ops, ms, plain_ms,
                  f"B={SERVE_BATCH} chunk={SERVE_CHUNK} gated "
-                 f"{'->'.join(str(k) for k in cfg.layer_sizes)}")
+                 f"{'->'.join(str(k) for k in sizes)}", tc_ops=tc_ops)
     return dict(res, call_ms=call_ms)
 
 
@@ -1091,7 +1250,8 @@ def phase_times(imgs, params, wide_params, dev) -> dict:
         "K1": _time_stack("K1", cfgs.SNN_CONFIG, imgs, params, dev,
                           fused_snn.fused_snn_stack, 200, 10),
         "K2": _time_stack("K2", cfgs.SNN_CONFIG_WIDE, imgs, wide_params, dev,
-                          fused_snn.fused_snn_stack_streamed, 20, 3)}
+                          fused_snn.fused_snn_stack_streamed, 50, 3,
+                          planes=True)}
     # K4 at (T, 1024, 784): the operands its op hands it, padded to 896
     B, T = SERVE_BATCH, T_STAGED
     pxp = torch.zeros((B, 896), dtype=torch.uint8, device=dev)
@@ -1260,6 +1420,9 @@ def main() -> int:
                      "chunks": serve[tag]["chunks"]}
         else:
             extra = dict(staged[tag])
+        if tag == "K2":
+            extra["serve_device_ms"] = serve["K2"]["serve_device_ms"]
+            extra["grids"] = serve["K2"]["grids"]
         if tag == "K3":
             extra["device_busy_ms"] = serve["K3"]["device_busy_ms"]
             extra["profiled_wall_ms"] = serve["K3"]["profiled_wall_ms"]

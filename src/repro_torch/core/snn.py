@@ -88,12 +88,13 @@ def fused_unsupported_reason(cfg: SNNConfig, n_layers: int,
     pixels, PRNG state, per-layer membranes/enables/peaks, readout
     registers and two spike lists in dynamic shared memory
     (``kernels.fused_snn.stack_smem_bytes``); the weight-streaming kernel
-    (``streamed``) keeps only the per-lane inputs, spike bitmaps and its
-    ring of weight slabs there (``stack_streamed_smem_bytes``).  One thread
-    block may claim up to ``SMEM_LIMIT_BYTES`` (232,448 B on sm_90).  Both
-    kernels' parameter blocks hold ``MAX_LAYERS`` layers, and their spike
-    indices are uint16.  On a ``model_shards``-way model axis every layer
-    that divides (``kernels.fused_snn.layer_shard_ways``) holds only its
+    (``streamed``) keeps only its 64 lanes' spike bitmaps and small
+    counters there (``stack_streamed_smem_bytes``), whatever the batch.
+    One thread block may claim up to ``SMEM_LIMIT_BYTES`` (232,448 B on
+    sm_90).  Both kernels' parameter blocks hold ``MAX_LAYERS`` layers of
+    at most 65,535 neurons (the resident kernel's uint16 spike indices).
+    On a ``model_shards``-way model axis every layer that divides
+    (``kernels.fused_snn.layer_shard_ways``) holds only its
     output-column shard per peer, so the check runs on the per-shard
     widths, as the reference judges VMEM per shard.
     """
@@ -115,9 +116,9 @@ def fused_unsupported_reason(cfg: SNNConfig, n_layers: int,
     padded = [int(n) + (-int(n)) % lane for n in sizes]
     if max(padded) > 65535:
         return f"layer widths {tuple(sizes)} exceed the uint16 spike indices"
-    smem = (fused_snn.stack_streamed_smem_bytes if streamed
-            else fused_snn.stack_smem_bytes)
-    need = smem(padded, fused_snn.block_b_for(local_batch))
+    need = (fused_snn.stack_streamed_smem_bytes(padded) if streamed else
+            fused_snn.stack_smem_bytes(padded,
+                                       fused_snn.block_b_for(local_batch)))
     if need > fused_snn.SMEM_LIMIT_BYTES:
         kind = "streamed working set" if streamed else \
             "shared-memory carve-up"

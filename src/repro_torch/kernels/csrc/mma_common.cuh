@@ -1,5 +1,6 @@
 // PTX wrappers shared by the kernels that run on the int8 tensor cores: the
-// partial contraction (partial_contraction.cu) and the spike matmul
+// weight-streaming stack kernel (fused_snn_streamed.cu), the partial
+// contraction (partial_contraction.cu) and the spike matmul
 // (spike_matmul.cu).  cp.async copies of 16-byte pieces into shared memory,
 // ldmatrix fragment loads, and mma.sync m16n8k32 with s32 accumulators in
 // the three operand signednesses the kernels use.  None of the MMAs

@@ -1,13 +1,15 @@
 // Pieces shared by the two encode->LIF stack kernels: the resident one
 // (fused_snn_stack.cu) and the weight-streaming one (fused_snn_streamed.cu).
-// Both compute the same function on the same operands, so they share the
-// parameter block, its unpacking from the C interface, and the per-lane
-// arithmetic: the xorshift32 step, the integer LIF update, and the
-// stability-gate readout with its first-index argmax.  The encoder
+// Both compute the same function on the same operands (the weights as
+// int16 codes for the first, as their two int8 planes for the second), so
+// they share the parameter block, its unpacking from the C interface, and
+// the per-lane arithmetic: the xorshift32 step, the integer LIF update, and
+// the stability-gate readout with its first-index argmax.  The encoder
 // (poisson_encode.cu) and LIF (lif_step.cu) kernels take the xorshift32
 // step and the LIF update from here too, so every kernel runs one copy of
-// the datapath's arithmetic.  The tensor-core kernels (partial_contraction.cu,
-// spike_matmul.cu) take its tile constants and raise_smem_cap.
+// the datapath's arithmetic.  The other tensor-core kernels
+// (partial_contraction.cu, spike_matmul.cu) take its tile constants and
+// raise_smem_cap.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,7 +44,7 @@ struct StackParams {
   int32_t* tspk;   // (chunk, L, B)
   int32_t* ten;    // (chunk, L, B)
   int32_t* ttile;  // (chunk, L, n_blocks)
-  const int16_t* w[MAX_LAYERS];
+  const int16_t* w[MAX_LAYERS];   // codes; fused_snn_streamed: int8 planes
   const int32_t* v_in[MAX_LAYERS];
   const uint8_t* en_in[MAX_LAYERS];
   const int32_t* vp_in[MAX_LAYERS];

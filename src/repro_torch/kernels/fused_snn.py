@@ -15,15 +15,18 @@ Two kernels compute that function on the same operands:
 ``csrc/fused_snn_stack.cu`` (per-lane state in shared memory, sized by
 :func:`stack_smem_bytes`), :func:`fused_snn_stack_streamed` the
 weight-streaming kernel of ``csrc/fused_snn_streamed.cu`` (per-lane state
-in global memory, weights streamed through shared-memory slabs, sized by
-:func:`stack_streamed_smem_bytes`), for stacks the first cannot hold.
+in global memory, Σ W·S on the int8 tensor cores over the weights' two
+planes read from device memory, 64 lanes per thread-block cluster, sized
+by :func:`stack_streamed_smem_bytes`), for stacks the first cannot hold.
 Each counts its launches in its ``launches`` attribute.  For CPU tensors
 both run :func:`fused_snn_stack_plain`; there is no fallback from a
 kernel to the plain version.
 
 All arrays arrive padded, as ``kernels.ops.fused_snn_stack_op`` pads them:
 batch to the ``block_b`` block, every neuron axis to ``LANE``.  Weights are
-the int16 codes, (n_l_pad, n_{l+1}_pad).
+the int16 codes, (n_l_pad, n_{l+1}_pad), for the resident kernel, their
+int8 planes (2, n_{l+1}_pad, n_l_pad) of :func:`pack_weights` for the
+streamed one, and either for the plain version.
 
 The model-axis datapath's building block lives here too:
 :func:`partial_contraction` (port of ``partial_contraction_pallas``) is one
@@ -45,7 +48,7 @@ from ._build import check_operand, launch
 from .lif_step import _wrap32
 
 __all__ = ["LANE", "BLOCK_B", "MAX_LAYERS", "SMEM_LIMIT_BYTES",
-           "SLAB_ROWS", "STAGES", "READOUTS", "block_b_for",
+           "STREAM_LANES", "READOUTS", "block_b_for", "is_planes",
            "stack_smem_bytes", "stack_streamed_smem_bytes", "fused_snn_stack",
            "fused_snn_stack_streamed", "fused_snn_stack_plain",
            "layer_shard_ways", "pack_weights", "unpack_weights",
@@ -55,8 +58,7 @@ LANE = 128              # every neuron axis pads to this (telemetry tile width)
 BLOCK_B = 8             # lanes per batch block: one warp per lane, and the
                         # only block the kernels are built for (256 threads)
 MAX_LAYERS = 8          # layer pointers the kernels' parameter block holds
-SLAB_ROWS = 64          # weight rows per streamed slab (one 128-column tile)
-STAGES = 3              # slabs in the streamed kernel's shared-memory ring
+STREAM_LANES = 64       # lanes one cluster of the streamed kernel owns
 # Dynamic shared memory one thread block may ask for on Hopper (sm_90).
 SMEM_LIMIT_BYTES = 232_448
 READOUTS = ("count", "first_spike", "membrane")
@@ -103,26 +105,47 @@ def stack_smem_bytes(padded_sizes, block_b: int = BLOCK_B) -> int:
     return block_b * per_lane + 4 * flags
 
 
-def stack_streamed_smem_bytes(padded_sizes, block_b: int = BLOCK_B) -> int:
-    """Dynamic shared memory the weight-streaming kernel asks for, per block.
+def _stream_passes(n: int) -> int:
+    """The most 256-column passes one CTA of the streamed kernel makes over
+    a hidden layer of ``n`` columns: in its smallest cluster, of 6 CTAs,
+    each takes the width over 6 rounded up to 32 (rank 0 sits out only
+    when that adds no pass)."""
+    per = -(-n // 6)
+    return -(-(-(-per // 32) * 32) // 256)
 
-    Membranes, enables, peaks and counters live in global memory, so only
-    the ring of ``STAGES`` weight slabs (``SLAB_ROWS`` × 128 int16) and the
-    per-lane inputs count: per lane, pixels (1 B) and PRNG state (4 B) per
-    input, two spike bitmaps and a uint16 list of union positions as wide
-    as the widest layer; per block, the union list of spiking inputs, the
-    live-tile list, two counters and the same tile flags as
-    :func:`stack_smem_bytes`.  The kernel carves the same layout and
-    refuses a launch whose carve-up exceeds what it was given.
+
+def stack_streamed_smem_bytes(padded_sizes) -> int:
+    """Dynamic shared memory the weight-streaming kernel asks for, per CTA.
+
+    Membranes, peaks, counters and PRNG state live in global memory and
+    the weight planes go straight from device memory to registers.
+    Shared memory holds: a ring of two blocks of 4 K chunks of A fragments
+    (32 KB); the enables of the CTA's neurons, one bit each, a word per
+    thread and 256-column pass (:func:`_stream_passes`, one pass per 256
+    columns of the last layer); the ``STREAM_LANES`` lanes' input spikes
+    as two bitmaps (ping-pong) as wide as the widest layer, each row
+    padded to a stride of 2 mod 32 words; small counters: per layer each
+    lane's input spikes and enabled neurons and each 8-lane block's K-tile
+    count and N-tile bits (one bit per 128-wide tile, twice: rank 0's sums
+    and the CTA's own), per lane its enabled count, active flag, steps and
+    gate state; and, when the whole still fits ``SMEM_LIMIT_BYTES``, each
+    of the 16 warps' stage of the membranes and peaks of its 64 lanes × 16
+    columns (8 KB a warp), without which the kernel reads them from device
+    memory.  The kernel carves the same layout from the bytes it is given
+    and refuses a launch given less than the layout without stages.
     """
     k0, outs = int(padded_sizes[0]), [int(n) for n in padded_sizes[1:]]
-    widest = max([k0] + outs)
-    slabs = STAGES * SLAB_ROWS * LANE * 2
-    per_lane = k0 * 5 + 2 * (widest // 32) * 4 + widest * 2
-    ins = [k0] + outs[:-1]
-    flags = sum(k // LANE for k in ins) + sum(n // LANE for n in outs)
-    return (slabs + block_b * per_lane + 4 * flags + 4 * (widest // LANE)
-            + 16 + widest * 2)
+    words = max([k0] + outs) // 32
+    stride = words + (34 - words % 32) % 32
+    blocks = STREAM_LANES // BLOCK_B
+    te = sum(blocks * -(-(n // LANE) // 32) for n in outs)
+    en = 512 * (sum(_stream_passes(n) for n in outs[:-1])
+                + -(-outs[-1] // 256))
+    rest = 4 * (2 * 4 * 256 * 4 + en + 2 * STREAM_LANES * stride
+                + len(outs) * (2 * STREAM_LANES + blocks) + 2 * te
+                + 5 * STREAM_LANES)
+    staged = rest + 4 * 16 * 2 * STREAM_LANES * 16
+    return staged if staged <= SMEM_LIMIT_BYTES else rest
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +162,12 @@ def _block_tile_skips(x, en, block_b: int, sparse_skip: bool):
     any_e = en.reshape(nb, block_b, -1, LANE).any(dim=3).any(dim=1)
     live = any_x[:, :, None] & any_e[:, None, :]
     return (~live).sum(dim=(1, 2), dtype=torch.int32)
+
+
+def is_planes(w: torch.Tensor) -> bool:
+    """Whether a layer's weights are :func:`pack_weights` planes (2, n_out,
+    n_in) int8 rather than (n_in, n_out) codes."""
+    return w.dtype == torch.int8 and w.ndim == 3
 
 
 def _first_argmax(x: torch.Tensor) -> torch.Tensor:
@@ -160,12 +189,14 @@ def fused_snn_stack_plain(pixels_u8, state_u32, weights, v_init, en_init,
     Returns ``(counts, v_trace (chunk, B, n_out), first, adds (chunk, B),
     state', v tuple, en tuple (uint8), v_peak tuple, (n_spk, n_en, tiles),
     steps' (B, 1)`` and, when ``gate_init`` is given, ``(active, prev,
-    streak)`` each (B, 1) int32).  Σ W·S runs as a float64 product: exact,
-    since |Σ| ≤ n_in·256 ≪ 2^53.
+    streak)`` each (B, 1) int32).  ``weights`` are codes or planes
+    (:func:`is_planes`).  Σ W·S runs as a float64 product: exact, since
+    |Σ| ≤ n_in·256 ≪ 2^53.
     """
     L = len(weights)
     gated = gate_init is not None
-    ws = [w.to(torch.float64) for w in weights]
+    ws = [(unpack_weights(w) if is_planes(w) else w).to(torch.float64)
+          for w in weights]
     px = pixels_u8
     s = to_carrier(state_u32)
     vs = list(v_init)
@@ -267,7 +298,7 @@ def fused_snn_stack_plain(pixels_u8, state_u32, weights, v_init, en_init,
 
 def _validate(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
               counts_init, first_init, steps_init, gate_init, readout,
-              block_b):
+              block_b, streamed):
     dev = pixels_u8.device
     Bp, k0 = pixels_u8.shape
     L = len(weights)
@@ -279,6 +310,12 @@ def _validate(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
     if block_b != BLOCK_B or Bp % block_b:
         raise ValueError(f"batch {Bp} / block_b {block_b}: block_b must be "
                          f"{BLOCK_B} and divide the padded batch")
+    if streamed and not all(is_planes(w) for w in weights):
+        raise ValueError("the streamed stack kernel takes the int8 planes "
+                         "of pack_weights, not int16 codes")
+    if not streamed and any(is_planes(w) for w in weights):
+        raise ValueError("the resident stack kernel takes int16 codes, not "
+                         "packed planes")
     sizes = [k0] + [int(w.shape[1]) for w in weights]
     if any(n % LANE for n in sizes):
         raise ValueError(f"layer widths {sizes} are not padded to {LANE}")
@@ -286,8 +323,12 @@ def _validate(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
     check_operand(state_u32, "state_u32", torch.uint32, (Bp, k0), dev)
     for l, w in enumerate(weights):
         n = (Bp, sizes[l + 1])
-        check_operand(w, f"weights[{l}]", torch.int16,
-                      (sizes[l], sizes[l + 1]), dev)
+        if is_planes(w):
+            check_operand(w, f"weights[{l}]", torch.int8,
+                          (2, sizes[l + 1], sizes[l]), dev)
+        else:
+            check_operand(w, f"weights[{l}]", torch.int16,
+                          (sizes[l], sizes[l + 1]), dev)
         check_operand(v_init[l], f"v_init[{l}]", torch.int32, n, dev)
         check_operand(en_init[l], f"en_init[{l}]", torch.uint8, n, dev)
         check_operand(vp_init[l], f"vp_init[{l}]", torch.int32, n, dev)
@@ -314,11 +355,14 @@ def _launch(streamed, pixels_u8, state_u32, weights, v_init, en_init,
     nb = Bp // block_b
     gated = gate_init is not None
     if streamed:
-        smem = stack_streamed_smem_bytes(sizes, block_b)
+        smem = stack_streamed_smem_bytes(sizes)
         if any(w.data_ptr() % 16 for w in weights):
-            raise ValueError("the streamed kernel copies weights in 16-byte "
-                             "pieces: every weight tensor must be 16-byte "
-                             "aligned")
+            raise ValueError("the streamed kernel loads weight planes in "
+                             "16-byte pieces: every plane tensor must be "
+                             "16-byte aligned")
+        if any(2 * k * n >= 1 << 31 for k, n in zip(sizes, sizes[1:])):
+            raise ValueError(f"layer widths {sizes}: the streamed kernel "
+                             f"addresses a layer's planes in 31 bits")
     else:
         smem = stack_smem_bytes(sizes, block_b)
     if smem > SMEM_LIMIT_BYTES:
@@ -376,7 +420,7 @@ def _run(streamed, pixels_u8, state_u32, weights, v_init, en_init, vp_init,
          block_b: int = BLOCK_B):
     args = (pixels_u8, state_u32, weights, v_init, en_init, vp_init,
             counts_init, first_init, steps_init, gate_init)
-    sizes = _validate(*args, readout, block_b)
+    sizes = _validate(*args, readout, block_b, streamed)
     kw = dict(chunk_steps=chunk_steps, window_steps=window_steps,
               decay_shift=decay_shift, v_threshold=v_threshold, v_rest=v_rest,
               v_min=v_min, v_max=v_max, active_pruning=active_pruning,
@@ -411,11 +455,15 @@ def fused_snn_stack(*operands, **options):
 
 def fused_snn_stack_streamed(*operands, **options):
     """:func:`fused_snn_stack` on the weight-streaming kernel: the same
-    operands, keywords and outputs.  CUDA tensors launch it (one launch,
-    counted in ``fused_snn_stack_streamed.launches``), CPU tensors run the
-    plain version.  It holds stacks whose per-lane state does not fit
-    shared memory (:func:`stack_streamed_smem_bytes`); weights must be
-    16-byte aligned."""
+    operands, keywords and outputs, except that each layer's weights are
+    the :func:`pack_weights` planes (2, n_out, n_in) int8 of its codes,
+    placed once by the caller (``kernels.ops.stack_operands(...,
+    streamed=True)`` packs codes; the engines place planes per weight
+    version).  CUDA tensors launch it (one launch, counted in
+    ``fused_snn_stack_streamed.launches``), CPU tensors run the plain
+    version.  It holds stacks whose per-lane state does not fit shared
+    memory (:func:`stack_streamed_smem_bytes`); planes must be 16-byte
+    aligned."""
     return _run(True, *operands, **options)
 
 

@@ -19,8 +19,9 @@ from ..core.telemetry import (ChunkTelemetry, MatmulTelemetry,
 from . import fused_snn, lif_step, poisson_encode, spike_matmul
 
 __all__ = ["poisson_encode_op", "lif_forward_op", "fused_snn_stack_op",
-           "partial_contraction_op", "spike_matmul_op", "stack_operands",
-           "stack_results", "validate_weight_codes", "V_PEAK_INIT"]
+           "partial_contraction_op", "spike_matmul_op", "stack_weights",
+           "stack_operands", "stack_results", "validate_weight_codes",
+           "V_PEAK_INIT"]
 
 # window-start sentinel for the carried peak-membrane accumulator: the
 # first real membrane value always wins the max-fold
@@ -116,15 +117,57 @@ def lif_forward_op(spikes_t: torch.Tensor, w_q: torch.Tensor, *,
     return spk[:, :B, :n_out], vtr[:, :B, :n_out], vfin[:B, :n_out]
 
 
+def stack_weights(weights, n_in: int, layer_sizes=None, *,
+                  streamed: bool = False):
+    """The stack kernels' weight operands and the true layer widths
+    ``[n_in, n_1, ..., n_L]``; the one place where codes become the
+    streamed kernel's planes.
+
+    ``weights`` are per-layer (n_l, n_{l+1}) codes, padded here to ``LANE``
+    on both axes (and with ``streamed`` packed into their int8 planes by
+    ``kernels.fused_snn.pack_weights``), or, for the streamed kernel only,
+    already placed (2, pad(n_{l+1}), pad(n_l)) planes, which go through as
+    they are; planes need ``layer_sizes``, the true widths (n_in, n_1,
+    ..., n_L), since their padding hides them.  Returns ``(weights,
+    sizes)``.
+    """
+    lane = fused_snn.LANE
+    if not any(fused_snn.is_planes(w) for w in weights):
+        ws = tuple(_pad2(w.to(torch.int16), lane, lane) for w in weights)
+        if streamed:
+            ws = tuple(fused_snn.pack_weights(w) for w in ws)
+        return ws, [n_in] + [int(w.shape[1]) for w in weights]
+    if not streamed:
+        raise ValueError("the resident stack kernel takes int16 codes, not "
+                         "packed planes")
+    if (layer_sizes is None or len(layer_sizes) != len(weights) + 1
+            or int(layer_sizes[0]) != n_in):
+        raise ValueError(f"packed weight planes need layer_sizes, the true "
+                         f"widths ({n_in}, n_1, ..., n_L)")
+    sizes = [int(n) for n in layer_sizes]
+    pads = [n + (-n) % lane for n in sizes]
+    for l, w in enumerate(weights):
+        want = (2, pads[l + 1], pads[l])
+        if not fused_snn.is_planes(w) or tuple(w.shape) != want:
+            raise ValueError(f"layer {l} weights {tuple(w.shape)} "
+                             f"{w.dtype} are not the placed planes {want} "
+                             f"int8 of layer_sizes {tuple(sizes)}")
+    return tuple(weights), sizes
+
+
 def stack_operands(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
                    weights, *, num_steps: int, v_rest: int = 0,
-                   init: dict | None = None, gate: dict | None = None):
+                   init: dict | None = None, gate: dict | None = None,
+                   layer_sizes=None, streamed: bool = False):
     """Pad the op's inputs into the stack kernel's launch operands.
 
     Returns ``(args, meta)``: ``args`` is the positional argument list of
-    :func:`kernels.fused_snn.fused_snn_stack` (and of its plain version),
+    :func:`kernels.fused_snn.fused_snn_stack` (with ``streamed``, of
+    ``fused_snn_stack_streamed``; either way of the plain version),
     ``meta`` what :func:`stack_results` needs to cut the outputs back.
-    The batch pads to the ``block_b_for`` block and every neuron axis to
+    ``weights``, ``layer_sizes`` and ``streamed`` as
+    :func:`stack_weights`.  The batch
+    pads to the ``block_b_for`` block and every neuron axis to
     ``LANE``.  Zero-padded pixel and state lanes never spike (0 > r is
     false, and 0 is the xorshift fixed point); padded neurons and padded
     batch rows are disabled, so they neither fire nor count as executed
@@ -134,7 +177,7 @@ def stack_operands(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
     dev = pixels_u8.device
     B, n_in = pixels_u8.shape
     L = len(weights)
-    sizes = [n_in] + [int(w.shape[1]) for w in weights]
+    ws, sizes = stack_weights(weights, n_in, layer_sizes, streamed=streamed)
     bB = fused_snn.block_b_for(B)
     lane = fused_snn.LANE
     Bp = B + (-B) % bB
@@ -142,7 +185,6 @@ def stack_operands(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
 
     px = _pad2(pixels_u8, bB, lane)
     st = _pad2(state_u32, bB, lane)
-    ws = tuple(_pad2(w.to(torch.int16), lane, lane) for w in weights)
 
     def valid_mask(n_true, n_pad):
         col = torch.arange(n_pad, device=dev)[None, :]
@@ -221,11 +263,13 @@ def fused_snn_stack_op(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
                        gate: dict | None = None, patience: int = 0,
                        readout: str = "count",
                        sparse_skip: bool | None = None,
-                       streamed: bool = False):
+                       streamed: bool = False, layer_sizes=None):
     """Multi-layer encode→LIF stack in one resumable launch.
 
     Args:
-      weights: per-layer (n_l, n_{l+1}) int16 codes in [-256, 255].
+      weights: per-layer (n_l, n_{l+1}) int16 codes in [-256, 255] or, for
+        the streamed kernel, their placed int8 planes with ``layer_sizes``
+        (see :func:`stack_weights`; codes are packed per call there).
       num_steps: the full window T (first-spike sentinel, gate step bound).
       chunk_steps: steps THIS launch executes (default: the whole window).
       init: optional carried state — ``v``/``en``/``v_peak`` per-layer
@@ -248,7 +292,8 @@ def fused_snn_stack_op(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
     """
     args, meta = stack_operands(pixels_u8, state_u32, weights,
                                 num_steps=num_steps, v_rest=v_rest,
-                                init=init, gate=gate)
+                                init=init, gate=gate, layer_sizes=layer_sizes,
+                                streamed=streamed)
     run = (fused_snn.fused_snn_stack_streamed if streamed
            else fused_snn.fused_snn_stack)
     outs = run(

@@ -130,7 +130,8 @@ def stream_chunk(lanes: LaneState, weights: tuple, *, chunk_steps: int,
 
     ``backend="fused"`` runs the whole chunk (every layer, every step, the
     stability gate) as one launch of the resident stack kernel,
-    ``"fused_streamed"`` as one launch of the weight-streaming kernel;
+    ``"fused_streamed"`` as one launch of the weight-streaming kernel
+    (``weights`` int16 codes or, as the engines place them, int8 planes);
     ``"reference"`` steps the same datapath with torch ops.  A retired or
     inactive lane is frozen: PRNG, membranes, counters and its add counter
     stop.  Returns ``(lanes', ChunkTelemetry)``.
@@ -158,7 +159,9 @@ def stream_chunk(lanes: LaneState, weights: tuple, *, chunk_steps: int,
             gate={"active": lanes.active, "prev": lanes.gate_prev,
                   "streak": lanes.gate_streak},
             patience=patience, readout=readout, sparse_skip=sparse_skip,
-            streamed=backend == "fused_streamed")
+            streamed=backend == "fused_streamed",
+            layer_sizes=(lanes.px.shape[1],) + tuple(v.shape[1]
+                                                     for v in lanes.v))
         return LaneState(
             px=lanes.px, rng=k["prng_state"], v=k["v"], en=k["en"],
             v_peak=k["v_peak"], counts=k["spike_counts"],
@@ -329,10 +332,18 @@ class SNNStreamEngine:
 
     @property
     def weights(self) -> tuple:
-        """Weights of the CURRENT bank version (new admissions bind these)."""
+        """Weights of the CURRENT bank version (new admissions bind these),
+        as placed: int16 codes, or int8 planes on ``fused_streamed``."""
         return self.bank.weights(self.bank.current)
 
     def _place_weights(self, weights: tuple) -> tuple:
+        """The bank's copy of one weight version on the device: int16
+        codes, or for ``fused_streamed`` the LANE-padded int8 planes its
+        kernel reads (``kernels.fused_snn.pack_weights``), packed once
+        here so that no chunk pads or packs them."""
+        if self.backend == "fused_streamed":
+            return tuple(pack_weights(_lane_pad(torch.as_tensor(w).to(
+                torch.int16))).to(self.device) for w in weights)
         return tuple(torch.as_tensor(w).to(self.device, torch.int16)
                      .contiguous() for w in weights)
 
@@ -662,14 +673,16 @@ def _lane_pad(w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def shard_weights(codes: tuple, grid, model_ways: tuple | None) -> tuple:
+def shard_weights(codes: tuple, grid, model_ways: tuple | None, *,
+                  planes: bool = False) -> tuple:
     """Place the weight codes for a mesh: the port of
     ``weight_partition_specs``.
 
     Returns one entry per data shard (row of ``grid``).  Without a model
     axis (``model_ways`` None) an entry holds each layer's (n_in, n_out)
-    int16 codes on the shard's home device.  With one, it holds per layer
-    a tuple of per-peer tensors: for a layer that splits ``ways``-way its
+    int16 codes on the shard's home device, or with ``planes`` (the
+    streamed kernel's operand) their LANE-padded int8 planes.  With one,
+    it holds per layer a tuple of per-peer tensors: for a layer that splits ``ways``-way its
     contiguous output-column shards, each on its peer's device, and for a
     replicated layer the whole matrix on the home device; every one
     LANE-padded with zeros and packed once into its own contiguous
@@ -689,8 +702,9 @@ def shard_weights(codes: tuple, grid, model_ways: tuple | None) -> tuple:
     out = []
     for row in grid:
         if model_ways is None:
-            out.append(tuple(put((l, 0), row[0], lambda w=w: w.clone())
-                             for l, w in enumerate(codes)))
+            out.append(tuple(put((l, 0), row[0], lambda w=w: (
+                pack_weights(_lane_pad(w)) if planes else w.clone()))
+                for l, w in enumerate(codes)))
             continue
         layers = []
         for l, (w, ways) in enumerate(zip(codes, model_ways)):
@@ -839,8 +853,10 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
 
     # ---- device placement ----------------------------------------------
     def _place_weights(self, weights: tuple) -> tuple:
-        return shard_weights(weights, self._grid,
-                             self.model_ways if self.model_axis else None)
+        if self.model_axis:
+            return shard_weights(weights, self._grid, self.model_ways)
+        return shard_weights(weights, self._grid, None,
+                             planes=self.backend == "fused_streamed")
 
     def _advance(self, lanes: LaneState, weights: tuple):
         self.dispatches += 1

@@ -11,6 +11,8 @@ tests/test_torch_kernels_cuda.py``.  Every comparison is integer equality.
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +26,12 @@ from repro_torch.kernels import (fused_snn, lif_step, ops, poisson_encode,
 from repro_torch.serve import SNNStreamEngine
 
 pytestmark = pytest.mark.cuda
+
+# chip_smoke.py's K2 edge cases (K2_CASES, k2_edge_case) run here too
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
@@ -95,10 +103,11 @@ def _check_chunks(card, kernel, cfg, px, st, ws, readout, gated,
                 "prev": torch.full((b,), -1, dtype=torch.int32, device=card),
                 "streak": torch.zeros(b, dtype=torch.int32, device=card)}
     init = None
+    streamed = kernel is fused_snn.fused_snn_stack_streamed
     for _ in range(cfg.num_steps // 4):
         args, meta = ops.stack_operands(px, st, ws, num_steps=cfg.num_steps,
                                         v_rest=lif.v_rest, init=init,
-                                        gate=gate)
+                                        gate=gate, streamed=streamed)
         before = kernel.launches
         got = kernel(*args, chunk_steps=4, block_b=meta["block_b"], **kw)
         torch.cuda.synchronize()
@@ -143,19 +152,31 @@ def test_streamed_kernel_equals_resident(card):
     cfg = cfgs.SNN_CONFIG_DEEP
     px, st, ws = _problem(cfg, 45, card, seed=2)
     args, meta = ops.stack_operands(px, st, ws, num_steps=cfg.num_steps)
+    planes, _ = ops.stack_operands(px, st, ws, num_steps=cfg.num_steps,
+                                   streamed=True)
     kw = dict(chunk_steps=20, window_steps=20, decay_shift=4,
               v_threshold=128, active_pruning=True, block_b=meta["block_b"])
-    _assert_equal(fused_snn.fused_snn_stack_streamed(*args, **kw),
+    _assert_equal(fused_snn.fused_snn_stack_streamed(*planes, **kw),
                   fused_snn.fused_snn_stack(*args, **kw), "K2 vs K1")
+
+
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("case", chip_smoke.K2_CASES, ids=lambda c: "-".join(
+    [str(c[0]), "x".join(map(str, c[1]))] + list(c[2:4]) + [str(c[4])]))
+def test_streamed_kernel_edge_cases(card, case, gated):
+    """K2 on planes placed once against the plain version on the codes, two
+    4-step chunks from a carried state whose enables may be dead in whole
+    tiles, every output equal (``chip_smoke.k2_edge_case``)."""
+    assert chip_smoke.k2_edge_case(card, case, gated, seed=case[0]) > 0
 
 
 def test_streamed_kernel_refuses_misaligned_weights(card):
     cfg = cfgs.SNN_CONFIG
     px, st, ws = _problem(cfg, 8, card, seed=3)
     args, meta = ops.stack_operands(px, st, ws, num_steps=20)
-    w = args[2][0]
-    flat = torch.empty(w.numel() + 1, dtype=torch.int16, device=card)
-    shifted = flat[1:].view(w.shape)          # contiguous, 2-byte offset
+    w = fused_snn.pack_weights(args[2][0])
+    flat = torch.empty(w.numel() + 1, dtype=torch.int8, device=card)
+    shifted = flat[1:].view(w.shape)          # contiguous, 1-byte offset
     shifted.copy_(w)
     bad = list(args)
     bad[2] = (shifted,)

@@ -587,10 +587,10 @@ def test_wide_resolves_fused_on_model_axis():
 def test_model_axis_serves_stacks_past_the_stack_kernels():
     """On a model axis every fused backend is the partial contraction,
     which holds no per-lane state in shared memory: a stack whose 2-way
-    shards neither stack kernel holds (784→16384→10) is served, with the
+    shards neither stack kernel holds (784→32768→10) is served, with the
     reference's results, where the single-device engine refuses it."""
     rng = np.random.default_rng(31)
-    sizes = (784, 16384, 10)
+    sizes = (784, 32768, 10)
     cfg = dataclasses.replace(tcfgs.SNN_CONFIG, layer_sizes=sizes,
                               num_steps=6)
     assert tsnn.fused_unsupported_reason(cfg, 2, sizes, 8, streamed=True,

@@ -233,18 +233,237 @@ def test_streamed_engine_matches_jax_across_rollout():
 
 
 def test_streamed_smem_model():
-    """The streamed carve-up holds WIDE, which the resident one refuses,
-    and keeps its layout's arithmetic."""
+    """The streamed carve-up holds WIDE, which the resident one refuses, and
+    keeps its layout's arithmetic: a ring of 2 × 4 chunks of 256 A
+    fragments of 16 bytes, a word of enable bits per thread and 256-column
+    pass (two passes per 2,048-wide hidden layer in a cluster of 6, one
+    for the head), two bitmaps of 64 lanes at a row stride of 2 mod 32
+    words, per-layer lane and block counters, one N-tile bit word per
+    8-lane block and layer (rank 0's and the CTA's own), five per-lane
+    ints, and, only where the whole fits, 16 warps' stages of 64 lanes ×
+    16 columns of v and v_peak.  Without the stages it holds every stack
+    with a head of at most 128 columns that the slab kernel it replaced
+    held, at one hidden layer and at seven."""
     wide = (896, 2048, 2048, 128)
-    assert tfused.stack_smem_bytes(wide) > tfused.SMEM_LIMIT_BYTES
+    stage, ring = 16 * 2 * 64 * 16, 2 * 4 * 256 * 4
+    limit = tfused.SMEM_LIMIT_BYTES
+    assert tfused.stack_smem_bytes(wide) > limit
     need = tfused.stack_streamed_smem_bytes(wide)
-    assert need == (3 * 64 * 128 * 2 + 8 * (896 * 5 + 2 * 64 * 4 + 2048 * 2)
-                    + 4 * (7 + 16 + 16 + 16 + 16 + 1) + 4 * 16 + 16
-                    + 2048 * 2)
-    assert need <= tfused.SMEM_LIMIT_BYTES
+    assert need == 4 * (stage + ring + 512 * (2 + 2 + 1) + 2 * 64 * (64 + 2)
+                        + 3 * (2 * 64 + 8) + 2 * 8 * 3 + 5 * 64)
+    assert need == 210_976 <= limit
+    # the stride pads 28 words (896 bits) to 34; a 4,096-wide layer takes
+    # 3 passes in a cluster of 6 and its 32 N tiles one bit word per block;
+    # with its stages it would need 241,088 B, so it has none
+    assert [tfused._stream_passes(n) for n in (128, 2048, 4096, 7168)] == \
+        [1, 2, 3, 5]
+    rest = 4 * (ring + 512 * (3 + 1) + 2 * 64 * (128 + 2) + 2 * (2 * 64 + 8)
+                + 2 * 8 * (1 + 1) + 5 * 64)
+    assert rest + 4 * stage == 241_088 > limit
+    assert tfused.stack_streamed_smem_bytes((896, 4096, 128)) == rest
+    assert tfused.stack_streamed_smem_bytes((896, 7168, 128)) == 4 * (
+        ring + 512 * (5 + 1) + 2 * 64 * (224 + 2) + 2 * (2 * 64 + 8)
+        + 2 * 8 * (2 + 1) + 5 * 64) == 163_328
+    assert tfused.stack_streamed_smem_bytes((896, 128)) == 4 * (
+        stage + ring + 512 + 2 * 64 * 34 + (2 * 64 + 8) + 2 * 8 + 5 * 64)
+    # the widest stacks with stages, and without: 3,072 and 10,240 columns
+    # at one hidden layer (a 3,200-wide one is far below the 128 KB stages)
+    assert tfused.stack_streamed_smem_bytes((896, 3072, 128)) == 4 * (
+        stage + ring + 512 * (2 + 1) + 2 * 64 * (96 + 2) + 2 * (2 * 64 + 8)
+        + 2 * 8 * (1 + 1) + 5 * 64) <= limit
+    assert tfused.stack_streamed_smem_bytes((896, 3200, 128)) < 4 * stage
+    held = [n for n in range(128, 16385, 128)
+            if tfused.stack_streamed_smem_bytes((896, n, 128)) <= limit]
+    assert max(held) == 10240 and held == list(range(128, 10241, 128))
+
+    def slab_kernel(sizes):                 # the carve-up K2 had before
+        k0, outs = sizes[0], sizes[1:]
+        w = max(sizes)
+        flags = sum(k // 128 for k in sizes[:-1]) + sum(n // 128 for n in outs)
+        return (3 * 64 * 128 * 2 + 8 * (k0 * 5 + 2 * (w // 32) * 4 + w * 2)
+                + 4 * flags + 4 * (w // 128) + 16 + w * 2)
+
+    for hidden in (1, 7):
+        for n in range(128, 16385, 128):
+            sizes = (896,) + (n,) * hidden + (128,)
+            if slab_kernel(sizes) <= limit:
+                assert tfused.stack_streamed_smem_bytes(sizes) <= limit, sizes
     wider = (896, 16384, 128)
-    assert tfused.stack_streamed_smem_bytes(wider) > tfused.SMEM_LIMIT_BYTES
+    assert tfused.stack_streamed_smem_bytes(wider) > limit
     cfg = dataclasses.replace(tcfgs.SNN_CONFIG, layer_sizes=(784, 16384, 10))
     assert "streamed working set" in tsnn.fused_unsupported_reason(
         cfg, 2, streamed=True)
     assert tsnn.resolve_backend(cfg, n_layers=2, device="cuda") == "staged"
+
+
+def _padded_planes(ws):
+    """Each layer's codes LANE-padded and packed, as the engine places them."""
+    out = []
+    for w in ws:
+        k, n = w.shape
+        pad = np.zeros((k + (-k) % 128, n + (-n) % 128), np.int16)
+        pad[:k, :n] = w
+        out.append(tfused.pack_weights(torch.from_numpy(pad)))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_streamed_plain_on_planes_equals_codes_and_jax(gated):
+    """The stack's plain version on packed planes equals it on the codes,
+    output for output, and, cut back by the op, the JAX package's
+    weight-streaming kernel (interpret mode) on the same inputs; codes at
+    -256 and 255 in every column exercise both planes' extremes."""
+    rng = np.random.default_rng(40 + gated)
+    ws = _codes(rng, _SIZES)
+    ws[1][0::3], ws[1][1::3] = -256, 255
+    b = 13
+    px, st = _inputs(rng, b, _SIZES[0], seed=6)
+    gate = None
+    if gated:
+        active = np.ones(b, bool)
+        active[[0, 9]] = False
+        gate = {"active": active, "prev": np.full(b, -1, np.int32),
+                "streak": np.zeros(b, np.int32)}
+    tgate = None if gate is None else {k: torch.from_numpy(v)
+                                       for k, v in gate.items()}
+    args, meta = tops.stack_operands(
+        torch.from_numpy(px), torch.from_numpy(st.copy()),
+        tuple(torch.from_numpy(w) for w in ws), num_steps=6, gate=tgate)
+    kw = dict(chunk_steps=6, window_steps=6, patience=2, readout="count",
+              block_b=meta["block_b"], **_LIF)
+    on_codes = tfused.fused_snn_stack_plain(*args, **kw)
+    planes = _padded_planes(ws)
+    for w, c in zip(planes, args[2]):
+        assert tfused.is_planes(w)
+        np.testing.assert_array_equal(tfused.unpack_weights(w).numpy(),
+                                      c.numpy())
+    on_planes = tfused.fused_snn_stack_plain(*args[:2], planes, *args[3:],
+                                             **kw)
+    _same(list(on_planes[:10]), list(on_codes[:10]), "planes vs codes")
+    if gated:
+        _same(on_planes[10], on_codes[10], "gate")
+    want = jops.fused_snn_stack_op(
+        jnp.asarray(px), jnp.asarray(st), tuple(jnp.asarray(w) for w in ws),
+        num_steps=6, gate=_to_jax(gate), streamed=True, interpret=True,
+        patience=2, **_LIF)
+    got = tops.stack_results(on_planes, meta)
+    _compare(got, want, _OP_KEYS)
+    if gated:
+        for key in ("active", "prev", "streak"):
+            _same(got["gate"][key], want["gate"][key], f"gate.{key}")
+    assert int(got["spike_counts"].sum()) > 0
+
+
+def test_streamed_op_takes_codes_or_planes():
+    """``fused_snn_stack_op(streamed=True)`` gives the same results on the
+    codes and on their placed planes with the true widths; planes without
+    the widths, planes of the wrong shape and planes for the resident
+    kernel are refused, and so are codes handed to the streamed kernel's
+    wrapper."""
+    rng = np.random.default_rng(44)
+    ws = _codes(rng, _SIZES)
+    px, st = _inputs(rng, 9, _SIZES[0], seed=8)
+    kw = dict(num_steps=5, chunk_steps=3, active_pruning=True, **_LIF)
+    tpx, tst = torch.from_numpy(px), torch.from_numpy(st)
+    codes = tuple(torch.from_numpy(w) for w in ws)
+    planes = _padded_planes(ws)
+    want = tops.fused_snn_stack_op(tpx, tst, codes, streamed=True, **kw)
+    got = tops.fused_snn_stack_op(tpx, tst, planes, streamed=True,
+                                  layer_sizes=_SIZES, **kw)
+    _compare(got, {k: _np(v) if isinstance(v, torch.Tensor) else v
+                   for k, v in want.items()}, _OP_KEYS)
+    with pytest.raises(ValueError, match="layer_sizes"):
+        tops.fused_snn_stack_op(tpx, tst, planes, streamed=True, **kw)
+    with pytest.raises(ValueError, match="placed planes"):
+        tops.fused_snn_stack_op(tpx, tst, planes, streamed=True,
+                                layer_sizes=(200, 256, 200, 10), **kw)
+    with pytest.raises(ValueError, match="resident"):
+        tops.fused_snn_stack_op(tpx, tst, planes, layer_sizes=_SIZES, **kw)
+    # the streamed kernel's wrapper itself takes planes only
+    args, meta = tops.stack_operands(tpx, tst, codes, num_steps=5)
+    with pytest.raises(ValueError, match="int8 planes"):
+        tfused.fused_snn_stack_streamed(*args, chunk_steps=3, window_steps=5,
+                                        decay_shift=4, v_threshold=128,
+                                        block_b=meta["block_b"])
+
+
+def test_wide_streamed_engine_places_planes_once():
+    """A WIDE-shaped engine on ``fused_streamed`` places each weight
+    version once as LANE-padded int8 planes, packs and pads no weight in
+    any chunk, and returns the reference backend's results id for id,
+    across a rollout."""
+    from repro_torch.kernels import ops as ops_mod
+    from repro_torch.serve import snn_engine
+
+    rng = np.random.default_rng(46)
+    cfg = dataclasses.replace(tcfgs.SNN_CONFIG_WIDE, num_steps=8)
+    sizes = cfg.layer_sizes
+
+    def params(mean):
+        return _params([np.clip(np.round(rng.normal(
+            mean, 170 / np.sqrt(i), (i, o))), -256, 255).astype(np.int16)
+            for i, o in zip(sizes[:-1], sizes[1:])])
+
+    old, new = params(0.0), params(0.5)
+    imgs = rng.integers(0, 256, (12, sizes[0]), dtype=np.uint8)
+    imgs[:, ::3] = 0
+    packs, weight_pads = [], []
+    pack, pad2 = snn_engine.pack_weights, ops_mod._pad2
+
+    def counting_pack(w):
+        packs.append(tuple(w.shape))
+        return pack(w)
+
+    def watching_pad2(x, rows, lanes):
+        if x.dtype in (torch.int8, torch.int16):
+            weight_pads.append(tuple(x.shape))
+        return pad2(x, rows, lanes)
+
+    runs = {}
+    for backend in ("fused_streamed", "reference"):
+        kw = dict(batch_size=8, chunk_steps=4, patience=2, seed=5,
+                  backend=backend, device="cpu")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(snn_engine, "pack_weights", counting_pack)
+            mp.setattr(tfused, "pack_weights", counting_pack)
+            mp.setattr(ops_mod, "_pad2", watching_pad2)
+            eng = SNNStreamEngine(old, cfg, **kw)
+            placed = len(packs)
+            for im in imgs[:6]:
+                eng.submit(im)
+            eng.step()
+            eng.begin_rollout(new)
+            rolled = len(packs)
+            for im in imgs[6:]:
+                eng.submit(im)
+            runs[backend] = eng.run()
+            assert len(packs) == rolled and not weight_pads
+        if backend == "fused_streamed":
+            assert (placed, rolled) == (3, 6)
+            for w, (i, o) in zip(eng.weights, zip(sizes[:-1], sizes[1:])):
+                assert tfused.is_planes(w) and w.is_contiguous()
+                assert tuple(w.shape) == (2, o + (-o) % 128, i + (-i) % 128)
+        else:                                 # codes, nothing packed
+            assert (placed, rolled) == (0, 0)
+        packs.clear()
+    _assert_results_equal(runs["fused_streamed"], runs["reference"])
+    assert {r.weight_version for r in runs["reference"].values()} == {0, 1}
+
+
+def test_data_mesh_places_planes_for_the_streamed_kernel():
+    """Without a model axis, ``shard_weights(planes=True)`` places each
+    layer once per device as its LANE-padded planes, which unpack to the
+    padded codes."""
+    from repro_torch.serve import shard_weights
+
+    rng = np.random.default_rng(48)
+    ws = _codes(rng, _SIZES)
+    cpu = torch.device("cpu")
+    placed = shard_weights(tuple(torch.from_numpy(w) for w in ws),
+                           [[cpu], [cpu]], None, planes=True)
+    for layer, w, want in zip(placed[0], ws, _padded_planes(ws)):
+        assert tfused.is_planes(layer) and layer.is_contiguous()
+        np.testing.assert_array_equal(layer.numpy(), want.numpy())
+        np.testing.assert_array_equal(
+            tfused.unpack_weights(layer).numpy()[:w.shape[0], :w.shape[1]], w)
+    assert placed[1][0] is placed[0][0]
