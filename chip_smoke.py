@@ -27,12 +27,19 @@ result line):
    to four layers, codes at -256 and 255 in every column, dead 128-column
    enable tiles in every other 8-lane block, pruning on, stacks of 4,096
    and 7,168 columns too wide for the kernel's v / v_peak stages, gated
-   and ungated), and K2 == K1 on the deep stack; K4, the encoder kernel, and K5, the LIF
-   kernel, on the wide stack's shapes (K5 with pruning on and off and
-   with int16 codes beyond the 9-bit range); the staged backend
-   (K4 + one K5 per layer) equal to the reference backend on the wide
-   stack; ``auto`` resolving to the staged kernels for a stack no stack
-   kernel holds.
+   and ungated), and K2 == K1 on the deep stack; K4, the encoder kernel;
+   K5, the LIF kernel (each step's Σ W·S on the int8 tensor cores, the
+   LIF update in its epilogue, K split over a cluster for narrow layers),
+   in 13 cases (``K5_CASES``, shared with the card tests: spike bytes of
+   0, 1, 2 and 255 first, counted by value; int16 extremes in every
+   column; 1,021, 1,000 and 24 lanes; K = 784, 64, 2,048 and 16,384; N =
+   10 padded to 128; T = 1 and 20; pruning; K splits of 1, 4 and 8 as the
+   kernel picks them; a sum past 2^31 that wraps), then on the wide stack's shapes (pruning on and
+   off, int16 codes beyond the 9-bit range); the staged backend (K4 + one
+   K5 per layer) equal to the reference backend on the wide stack, and
+   once more under ``torch.profiler`` for K5's own device time over its
+   three launches; ``auto`` resolving to the staged kernels for a stack
+   no stack kernel holds.
    K3, the partial contraction of one model shard on its packed int8
    planes, in 24 cases (the wide stack's shard shapes 784→512 and
    2048→512, its replicated head 2048→10 and the 784→5 head shard of a
@@ -70,13 +77,16 @@ result line):
    with the bound: the larger of the bytes the function must move
    (unpadded shapes, each input read once, each output written once) at
    3.35 TB/s and its integer operations at the card's INT32 rate; for K2,
-   K3 and K6, whose contraction runs on two int8 weight planes, the
+   K3, K5 and K6, whose contraction runs on two int8 weight planes, the
    operations are the shorter of the executed adds at the INT32 rate
    and 2·B·K·N·2 int8 operations at the tensor cores' 1,979 T/s (the
-   add-only bound is kept beside it).  K2 is timed on planes placed once,
+   add-only bound is kept beside it); K5 likewise, at (20, 1,024,
+   2048→2048) and at the 16384→10 head (padded to 128 columns).  K2 is
+   timed on planes placed once,
    as the engine places them.  For K3 (each wide layer's shard
    shape) and K6 (both realisations) also one ``torch.matmul`` in float32
-   (TF32 off) on the same operands, exact here because |Σ| < 2^24.
+   (TF32 off) on the same operands, exact here because |Σ| < 2^24; for K5
+   one such product of its contraction alone.
 
 The second-to-last lines are the ``{"kernels": [...]}`` record and the
 nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``.
@@ -117,6 +127,7 @@ SEED = 0
 SERVE_BATCH, SERVE_CHUNK, SERVE_PATIENCE, SERVE_REQUESTS = 1024, 4, 2, 4096
 CHECK_BATCH = 1021            # pads to 1024: exercises the batch padding
 T_STAGED = 20                 # staged window of the K4 / K5 checks and times
+HEAD_WIDTH = 16384            # K5's head shape: 784 -> HEAD_WIDTH -> 10
 CSRC = "src/repro_torch/kernels/csrc/"
 # the kernels: name, source, the TPU kernel each replaces, its launch counter
 KERNELS = {
@@ -489,12 +500,127 @@ def k2_edge_case(dev, case, gated, seed) -> int:
     return out_spikes
 
 
+def _spike_bytes(rng, shape, density, kind):
+    """uint8 spikes non-zero at about ``density``: of value 1 (``"0/1"``)
+    or 1, 2 or 255 (``"0/1/2/255"``, which the kernel counts by value), or
+    all ones (``"ones"``).  One byte draw, looked up, so a (20, 1,024,
+    16,384) train costs 335 MB of host memory and no more."""
+    if kind == "ones":
+        return np.ones(shape, np.uint8)
+    lut = np.zeros(256, np.uint8)
+    on = int(round(density * 256))
+    lut[:on] = 1 if kind == "0/1" else np.array([1, 2, 255], np.uint8)[
+        np.arange(on) % 3]
+    return lut[rng.integers(0, 256, shape, dtype=np.uint8)]
+
+
+def _lif_codes(rng, K, N, kind):
+    """(K, N) int16 codes: uniform signed 9-bit (``"9-bit"``), in [-2000,
+    2000] (``"±2000"``), over all of int16 (``"int16"``), over int16 with
+    every column holding -32768 and 32767 (``"int16 extremes"``), or
+    columns of 32767 and -32768 in turn (``"full-scale"``)."""
+    if kind == "full-scale":
+        w = np.empty((K, N), np.int16)
+        w[:, 0::2], w[:, 1::2] = (1 << 15) - 1, -(1 << 15)
+        return w
+    lo, hi = {"9-bit": (-256, 256), "±2000": (-2000, 2001)}.get(
+        kind, (-(1 << 15), 1 << 15))
+    w = rng.integers(lo, hi, (K, N)).astype(np.int16)
+    if kind == "int16 extremes":
+        w[0::3], w[1::3] = -(1 << 15), (1 << 15) - 1
+    return w
+
+
+# (T, lanes, K, N, spike density, spike bytes, codes, pruning) for K5
+# against its plain version on the card, the bytes of 2 and 255 first
+# (counted by value, as the JAX kernel's dot counts them).  1,021, 1,000
+# and 24 lanes are not multiples of the kernel's 128-lane tile; K = 784,
+# 1,552 and 64 are not multiples of its 128-deep K tile; N = 10 pads to
+# 128; T = 1 and 20; pruning on.  The kernel picks its K split: 1 for the
+# wide layers, and for the 2048 -> 10 head of 8,192 lanes, whose 64
+# clusters of 4 an H100 cannot hold at once; 4 for 8 to 15 K tiles over
+# at most 16 tiles of 128 x 128 (1536 -> 10, and 1552 -> 256 at 1,000
+# lanes, 13 K tiles over 4 slices); 8 for the 2048 -> 10 and 16384 -> 10
+# heads and the last case, whose sums pass 2^31 and wrap.
+# tests/test_torch_kernels_cuda.py runs the same cases.
+K5_CASES = [
+    (20, CHECK_BATCH, 784, 2048, 0.104, "0/1/2/255", "int16", False),
+    (20, 1024, 2048, 2048, 0.104, "0/1/2/255", "int16 extremes", True),
+    (20, 24, 784, 10, 0.104, "0/1/2/255", "int16", True),
+    (1, CHECK_BATCH, 64, 10, 0.104, "0/1/2/255", "9-bit", False),
+    (4, 1000, 1552, 256, 0.104, "0/1/2/255", "int16 extremes", True),
+    (20, 1024, 16384, 10, 0.104, "0/1/2/255", "int16", True),
+    (20, 1024, 2048, 2048, 0.104, "0/1", "int16 extremes", False),
+    (20, CHECK_BATCH, 2048, 10, 0.104, "0/1", "9-bit", True),
+    (2, 8192, 2048, 10, 0.104, "0/1", "9-bit", False),
+    (20, 1024, 1536, 10, 0.104, "0/1", "9-bit", False),
+    (20, CHECK_BATCH, 16384, 10, 0.104, "0/1/2/255", "int16", True),
+    (1, 24, 64, 128, 0.5, "0/1", "9-bit", True),
+    (2, 8, 65664, 128, 1.0, "ones", "full-scale", False),
+]
+
+
+def k5_case(dev, case, seed) -> int:
+    """K5 against its plain version on the card in one ``K5_CASES`` case,
+    through ``ops.lif_forward_op`` (its padding of lanes, K and columns):
+    every output equal and one launch.  The wrap case checks that Σ W·S
+    wrapped.  Returns the fired spikes."""
+    T, B, K, N, dens, spikes, codes, prune = case
+    rng = np.random.default_rng(seed)
+    s = torch.from_numpy(_spike_bytes(rng, (T, B, K), dens, spikes)).to(dev)
+    w = torch.from_numpy(_lif_codes(rng, K, N, codes)).to(dev)
+    if codes == "full-scale":       # Σ of 65,664 codes of 32,767 wraps
+        kw = dict(decay_shift=30, v_threshold=1 << 30, v_min=-(1 << 31),
+                  v_max=(1 << 31) - 1)
+    else:
+        lif = cfgs.SNN_CONFIG_WIDE.lif
+        kw = dict(decay_shift=lif.decay_shift, v_threshold=lif.v_threshold,
+                  v_rest=lif.v_rest, v_min=lif.v_min, v_max=lif.v_max)
+    kw["active_pruning"] = prune
+    before = lif_step.lif_forward.launches
+    got = ops.lif_forward_op(s, w, **kw)
+    torch.cuda.synchronize()
+    if lif_step.lif_forward.launches != before + 1:
+        raise AssertionError("K5 did not count one launch")
+    e = _max_abs_err(got, lif_step.lif_forward_plain(s, w, **kw))
+    if e:
+        raise AssertionError(f"K5 != plain on case {case} (max |err| {e})")
+    if codes == "full-scale":
+        wrapped = (K * 32767 + (1 << 31)) % (1 << 32) - (1 << 31)
+        if not (wrapped < 0 and int(got[1][0, 0, 0]) ==
+                wrapped - (wrapped >> 30)):
+            raise AssertionError("K5's wrap case did not wrap")
+    return int(got[0].sum())
+
+
+def _staged_trace(wide_params, px, st, v_trace) -> dict:
+    """The staged wide run once more under ``torch.profiler``: K5's own
+    device time over its three launches (the trace's kernel events)."""
+    wide = cfgs.SNN_CONFIG_WIDE
+    again, k5 = _kernel_trace(
+        lambda: snn.snn_apply_int(wide_params, px, st, wide,
+                                  backend="staged"), "lif_forward_kernel")
+    if k5["launches"] != 3 or _max_abs_err(again["v_trace"], v_trace):
+        raise AssertionError(f"the profiled staged run: {k5}")
+    log(f"[staged] profiled once more (torch.profiler trace): "
+        f"{k5['launches']} K5 kernel events taking {k5['ms']:.3f} ms of "
+        f"device time, grids {k5['grids']}; results equal")
+    return k5
+
+
 def phase_staged(dev, wide_params) -> dict:
     """K4 and K5 against their plain versions, the staged backend against
     the reference on the wide stack, and ``auto`` reaching the staged
     kernels."""
-    rng = np.random.default_rng(SEED + 3)
     t0 = time.perf_counter()
+    for i, case in enumerate(K5_CASES):
+        fired = k5_case(dev, case, SEED + 40 + i)
+        T, B, K, N, dens, spikes, codes, prune = case
+        log(f"[K5-vs-plain] T={T} B={B} {K}->{N} bytes {spikes:9s} density "
+            f"{dens} codes {codes:14s} prune={prune!s:5s}: equal ({fired} "
+            f"spikes fired)")
+    n_k5, err_k5 = len(K5_CASES), 0
+    rng = np.random.default_rng(SEED + 3)
     px = torch.from_numpy(_images(rng, CHECK_BATCH)).to(dev)
     st = seed_state(SEED + 3, (CHECK_BATCH, 784), device=dev)
     # K4 at (T, 1,021 lanes, 784) through its op (padding to 1024 x 896)
@@ -520,7 +646,6 @@ def phase_staged(dev, wide_params) -> dict:
     w_fan = [torch.as_tensor(l["w_q"]).to(dev) for l in wide_params["layers"]]
     w_big = [torch.from_numpy(rng.integers(-2000, 2001, tuple(w.shape))
                               .astype(np.int16)).to(dev) for w in w_fan]
-    n_k5, err_k5 = 0, 0
     lif = wide.lif
     for codes, ws in (("9-bit", w_fan), ("[-2000, 2000]", w_big)):
         for prune in (False, True):
@@ -560,6 +685,7 @@ def phase_staged(dev, wide_params) -> dict:
     log(f"[staged] SNN_CONFIG_WIDE B={CHECK_BATCH} T=20: every output equal "
         f"to the reference backend's; launches K4 {staged_counts['K4']}, "
         f"K5 {staged_counts['K5']}")
+    k5 = _staged_trace(wide_params, px, st, got["v_trace"])
     # auto on a stack no stack kernel holds (nine layers of 64) is staged
     narrow = dataclasses.replace(cfgs.SNN_CONFIG_DEEP, layer_sizes=(64,) * 10)
     p = {"layers": [{"w_q": w} for w in
@@ -585,7 +711,8 @@ def phase_staged(dev, wide_params) -> dict:
     return {"K4": {"launches": staged_counts["K4"], "max_abs_err": err_k4,
                    "cases": 1},
             "K5": {"launches": staged_counts["K5"], "max_abs_err": err_k5,
-                   "cases": n_k5}}
+                   "cases": n_k5, "staged_device_ms": k5["ms"],
+                   "staged_grids": k5["grids"]}}
 
 
 def _pad(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -1245,6 +1372,18 @@ def _time_stack(tag, cfg, imgs, params, dev, kernel, n, m,
     return dict(res, call_ms=call_ms)
 
 
+def _encoded(imgs, dev):
+    """The encoder's operands for the first 1,024 images as its op pads
+    them (784 -> 896 columns) and their (T_STAGED, 1,024, 896) train."""
+    B = SERVE_BATCH
+    pxp = torch.zeros((B, 896), dtype=torch.uint8, device=dev)
+    pxp[:, :784] = torch.from_numpy(imgs[:B])
+    stp = torch.zeros((B, 896), dtype=torch.int32, device=dev)
+    stp[:, :784] = seed_state(SEED, (B, 784), device=dev).view(torch.int32)
+    stp = stp.view(torch.uint32)
+    return pxp, stp, poisson_encode.poisson_encode(pxp, stp, T_STAGED)[0]
+
+
 def phase_times(imgs, params, wide_params, dev) -> dict:
     times = {
         "K1": _time_stack("K1", cfgs.SNN_CONFIG, imgs, params, dev,
@@ -1254,45 +1393,81 @@ def phase_times(imgs, params, wide_params, dev) -> dict:
                           planes=True)}
     # K4 at (T, 1024, 784): the operands its op hands it, padded to 896
     B, T = SERVE_BATCH, T_STAGED
-    pxp = torch.zeros((B, 896), dtype=torch.uint8, device=dev)
-    pxp[:, :784] = torch.from_numpy(imgs[:B])
-    stp = torch.zeros((B, 896), dtype=torch.int32, device=dev)
-    stp[:, :784] = seed_state(SEED, (B, 784), device=dev).view(torch.int32)
-    stp = stp.view(torch.uint32)
-    spikes = poisson_encode.poisson_encode(pxp, stp, T)[0]
+    pxp, stp, spikes = _encoded(imgs, dev)
     ms = _device_ms(lambda: poisson_encode.poisson_encode(pxp, stp, T), 200)
     plain = _plain_ms(
         lambda: poisson_encode.poisson_encode_plain(pxp, stp, T), 10)
     times["K4"] = _bound("K4", B * 784 * (1 + 4 + 4) + T * B * 784,
                          7 * T * B * 784, ms, plain, f"T={T} B={B} N=784")
-    # K5 at (T, 1024, 2048 -> 2048): the second hidden layer of the wide
-    # stack, fed the first hidden layer's spike train
+    # K5 at (T, 1024, 2048 -> 2048), the second hidden layer of the wide
+    # stack, and at the head of 784 -> 16384 -> 10
+    times["K5"], x, w1 = _time_k5(spikes[:, :, :784], wide_params, dev)
+    times["K6_path"] = phase_k6_path(x, w1)
+    times["K3"] = _time_k3(dev)
+    times["K6"] = _time_k6(dev)
+    return times
+
+
+def _k5_bound(x, w, n_out, ms, plain_ms, what) -> dict:
+    """K5's bound on the unpadded function: each input read once (spikes,
+    codes), each output written once (spikes, trace, final membrane); the
+    executed adds of this data plus ~10 LIF operations per neuron and
+    step at the INT32 rate, or the two-plane product on the int8 tensor
+    cores, 2 * T * B * K * N * 2 operations, whichever is shorter."""
+    T, B, K = x.shape
+    adds = int(x.sum(dtype=torch.int64)) * n_out  # no pruning: all enabled
+    return _bound("K5", T * B * K + K * n_out * 2 + T * B * n_out * 5
+                  + B * n_out * 4, adds + 10 * T * B * n_out, ms, plain_ms,
+                  what, tc_ops=2 * T * B * K * n_out * 2)
+
+
+def _time_k5(spikes, wide_params, dev) -> tuple[dict, torch.Tensor,
+                                                torch.Tensor]:
+    """K5 at (T, 1,024, 2048 -> 2048), fed the wide stack's first hidden
+    layer's spike train, and at the head of 784 -> 16384 -> 10 (K = 16,384
+    over one padded 128-column tile, fed a 16,384-wide hidden layer's
+    train), both trains made by the plain version from ``spikes``, the
+    encoder's (T, 1,024, 784) train.  Returns the times, the 2048-wide
+    train and the second layer's codes."""
+    T, B = spikes.shape[:2]
     lif = cfgs.SNN_CONFIG_WIDE.lif
     kw = dict(decay_shift=lif.decay_shift, v_threshold=lif.v_threshold,
               v_rest=lif.v_rest, v_min=lif.v_min, v_max=lif.v_max)
     w0, w1 = (torch.from_numpy(l["w_q"]).to(dev)
               for l in wide_params["layers"][:2])
-    x = ops.lif_forward_op(spikes[:, :, :784], w0, **kw)[0].contiguous()
+    x = lif_step.lif_forward_plain(spikes, w0, **kw)[0]
     K, N = w1.shape
     ms = _device_ms(lambda: lif_step.lif_forward(x, w1, **kw), 20)
     plain = _plain_ms(lambda: lif_step.lif_forward_plain(x, w1, **kw), 3)
-    adds = int(x.sum()) * N               # no pruning: every neuron enabled
-    times["K5"] = _bound(
-        "K5", T * B * K + K * N * 2 + T * B * N * 5 + B * N * 4,
-        adds + 10 * T * B * N, ms, plain,
-        f"T={T} B={B} {K}->{N} (input density {float(x.float().mean()):.4f})")
-    # K5's contraction alone (not its function: the LIF recurrence follows)
+    out = _k5_bound(x, w1, N, ms, plain,
+                    f"T={T} B={B} {K}->{N} (input density "
+                    f"{float(x.float().mean()):.4f})")
+    # its contraction alone (not its function: the LIF recurrence follows)
     # is one float32 product over the whole spike train
     xf, wf = x.reshape(T * B, K).float(), w1.float()
-    times["K5"]["contraction_library_ms"] = _device_ms(
-        lambda: torch.matmul(xf, wf), 20)
+    out["contraction_library_ms"] = _device_ms(lambda: torch.matmul(xf, wf),
+                                               20)
     log(f"[times] K5 its contraction alone, one torch.matmul in float32 "
         f"({T * B}, {K}) x ({K}, {N}): "
-        f"{times['K5']['contraction_library_ms'] * 1e3:.2f} us")
-    times["K6_path"] = phase_k6_path(x, w1)
-    times["K3"] = _time_k3(dev)
-    times["K6"] = _time_k6(dev)
-    return times
+        f"{out['contraction_library_ms'] * 1e3:.2f} us")
+    del xf
+    # the head: 784 -> 16384 with fan-in codes, then 16384 -> 10 (padded to
+    # 128 columns, as lif_forward_op pads it)
+    rng = np.random.default_rng(SEED + 29)
+    wa, wb = _fan_in_weights(rng, (784, HEAD_WIDTH, 10), dev)
+    h = lif_step.lif_forward_plain(spikes, wa, **kw)[0]
+    wbp = ops._pad_to(wb, 1, lif_step.BLOCK[1])
+    got = lif_step.lif_forward(h, wbp, **kw)
+    torch.cuda.synchronize()
+    if _max_abs_err(got, lif_step.lif_forward_plain(h, wbp, **kw)):
+        raise AssertionError("K5 != plain at the head shape")
+    ms = _device_ms(lambda: lif_step.lif_forward(h, wbp, **kw), 5)
+    plain = _plain_ms(lambda: lif_step.lif_forward_plain(h, wbp, **kw), 2)
+    head = _k5_bound(h, wb, 10, ms, plain,
+                     f"head T={T} B={B} {HEAD_WIDTH}->10 (padded to 128; "
+                     f"input density {float(h.float().mean()):.4f})")
+    out["head"] = head
+    return out, x, w1
 
 
 def phase_k6_path(x, w) -> dict:

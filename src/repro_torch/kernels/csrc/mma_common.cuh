@@ -1,7 +1,7 @@
 // PTX wrappers shared by the kernels that run on the int8 tensor cores: the
 // weight-streaming stack kernel (fused_snn_streamed.cu), the partial
-// contraction (partial_contraction.cu) and the spike matmul
-// (spike_matmul.cu).  cp.async copies of 16-byte pieces into shared memory,
+// contraction (partial_contraction.cu), the spike matmul (spike_matmul.cu)
+// and the staged LIF kernel (lif_step.cu).  cp.async copies of 16-byte pieces into shared memory,
 // ldmatrix fragment loads, and mma.sync m16n8k32 with s32 accumulators in
 // the three operand signednesses the kernels use.  None of the MMAs
 // saturates (.satfinite is never given), so an s32 sum wraps modulo 2^32

@@ -21,38 +21,21 @@
 // INT32 rate.  So the tensor cores, not event-driven scalar adds, are the
 // short way: operations bound it, at 8.7 us.
 //
-// Exactness, and why any int16 code is taken: each code splits as
-// w = 256 * hi + lo with hi = w >> 8 (s8) and lo = w & 0xFF (u8).  The
-// spikes are u8.  mma.sync runs .u8.s8 on hi and .u8.u8 on lo, each into
-// s32 accumulators without .satfinite, so each sum is exact modulo 2^32,
-// and (acc_hi << 8) + acc_lo in unsigned arithmetic is sum s * w modulo
-// 2^32: the wrap the plain version applies.  The JAX op casts whatever
-// integer codes it gets, so no int16 code is refused here (a 9-bit split
-// such as the partial contraction's would be exact only on [-256, 255]).
+// Exactness, and why any int16 code is taken: the product runs on the
+// byte planes of the codes, w = 256 * hi + lo, with s32 sums that wrap as
+// int32 does (spike_mma.cuh).  The JAX op casts whatever integer codes it
+// gets, so no int16 code is refused here (a 9-bit split such as the
+// partial contraction's would be exact only on [-256, 255]).
 //
-// The design: a block owns 128 lanes x 128 columns (16 warps of 64 x 16,
-// two along the lanes and eight along the columns, four per scheduler;
-// each warp holds two s32 accumulator sets, hi and lo, of 4 x 2 m16n8k32
-// tiles): at 1,024 x 2048 -> 2048 that is 8 x 16 = 128 blocks, one wave
-// on 132 SMs, reading 96 MB from L2 where 128 x 64 tiles would read
-// 128 MB.  Each block walks K one 128-deep tile a stage through a
-// 4-stage cp.async ring (48 KB a stage: the spike tile, 128 rows of 128
-// bytes, and the code tile, 128 K rows of 128 int16 codes); rows past B
-// are zero-filled.  Fragments come from shared memory by
-// ldmatrix, rows swizzled against bank conflicts:
-//  * spikes (A, row-major, K contiguous): ldmatrix.x4 gives the four A
-//    registers in MMA order; piece c of row r sits at c ^ (r % 8);
-//  * codes (B): the MMA wants each column's K bytes contiguous, but the
-//    codes are (K, N) with N contiguous, and ldmatrix transposes only
-//    16-bit elements.  ldmatrix.x4.trans on the int16 tile gives thread
-//    (g, t) of matrix j the codes of rows 2t and 2t + 1 of column g; the
-//    lanes address the matrices' rows as K = {0, 1, 4, 5, 8, 9, 12, 13}
-//    and {2, 3, 6, 7, 10, 11, 14, 15} (and 16 more), so two registers
-//    hold K = 4t .. 4t + 3 of column g, as the B fragment orders them, and
-//    two byte permutes split them into the hi and the lo register.  Piece
-//    c of K row k sits at c ^ (((k >> 1) & 6) | (k & 1)), which is c ^
-//    (lane % 8) for every ldmatrix address and puts the eight rows of a
-//    matrix on eight bank groups.
+// The design: a block owns 128 lanes x 128 columns, the tile of
+// spike_mma.cuh (16 warps of 64 x 16, two s32 accumulator sets each): at
+// 1,024 x 2048 -> 2048 that is 8 x 16 = 128 blocks, one wave on 132 SMs,
+// reading 96 MB from L2 where 128 x 64 tiles would read 128 MB.  Each
+// block walks K one 128-deep tile a stage through a 4-stage cp.async ring
+// (48 KB a stage); rows past B are zero-filled.  Fragments come from
+// shared memory by ldmatrix over swizzled rows, the codes split into
+// their byte planes in registers (spike_mma.cuh).
+//
 // masked runs the same MMAs on the indicator of the spike tile: once its
 // copies have landed, each thread rewrites its own pieces of the staged
 // tile to [byte != 0], before the barrier that hands the stage to the
@@ -91,63 +74,14 @@
 // copies and a persistent grid that overlaps one tile's epilogue with the
 // next tile's loads are the next steps; mma.sync was the smaller first
 // one.
-#include "mma_common.cuh"
-#include "snn_stack_common.cuh"
+#include "spike_mma.cuh"
 
-#define SM_THREADS 512  // 16 warps, 2 (lanes) x 8 (columns)
-#define SM_BM 128       // lanes per block
-#define SM_BN 128       // columns per block
-#define SM_BK TILE      // K per stage: one K tile
 #define SM_STAGES 4
-#define SM_MI 4         // m16 tiles per warp: 64 lanes
-#define SM_NA 2         // n8 tiles per warp: 16 columns
-#define SM_WP (SM_BN * 2 / 16)         // 16-byte pieces per code row
-#define SM_WROWS (SM_THREADS / SM_WP)  // code rows copied per pass
-
-struct SmStage {
-  uint8_t s[SM_BM][SM_BK];   // lane rows of 128 K bytes
-  int16_t w[SM_BK][SM_BN];   // K rows of SM_BN codes
-};
 #define SM_SMEM (SM_STAGES * (int)sizeof(SmStage))
 
 // 1 in each byte of x that is not 0, else 0.
 __device__ __forceinline__ unsigned nonzero_bytes(unsigned x) {
   return ((((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) >> 7) & 0x01010101u;
-}
-
-// One stage of a warp's 64 x 16 tile: four k32 steps, each one
-// ldmatrix.x4 per m16 tile of spikes and one ldmatrix.x4.trans per n8
-// tile of codes, split into hi and lo, then one MMA per (plane, m16, n8).
-// a_row is the shared address of this lane's first spike row, b_row its
-// code row of the k32 step's first K (+ 32 rows a step), b_col0 the
-// warp's first code piece, l7 this lane's swizzle.
-__device__ __forceinline__ void sm_stage_mma(
-    int (&acc)[2][SM_MI][SM_NA][4], unsigned a_row, unsigned b_row,
-    int b_col0, int a_hi, int l7) {
-#pragma unroll
-  for (int kk = 0; kk < SM_BK / 32; ++kk) {
-    unsigned a[SM_MI][4];
-#pragma unroll
-    for (int mi = 0; mi < SM_MI; ++mi)
-      ldsm_x4(a[mi], a_row + mi * 16 * SM_BK + (((2 * kk + a_hi) ^ l7) << 4));
-#pragma unroll
-    for (int ni = 0; ni < SM_NA; ++ni) {
-      unsigned r[4];
-      ldsm_x4_trans(r, b_row + kk * 32 * (SM_BN * 2) +
-                           (((b_col0 + ni) ^ l7) << 4));
-      // r[0], r[1]: codes of K 4t .. 4t + 3 (two per register, low half
-      // first), r[2], r[3] those of K 16 + 4t ..; byte 0 of a code is lo
-      const unsigned hi0 = __byte_perm(r[0], r[1], 0x7531);
-      const unsigned lo0 = __byte_perm(r[0], r[1], 0x6420);
-      const unsigned hi1 = __byte_perm(r[2], r[3], 0x7531);
-      const unsigned lo1 = __byte_perm(r[2], r[3], 0x6420);
-#pragma unroll
-      for (int mi = 0; mi < SM_MI; ++mi) {
-        mma_u8s8(acc[0][mi][ni], a[mi], hi0, hi1);
-        mma_u8u8(acc[1][mi][ni], a[mi], lo0, lo1);
-      }
-    }
-  }
 }
 
 __global__ void __launch_bounds__(SM_THREADS, 1)
@@ -164,63 +98,26 @@ __global__ void __launch_bounds__(SM_THREADS, 1)
   const int nkt = K / SM_BK;
   const bool masked = *masked_flag != 0;
 
-  // The copies: thread t moves 16-byte piece t % 8 of spike rows t / 8 and
-  // t / 8 + 64 (a row past B is zero-filled and read from nowhere), and
-  // piece t % SM_WP of code rows t / SM_WP + i * SM_WROWS, whose swizzle
-  // is the same for every i.  Offsets are 32-bit (the C entry checks the
-  // sizes), so no derived 64-bit pointer stays live across the K loop.
-  const int piece = t & 7, rsub = t >> 3;
-  const int dst = rsub * SM_BK + ((piece ^ (rsub & 7)) << 4);  // +64 alike
-  const unsigned s_off = (unsigned)(row0 + rsub) * K + piece * 16;
-  const bool oks0 = row0 + rsub < B, oks1 = row0 + rsub + 64 < B;
-  const int wpc = t % SM_WP, wr = t / SM_WP;
-  const int w_dst = wr * SM_BN + ((wpc ^ (((wr >> 1) & 6) | (wr & 1))) << 3);
-  const unsigned w_off = (unsigned)wr * N + col0 + wpc * 8;
-  auto load = [&](int kt, int buf) {
-    const unsigned k = (unsigned)kt * SM_BK;
-    uint8_t* ss = &stage[buf].s[0][0] + dst;
-    cp_async16_zfill(ss, s + (oks0 ? s_off + k : 0u), oks0);
-    cp_async16_zfill(ss + 64 * SM_BK, s + (oks1 ? s_off + 64u * K + k : 0u),
-                     oks1);
-    int16_t* sw = &stage[buf].w[0][0] + w_dst;
-#pragma unroll
-    for (int i = 0; i < SM_BK / SM_WROWS; ++i)
-      cp_async16_zfill(sw + i * SM_WROWS * SM_BN,
-                       w + (w_off + (k + i * SM_WROWS) * (unsigned)N), true);
-  };
+  // The copies (spike_mma.cuh): offsets are 32-bit (the C entry checks
+  // the sizes), so no derived 64-bit pointer stays live across the K loop.
+  const SmCopy cp = sm_copy_init(t, row0, col0, B, K, N);
 #pragma unroll
   for (int p = 0; p < SM_STAGES - 1; ++p) {
-    if (p < nkt) load(p, p);
+    if (p < nkt)
+      sm_load<false>(stage[p], cp, s, w, (unsigned)p * SM_BK, K, N);
     cp_async_commit();
   }
 
-  // Warp tile: lanes wm * 64 + [0, 64), columns wn * 16 + [0, 16).
-  // ldmatrix rows: lane L addresses row L % 8 of matrix L / 8; for spikes
-  // matrices 0-3 are (rows 0-7, 8-15) x (K bytes 0-15, 16-31) of an m16
-  // tile, for codes K rows {0,1,4,5,8,9,12,13} + 2 * (L / 8 % 2) + 16 *
-  // (L / 16) of an n8 tile's 16-byte column piece.
   const int wm = warp >> 3, wn = warp & 7;
-  const int l7 = lane & 7, a_hi = lane >> 4;
-  const int m = lane >> 3;
-  const int b_k = 16 * (m >> 1) + 4 * (l7 >> 1) + (l7 & 1) + 2 * (m & 1);
-  const unsigned a_off = (wm * SM_MI * 16 + l7 + (m & 1) * 8) * SM_BK;
-  const unsigned b_off = b_k * (SM_BN * 2);
-  const int b_col0 = wn * SM_NA;
-  int acc[2][SM_MI][SM_NA][4];
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int mi = 0; mi < SM_MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < SM_NA; ++ni)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[p][mi][ni][j] = 0;
+  const SmFrag f = sm_frag_init(warp, lane);
+  SmAcc acc;
+  sm_acc_zero(acc);
 
   for (int kt = 0; kt < nkt; ++kt) {
     cp_async_wait<SM_STAGES - 2>();  // this thread's copies of kt landed
     SmStage& st = stage[kt % SM_STAGES];
     if (masked) {  // own pieces to [byte != 0]; the barrier publishes them
-      uint8_t* own = &st.s[0][0] + dst;
+      uint8_t* own = &st.s[0][0] + cp.dst;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         uint4* v = (uint4*)(own + h * 64 * SM_BK);
@@ -234,16 +131,14 @@ __global__ void __launch_bounds__(SM_THREADS, 1)
     }
     __syncthreads();  // stage kt is complete; stage kt - 1 is free to refill
     if (kt + SM_STAGES - 1 < nkt)
-      load(kt + SM_STAGES - 1, (kt + SM_STAGES - 1) % SM_STAGES);
+      sm_load<false>(stage[(kt + SM_STAGES - 1) % SM_STAGES], cp, s, w,
+                     (unsigned)(kt + SM_STAGES - 1) * SM_BK, K, N);
     cp_async_commit();
-    const unsigned sx = (unsigned)__cvta_generic_to_shared(&st.s[0][0]);
-    const unsigned sw = (unsigned)__cvta_generic_to_shared(&st.w[0][0]);
-    sm_stage_mma(acc, sx + a_off, sw + b_off, b_col0, a_hi, l7);
+    sm_stage_mma(acc, st, f);
   }
   cp_async_wait<0>();
 
-  // (acc_hi << 8) + acc_lo in unsigned arithmetic.  Element j of an m16n8
-  // tile sits at row g (j < 2) or g + 8, column 2 * tig + (j & 1).
+  // (acc_hi << 8) + acc_lo in unsigned arithmetic (sm_combine).
 #pragma unroll
   for (int mi = 0; mi < SM_MI; ++mi) {
 #pragma unroll
@@ -256,8 +151,8 @@ __global__ void __launch_bounds__(SM_THREADS, 1)
         int v[2];
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-          v[j] = (int)(((unsigned)acc[0][mi][ni][2 * h + j] << 8) +
-                       (unsigned)acc[1][mi][ni][2 * h + j]);
+          v[j] = sm_combine(acc[0][mi][ni][2 * h + j],
+                            acc[1][mi][ni][2 * h + j]);
         *(int2*)(o + ni * 8) = make_int2(v[0], v[1]);
       }
     }

@@ -5,8 +5,11 @@ Port of ``repro.kernels.lif_step.lif_forward_pallas``, the per-layer stage
 of the staged backend: ``T`` steps of Σ W·S over the step's input spikes,
 enable mask, saturating add, shift leak, fire, hard reset and active
 pruning, from fresh state (membranes at ``v_rest``, every neuron enabled).
-It takes any int16 weight code, so it is also the backend for codes wider
-than the fused kernels' signed 9-bit range.
+Each step's current counts the spike bytes by value, as the JAX body's
+dot does (a byte of 2 adds its code twice).  It takes any int16 weight
+code, so it is also the backend for codes wider than the fused kernels'
+signed 9-bit range.  The kernel runs each step's Σ W·S on the int8 tensor
+cores and the LIF update in its epilogue.
 
 :func:`lif_forward` is the wrapper: for CUDA tensors it launches the
 kernel of ``csrc/lif_step.cu`` (and counts the launch in
@@ -20,9 +23,10 @@ import torch
 
 from ._build import check_operand, launch
 
-__all__ = ["BLOCK", "lif_forward", "lif_forward_plain"]
+__all__ = ["BLOCK", "K_ALIGN", "lif_forward", "lif_forward_plain"]
 
-BLOCK = (8, 128)        # (lanes, output columns) per thread block
+BLOCK = (8, 128)        # (lanes, output columns) the operands pad to
+K_ALIGN = 16            # the kernel copies 16-byte pieces of spike rows
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -70,11 +74,13 @@ def lif_forward(spikes_u8: torch.Tensor, w_i16: torch.Tensor, *,
                 active_pruning: bool = False):
     """Run one LIF layer over ``spikes_u8`` (T, B, K) uint8 with ``w_i16``
     (K, N) int16; B a multiple of 8 and N of 128 (as ``kernels.ops.
-    lif_forward_op`` pads them).
+    lif_forward_op`` pads them), and on CUDA K a multiple of 16 with both
+    operands 16-byte aligned.
 
     Outputs as :func:`lif_forward_plain`.  CUDA tensors launch the kernel
     (one launch, counted in ``lif_forward.launches``); CPU tensors run the
-    plain version.
+    plain version.  The kernel chooses its K split over a thread-block
+    cluster from the shape and the card.
     """
     if spikes_u8.ndim != 3 or w_i16.ndim != 2:
         raise ValueError(f"spikes must be (T, B, K) and weights (K, N), got "
@@ -92,10 +98,14 @@ def lif_forward(spikes_u8: torch.Tensor, w_i16: torch.Tensor, *,
     if dev.type != "cuda":
         raise ValueError(f"no LIF kernel for device {dev}")
     bB, bN = BLOCK
-    if B == 0 or B % bB or N == 0 or N % bN:
+    if B == 0 or B % bB or N == 0 or N % bN or K % K_ALIGN:
         raise ValueError(f"the LIF kernel takes a batch that is a multiple "
-                         f"of {bB} and an output width that is a multiple "
-                         f"of {bN}, got B={B}, N={N}")
+                         f"of {bB}, an input width that is a multiple of "
+                         f"{K_ALIGN} and an output width that is a multiple "
+                         f"of {bN}, got B={B}, K={K}, N={N}")
+    if spikes_u8.data_ptr() % 16 or w_i16.data_ptr() % 16:
+        raise ValueError("the LIF kernel copies 16-byte pieces: spikes_u8 "
+                         "and w_i16 must be 16-byte aligned")
     spk = torch.empty((T, B, N), dtype=torch.uint8, device=dev)
     vtr = torch.empty((T, B, N), dtype=torch.int32, device=dev)
     vfin = torch.empty((B, N), dtype=torch.int32, device=dev)

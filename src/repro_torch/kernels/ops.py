@@ -63,6 +63,22 @@ def _int16_codes(w_q: torch.Tensor, op: str) -> torch.Tensor:
     return w_q.to(torch.int16)
 
 
+def _uint8_spikes(spikes: torch.Tensor, op: str) -> torch.Tensor:
+    """``spikes`` as uint8 bytes: uint8 goes through as it is, bool becomes
+    0 / 1; any other dtype is cast only when every value fits [0, 255] and
+    raises otherwise, since the JAX op would count such values exactly
+    where a cast wraps them."""
+    if spikes.dtype == torch.uint8:
+        return spikes
+    if spikes.dtype != torch.bool and spikes.numel() and (
+            int(spikes.min()) < 0 or int(spikes.max()) > 255):
+        raise ValueError(
+            f"{op} takes uint8 spike bytes; values span "
+            f"[{int(spikes.min())}, {int(spikes.max())}], outside [0, 255], "
+            f"and a cast would wrap them")
+    return spikes.to(torch.uint8)
+
+
 def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
     """Zero-pad ``axis`` up to a multiple of ``mult`` (uint32 via int32)."""
     pad = (-x.shape[axis]) % mult
@@ -102,16 +118,22 @@ def lif_forward_op(spikes_t: torch.Tensor, w_q: torch.Tensor, *,
     (T, B, n_out) int32, v_final (B, n_out) int32)``.
 
     Pads batch to 8 and n_out to 128 (padded columns carry zero weights
-    and are cut before anything reads them); n_in is not padded.  Any int16
+    and are cut before anything reads them).  n_in is padded, with zero
+    spikes and zero weight rows, only where it is not a multiple of 16:
+    the kernel copies 16-byte pieces of spike rows and zero-fills its own
+    K tail.  Spike bytes count by value, as in the JAX op's dot; a spike
+    train of a wider dtype with values outside [0, 255] raises.  Any int16
     code is exact here; codes of a wider dtype outside int16 raise.
     """
     T, B, _ = spikes_t.shape
     n_out = w_q.shape[1]
     bB, bN = lif_step.BLOCK
+    spikes = _pad_to(_pad_to(_uint8_spikes(spikes_t, "lif_forward_op"), 1,
+                             bB), 2, lif_step.K_ALIGN)
+    w = _pad_to(_pad_to(_int16_codes(w_q, "lif_forward_op"), 1, bN), 0,
+                lif_step.K_ALIGN)
     spk, vtr, vfin = lif_step.lif_forward(
-        _pad_to(spikes_t.to(torch.uint8), 1, bB),
-        _pad_to(_int16_codes(w_q, "lif_forward_op"), 1, bN),
-        decay_shift=decay_shift,
+        spikes, w, decay_shift=decay_shift,
         v_threshold=v_threshold, v_rest=v_rest, v_min=v_min, v_max=v_max,
         active_pruning=active_pruning)
     return spk[:, :B, :n_out], vtr[:, :B, :n_out], vfin[:B, :n_out]

@@ -202,22 +202,39 @@ def test_encoder_kernel_equals_plain(card, b, n, t):
     _assert_equal(got, poisson_encode.poisson_encode_plain(px, st, t), "K4")
 
 
-@pytest.mark.parametrize("prune", [False, True])
-@pytest.mark.parametrize("lo,hi", [(-256, 255), (-2000, 2000)])
-def test_lif_kernel_equals_plain(card, prune, lo, hi):
-    rng = np.random.default_rng(hi)
-    T, B, K, N = 6, 16, 200, 256
-    spikes = torch.from_numpy(rng.integers(0, 2, (T, B, K), dtype=np.uint8)) \
-        .to(card)
-    w = torch.from_numpy(rng.integers(lo, hi + 1, (K, N)).astype(np.int16)) \
-        .to(card)
-    kw = dict(decay_shift=4, v_threshold=128, active_pruning=prune)
+# chip_smoke.K5_CASES (spike bytes 0/1/2/255, int16 extremes in every
+# column, 1,021 / 1,000 / 24 lanes, K = 784 and 64, N = 10 padded to 128,
+# T = 1 and 20, pruning, K splits of 1, 4 and 8, the 2^31 wrap), then the
+# earlier cases: 16 lanes, K = 200 (padded to 208), codes of 9 bits and
+# ±2000.
+_K5_CASES = chip_smoke.K5_CASES + [
+    (6, 16, 200, 256, 0.5, "0/1", codes, prune)
+    for codes in ("9-bit", "±2000") for prune in (False, True)]
+
+
+@pytest.mark.parametrize("i", range(len(_K5_CASES)))
+def test_lif_kernel_equals_plain(card, i):
+    """K5 on the int8 tensor cores equals the plain version bit for bit on
+    spikes, trace and final membrane, one launch per call, and fires."""
+    assert chip_smoke.k5_case(card, _K5_CASES[i], seed=100 + i) > 0
+
+
+def test_lif_kernel_refuses_bad_operands(card):
+    """The kernel copies 16-byte pieces of spike rows: K not a multiple of
+    16 and a view off a 16-byte boundary are refused before the launch;
+    nothing is counted."""
+    kw = dict(decay_shift=4, v_threshold=128)
+    w = torch.zeros((200, 128), dtype=torch.int16, device=card)
+    buf = torch.zeros(2 * 8 * 208 + 16, dtype=torch.uint8, device=card)
     before = lif_step.lif_forward.launches
-    got = lif_step.lif_forward(spikes, w, **kw)
-    torch.cuda.synchronize()
-    assert lif_step.lif_forward.launches == before + 1
-    _assert_equal(got, lif_step.lif_forward_plain(spikes, w, **kw), "K5")
-    assert int(got[0].sum()) > 0
+    with pytest.raises(ValueError, match="multiple of 16"):
+        lif_step.lif_forward(torch.zeros((2, 8, 200), dtype=torch.uint8,
+                                         device=card), w, **kw)
+    with pytest.raises(ValueError, match="16-byte"):
+        lif_step.lif_forward(buf[8:8 + 2 * 8 * 208].view(2, 8, 208),
+                             torch.zeros((208, 128), dtype=torch.int16,
+                                         device=card), **kw)
+    assert lif_step.lif_forward.launches == before
 
 
 def test_staged_backend_equals_reference_on_card(card):

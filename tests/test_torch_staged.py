@@ -66,15 +66,37 @@ def test_poisson_encode_op_matches_jax(b, n, t):
     _same(got, want)
 
 
+def _spike_train(rng, shape, kind):
+    """0/1 spikes, or (``"bytes"``) bytes of 0, 1, 2 and 255, which the
+    JAX kernel's dot counts by value."""
+    if kind == "01":
+        return rng.integers(0, 2, shape, dtype=np.uint8)
+    return rng.choice(np.array([0, 1, 2, 255], np.uint8), shape)
+
+
 @pytest.mark.parametrize("prune", [False, True])
-@pytest.mark.parametrize("b,n_in,n_out,t,lo,hi", [
-    (4, 200, 96, 8, -256, 255),
-    (9, 256, 130, 5, -2000, 2000),     # wider than the 9-bit range
-    (3, 33, 10, 6, -32768, 32767),     # the whole int16 range
+@pytest.mark.parametrize("b,n_in,n_out,t,lo,hi,spikes", [
+    pytest.param(4, 200, 96, 8, -256, 255, "01", id="4-200-96-8--256-255"),
+    # wider than the 9-bit range
+    pytest.param(9, 256, 130, 5, -2000, 2000, "01",
+                 id="9-256-130-5--2000-2000"),
+    # the whole int16 range
+    pytest.param(3, 33, 10, 6, -32768, 32767, "01",
+                 id="3-33-10-6--32768-32767"),
+    # spike bytes of 2 and 255 count by value
+    pytest.param(4, 200, 96, 8, -256, 255, "bytes",
+                 id="4-200-96-8--256-255-bytes"),
+    pytest.param(9, 256, 130, 5, -32768, 32767, "bytes",
+                 id="9-256-130-5--32768-32767-bytes"),
+    # n_in not a multiple of 16: the op pads it with zero spikes and rows
+    pytest.param(5, 100, 130, 4, -32768, 32767, "bytes",
+                 id="5-100-130-4--32768-32767-bytes"),
+    pytest.param(8, 1, 10, 3, -256, 255, "01", id="8-1-10-3--256-255"),
 ])
-def test_lif_forward_op_matches_jax(b, n_in, n_out, t, lo, hi, prune):
+def test_lif_forward_op_matches_jax(b, n_in, n_out, t, lo, hi, spikes,
+                                    prune):
     rng = np.random.default_rng(n_in + n_out)
-    spikes = rng.integers(0, 2, (t, b, n_in), dtype=np.uint8)
+    spikes = _spike_train(rng, (t, b, n_in), spikes)
     w = rng.integers(lo, hi + 1, (n_in, n_out)).astype(np.int16)
     kw = dict(active_pruning=prune, v_min=-(1 << 24), v_max=(1 << 24) - 1,
               **_LIF)
@@ -86,6 +108,67 @@ def test_lif_forward_op_matches_jax(b, n_in, n_out, t, lo, hi, prune):
     assert tlif.lif_forward.launches == before
     _same(got, want)
     assert int(got[0].sum()) > 0
+
+
+def test_lif_forward_op_counts_spike_bytes_by_value():
+    """A byte of 2 adds its code twice, as in the JAX kernel: the trace of
+    bytes {0, 1, 2, 255} is not the trace of the same train binarised."""
+    rng = np.random.default_rng(3)
+    spikes = _spike_train(rng, (4, 8, 48), "bytes")
+    w = rng.integers(-64, 64, (48, 16)).astype(np.int16)
+    kw = dict(v_min=-(1 << 24), v_max=(1 << 24) - 1, **_LIF)
+    want = jops.lif_forward_op(jnp.asarray(spikes), jnp.asarray(w),
+                               interpret=True, **kw)
+    got = tops.lif_forward_op(torch.from_numpy(spikes), torch.from_numpy(w),
+                              **kw)
+    _same(got, want)
+    binary = tops.lif_forward_op(torch.from_numpy(spikes != 0),
+                                 torch.from_numpy(w), **kw)
+    assert not torch.equal(got[1], binary[1])
+
+
+@pytest.mark.parametrize("dtype,bad", [(torch.int16, 256),
+                                       (torch.int32, -1),
+                                       (torch.int64, 1 << 40)])
+def test_lif_forward_op_refuses_spikes_outside_uint8(dtype, bad):
+    """A cast would wrap such spike values where the JAX op counts them
+    exactly, so the port refuses them; values inside [0, 255] of a wider
+    dtype go through as their bytes."""
+    w = torch.ones((5, 3), dtype=torch.int16)
+    spikes = torch.zeros((2, 4, 5), dtype=dtype)
+    spikes[1, 2, 3] = bad
+    before = tlif.lif_forward.launches
+    with pytest.raises(ValueError, match=r"\[0, 255\]"):
+        tops.lif_forward_op(spikes, w, **_LIF)
+    assert tlif.lif_forward.launches == before
+    spikes[1, 2, 3] = 255
+    for a, b in zip(tops.lif_forward_op(spikes, w, **_LIF),
+                    tops.lif_forward_op(spikes.to(torch.uint8), w, **_LIF)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_in,k", [(100, 112), (784, 784), (64, 64),
+                                    (1, 16)])
+def test_lif_forward_op_pads_k_to_16(monkeypatch, n_in, k):
+    """The kernel copies 16-byte pieces of spike rows, so the op hands it
+    n_in padded to a multiple of 16, and only where it is not one."""
+    seen = []
+    real = tlif.lif_forward
+
+    def spy(spikes, w, **kw):
+        seen.append((tuple(spikes.shape), tuple(w.shape)))
+        return real(spikes, w, **kw)
+
+    monkeypatch.setattr(tlif, "lif_forward", spy)
+    rng = np.random.default_rng(n_in)
+    spikes = torch.from_numpy(_spike_train(rng, (3, 5, n_in), "bytes"))
+    w = torch.from_numpy(rng.integers(-300, 300, (n_in, 10))
+                         .astype(np.int16))
+    got = tops.lif_forward_op(spikes, w, **_LIF)
+    assert seen == [((3, 8, k), (k, 128))]
+    want = tlif.lif_forward_plain(spikes, w, **_LIF)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_lif_forward_plain_wraps_in_32_bits():
