@@ -14,16 +14,22 @@ result line):
    shared-memory / spill report.
 3. kernels vs plain — every kernel against its plain PyTorch version on
    the same operands on the card, integer-equal on every output:
-   K1, the resident encode→LIF stack kernel, and K2, the weight-streaming
+   K1, the resident encode→LIF stack kernel (two warps a lane, each
+   thread's PRNG words and pixels in registers, spike lists in shared
+   memory, operands at their real widths), and K2, the weight-streaming
    one (Σ W·S on the int8 tensor cores over the weights' two planes, 64
-   lanes per thread-block cluster), in 16 cases each (counts, trace,
-   first-spike latch, adds, PRNG state, per-layer v / en / v_peak, steps,
-   gate and the three telemetry leaves; gated and ungated, one 20-step
-   launch and 5 chunks of 4, sparse_skip on and off; K1 on the paper
-   config, the pruned first-spike config, the deep stack and a
+   lanes per thread-block cluster, padded operands), in 16 cases each
+   (counts, trace, first-spike latch, adds, PRNG state, per-layer v / en /
+   v_peak, steps, gate and the three telemetry leaves; gated and ungated,
+   one 20-step launch and 5 chunks of 4, sparse_skip on and off; K1 on
+   the paper config, the pruned first-spike config, the deep stack and a
    membrane-readout variant, K2 on the wide stack with two readouts, the
-   deep stack and the membrane variant); K2 on planes placed once in 16
-   more (``K2_CASES``, shared with the card tests: 1,021 and 24 lanes, one
+   deep stack and the membrane variant); K1 in 13 more (``K1_CASES``,
+   shared with the card tests: k0 of 100, 64, 208, 1,040 and 3,072,
+   layers of 37, 130 and 300 columns, heads of 10 and 7, 1,021, 200 and
+   24 lanes, frozen 8-lane blocks with sparse_skip on, 784→1664→10 and
+   784→2176→10, codes in ±2,000); K2 on planes placed once in 16 more
+   (``K2_CASES``, shared with the card tests: 1,021 and 24 lanes, one
    to four layers, codes at -256 and 255 in every column, dead 128-column
    enable tiles in every other 8-lane block, pruning on, stacks of 4,096
    and 7,168 columns too wide for the kernel's v / v_peak stages, gated
@@ -60,9 +66,11 @@ result line):
    784→2048→2048→10 stack through K2 (batch 1024, chunk 4, patience 2,
    seeded random weight codes).  Every launch of each main path is
    counted, the results must equal the reference backend's on the card id
-   for id, and the wide stack's hidden layers must spike at 1–50%; the
-   wide serve runs once more under ``torch.profiler``, whose trace gives
-   K2's own device time over its launches and the grid it launched.  Then
+   for id, and the wide stack's hidden layers must spike at 1–50%; each
+   serve runs once more under ``torch.profiler``: the 784→10 one for K1's
+   device time and the other kernels' (the glue) and copies' per chunk,
+   the wide one for K2's own device time over its launches and the grid
+   it launched.  Then
    ``ShardedSNNStreamEngine`` serves the same 4,096 wide-stack requests on
    a 1×4 (data × model) mesh of the one card through K3 alone (no K1 or
    K2 launch), with results equal to the K2 run's id for id; it is served
@@ -73,8 +81,11 @@ result line):
    5 + 5), each equal to the single-device run.  The K6 path routes a
    wide hidden layer's 20-step spike train through ``spike_matmul_op``'s
    density dispatch.
-5. times — each kernel and its plain version at the main path's shapes,
-   with the bound: the larger of the bytes the function must move
+5. times — each kernel and its plain version at the main path's shapes
+   (K1 at ``SNN_CONFIG`` and at ``SNN_CONFIG_DEEP``, with the bytes its
+   launch moves and the host time per wrapper call and per
+   ``fused_snn_stack_op`` call), with the bound: the larger of the bytes
+   the function must move
    (unpadded shapes, each input read once, each output written once) at
    3.35 TB/s and its integer operations at the card's INT32 rate; for K2,
    K3, K5 and K6, whose contraction runs on two int8 weight planes, the
@@ -321,9 +332,16 @@ def _same_window(one, chunks) -> None:
         raise AssertionError("chunked != one-shot on the gate")
 
 
-def _gate(batch, dev):
+def _gate(batch, dev, frozen="some"):
+    """Fresh gate state with lanes frozen from t=0: every 13th lane
+    (``"some"``), none (``"none"``), or (``"blocks"``) every 13th lane and
+    every lane of each third 8-lane block, whose would-be spikes and
+    enables still set its block's tile flags."""
     act = torch.ones(batch, dtype=torch.bool, device=dev)
-    act[::13] = False                             # lanes frozen from t=0
+    if frozen != "none":
+        act[::13] = False
+    if frozen == "blocks":
+        act[(torch.arange(batch, device=dev) // 8) % 3 == 1] = False
     return {"active": act,
             "prev": torch.full((batch,), -1, dtype=torch.int32, device=dev),
             "streak": torch.zeros(batch, dtype=torch.int32, device=dev)}
@@ -366,11 +384,81 @@ def _stack_cases(dev, tag, kernel, cases) -> tuple[int, int]:
 
 
 def phase_kernel_vs_plain(dev) -> tuple[int, int]:
-    return _stack_cases(dev, "K1", fused_snn.fused_snn_stack, [
+    n_cases, err = _stack_cases(dev, "K1", fused_snn.fused_snn_stack, [
         ("SNN_CONFIG", "count", False, _weights),
         ("SNN_CONFIG_PRUNED", "first_spike", True, _weights),
         ("SNN_CONFIG_DEEP", "count", False, _weights),
         ("SNN_CONFIG", "membrane", False, _weights)])
+    t0 = time.perf_counter()
+    for i, case in enumerate(K1_CASES):
+        k1_edge_case(dev, case, SEED + 50 + i)
+        n_cases += 1
+    log(f"[K1-vs-plain] {len(K1_CASES)} edge cases equal, "
+        f"{time.perf_counter() - t0:.2f} s")
+    return n_cases, err
+
+
+# (widths, lanes, readout, pruning, gate, sparse_skip) for K1 at the
+# operands' real widths: k0 of 100 (padded to 112 by the op), 64, 208,
+# 1,040 and 3,072 (one, two and three register slots of 16 pixels per
+# thread); layers of 37, 130 and 300 columns (masked column tails, 1 to 3
+# tiles); 1,021, 200 and 24 lanes (a ragged last 8-lane block); frozen
+# lanes with sparse_skip on ("blocks": every 13th lane and each third
+# 8-lane block frozen from t=0); the widest one-hidden-layer stack the
+# earlier shared-memory layout held (784 -> 1664 -> 10) and the widest
+# this one holds (784 -> 2176 -> 10); codes outside the 9-bit range (a
+# seventh field, the codes' bound); and a head of 7 columns.
+# tests/test_torch_kernels_cuda.py runs the same cases.
+K1_CASES = [
+    ((100, 37, 10), CHECK_BATCH, "count", False, "blocks", True),
+    ((784, 130, 10), 24, "first_spike", True, "some", True),
+    ((784, 130, 10), 24, "count", False, None, False),
+    ((784, 300, 64, 10), CHECK_BATCH, "membrane", False, "blocks", True),
+    ((64, 10), CHECK_BATCH, "count", False, "none", True),
+    ((784, 10), 24, "count", False, "blocks", True),
+    ((1040, 64, 10), 24, "first_spike", True, "some", True),
+    ((3072, 10), CHECK_BATCH, "count", False, "blocks", True),
+    ((784, 1664, 10), CHECK_BATCH, "count", False, "blocks", True),
+    ((784, 2176, 10), 24, "membrane", False, "some", False),
+    ((784, 10), 200, "first_spike", False, "some", True, 2000),
+    ((784, 64, 10), 24, "count", True, "blocks", True, 2000),
+    ((208, 7), CHECK_BATCH, "count", False, "some", True),
+]
+
+
+def k1_edge_case(dev, case, seed) -> int:
+    """K1 against its plain version on the same real-width operands in one
+    ``K1_CASES`` case: one 20-step launch and five chunks of 4, each launch
+    equal to the plain version and counted once, the chunks equal to the
+    one launch.  Returns the output spikes of the window."""
+    sizes, b, readout, prune, frozen, sparse_skip = case[:6]
+    bound = case[6] if len(case) > 6 else 256
+    rng = np.random.default_rng(seed)
+    cfg = dataclasses.replace(cfgs.SNN_CONFIG, layer_sizes=sizes,
+                              readout=readout, active_pruning=prune)
+    ws = tuple(
+        torch.from_numpy(np.clip(np.round(rng.normal(
+            0.0, 350.0 * bound / 256 / np.sqrt(i), (i, o))), -bound,
+            bound - 1).astype(np.int16)).to(dev)
+        for i, o in zip(sizes[:-1], sizes[1:]))
+    px = torch.from_numpy(_images(rng, b, sizes[0])).to(dev)
+    st = seed_state(seed, (b, sizes[0]), device=dev)
+    gate = None if frozen is None else _gate(b, dev, frozen)
+    kw = _lif_kw(cfg, readout, sparse_skip)
+    before = fused_snn.fused_snn_stack.launches
+    one, _ = _run_window(cfg, px, st, ws, kw, gate, cfg.num_steps, True)
+    chunks, _ = _run_window(cfg, px, st, ws, kw, gate, 4, True)
+    if fused_snn.fused_snn_stack.launches != before + 6:
+        raise AssertionError("K1 did not count one launch per call")
+    _same_window(one, chunks)
+    spikes = int(one[0]["spike_counts"].sum())
+    if spikes == 0:
+        raise AssertionError(f"K1 case {case}: no output spikes")
+    log(f"[K1-vs-plain] B={b} {'->'.join(map(str, sizes))} "
+        f"readout={readout:11s} prune={prune!s:5s} frozen={frozen!s:6s} "
+        f"sparse_skip={sparse_skip!s:5s} codes in [{-bound}, {bound - 1}] "
+        f"T=20 one-shot + 5x4: equal (output spikes {spikes})")
+    return spikes
 
 
 def phase_streamed_vs_plain(dev) -> tuple[int, int]:
@@ -398,10 +486,12 @@ def phase_streamed_vs_plain(dev) -> tuple[int, int]:
                                        gate=gate, streamed=True)
         kw = dict(_lif_kw(cfg, cfg.readout, True), chunk_steps=cfg.num_steps,
                   block_b=meta["block_b"])
-        k1 = fused_snn.fused_snn_stack(*args, **kw)
-        k2 = fused_snn.fused_snn_stack_streamed(*planes, **kw)
+        k1 = ops.stack_results(fused_snn.fused_snn_stack(*args, **kw), meta)
+        k2 = ops.stack_results(
+            fused_snn.fused_snn_stack_streamed(*planes, **kw), meta)
         torch.cuda.synchronize()
-        e = _max_abs_err(k2, k1)
+        e = _max_abs_err(*([tuple(v.values()) if isinstance(v, dict) else v
+                            for v in r.values()] for r in (k2, k1)))
         if e:
             raise AssertionError(f"K2 != K1 on SNN_CONFIG_DEEP (max |err| {e})")
     log("[K2-vs-K1] SNN_CONFIG_DEEP gated and ungated, T=20: every output "
@@ -443,7 +533,7 @@ def k2_edge_case(dev, case, gated, seed) -> int:
         if kind == "extremes":
             w[0::3], w[1::3] = -256, 255
         ws.append(torch.from_numpy(w).to(dev))
-    codes = ops.stack_weights(ws, sizes[0])[0]
+    codes = tuple(ops._pad2(w, fused_snn.LANE, fused_snn.LANE) for w in ws)
     planes = ops.stack_weights(ws, sizes[0], streamed=True)[0]
     px = torch.from_numpy(_images(rng, b, sizes[0])).to(dev)
     st = seed_state(seed, (b, sizes[0]), device=dev)
@@ -469,7 +559,7 @@ def k2_edge_case(dev, case, gated, seed) -> int:
     out_spikes = 0
     for _ in range(T // 4):
         args, meta = ops.stack_operands(px, st, ws, num_steps=T, init=init,
-                                        gate=gate)
+                                        gate=gate, streamed=True)
         args[2] = planes
         before = fused_snn.fused_snn_stack_streamed.launches
         got = fused_snn.fused_snn_stack_streamed(
@@ -1082,7 +1172,25 @@ def phase_serve(imgs, params, cfg, tag, backend) -> dict:
         f"{len(want) / ref_wall:.1f} requests/s; results equal id for id")
     out = {"launches": launched[tag], "chunks": eng.dispatches,
            "requests_per_s": len(results) / wall, "results": results}
-    if tag != "K2":
+    if tag == "K1":
+        again = _engine(params, cfg, None)
+        for im in imgs:
+            again.submit(im)
+        got, _, events = _cuda_events(again.run)
+        _same_results(got, results, f"{name} profiled serve")
+        own = sum(ms for k, ms, _ in events if "fused_snn_stack_kernel" in k)
+        copies = sum(ms for k, ms, _ in events
+                     if k.startswith(("Memcpy", "Memset")))
+        glue = sum(ms for _, ms, _ in events) - own - copies
+        n = again.dispatches
+        log(f"[serve] {name} profiled once more (torch.profiler, CUDA "
+            f"events): K1 {own:.4f} ms, the other kernels (glue) "
+            f"{glue:.4f} ms, copies {copies:.4f} ms of device time over "
+            f"{n} chunks: per chunk K1 {own / n * 1e3:.2f} us, glue "
+            f"{glue / n * 1e3:.2f} us, copies {copies / n * 1e3:.2f} us; "
+            f"results equal")
+        out.update(serve_device_ms=own, glue_device_ms=glue,
+                   copy_device_ms=copies)
         return out
     again = _engine(params, cfg, None)
     for im in imgs:
@@ -1113,27 +1221,35 @@ def _same_results(got, want, what) -> None:
             raise AssertionError(f"{what}: request {rid}: {g} != {w}")
 
 
-def _device_busy_ms(run) -> tuple[float, float, list]:
-    """Device time of every kernel ``run()`` launches, summed over the
-    kernel events of a ``torch.profiler`` trace (the operators that launch
-    them carry the same time again, so they are left out; 0.0 when the
-    trace holds no device time), the wall time of that same profiled
-    ``run()`` in ms, and the eight kernels with the most device time:
-    (name, ms, calls)."""
+def _cuda_events(run) -> tuple:
+    """``run()`` under ``torch.profiler``: its result, the wall time in ms
+    of that profiled run, and the CUDA events of ``key_averages()`` as
+    (name, device ms, calls): kernels, copies and fills, each counted once
+    (the operators that launch them carry the same time again, so they are
+    left out: F-s)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run()
+        out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ops_ = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.is_user_annotation]
-    ops_.sort(key=lambda o: -o[1])
-    return sum(ms for _, ms, _ in ops_), wall_ms, ops_[:8]
+    events = [(e.key, e.self_device_time_total / 1e3, e.count)
+              for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    return out, wall_ms, events
+
+
+def _device_busy_ms(run) -> tuple[float, float, list]:
+    """Device time of every kernel and copy ``run()`` launches (0.0 when
+    the trace holds no device time), the wall time of that same profiled
+    ``run()`` in ms, and the eight events with the most device time:
+    (name, ms, calls)."""
+    _, wall_ms, events = _cuda_events(run)
+    events.sort(key=lambda o: -o[1])
+    return sum(ms for _, ms, _ in events), wall_ms, events[:8]
 
 
 def phase_mesh_serve(imgs, params, cfg, mesh, lanes, want, dev,
@@ -1358,9 +1474,34 @@ def _time_stack(tag, cfg, imgs, params, dev, kernel, n, m,
              + 10 * SERVE_BATCH * n_neurons * SERVE_CHUNK)
     fn_bytes = _function_bytes(SERVE_BATCH, cfg.layer_sizes, SERVE_CHUNK,
                                gated=True)
-    log(f"[times] {tag} {call_ms * 1e3:.2f} us per wrapper call on the host "
-        f"clock; the launch's padded operands are "
-        f"{_bytes_of(args) + _bytes_of(out)} B")
+    moved = _bytes_of(args) + _bytes_of(out)
+    # the op as the engine calls it: the carried state of that first launch
+    res0 = ops.stack_results(out, meta)
+    init = {k: res0[k] for k in ("v", "en", "v_peak", "steps")}
+    init.update(counts=res0["spike_counts"], first=res0["first_spike_t"])
+    ws_op = args[2] if planes else ws
+    lif = cfg.lif
+
+    def op():
+        return ops.fused_snn_stack_op(
+            px, st, ws_op, num_steps=cfg.num_steps, chunk_steps=SERVE_CHUNK,
+            decay_shift=lif.decay_shift, v_threshold=lif.v_threshold,
+            v_rest=lif.v_rest, v_min=lif.v_min, v_max=lif.v_max,
+            active_pruning=cfg.active_pruning, init=init, gate=gate,
+            patience=SERVE_PATIENCE, readout=cfg.readout, sparse_skip=True,
+            streamed=planes, layer_sizes=cfg.layer_sizes)
+
+    op()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        op()
+    torch.cuda.synchronize()
+    op_ms = (time.perf_counter() - t0) * 1e3 / n
+    log(f"[times] {tag} {call_ms * 1e3:.2f} us per wrapper call and "
+        f"{op_ms * 1e3:.2f} us per fused_snn_stack_op call (the engine's "
+        f"carried state) on the host clock; the launch's operands in and "
+        f"out are {moved} B")
     sizes = cfg.layer_sizes
     tc_ops = None
     if planes:
@@ -1369,7 +1510,15 @@ def _time_stack(tag, cfg, imgs, params, dev, kernel, n, m,
     res = _bound(tag, fn_bytes, n_ops, ms, plain_ms,
                  f"B={SERVE_BATCH} chunk={SERVE_CHUNK} gated "
                  f"{'->'.join(str(k) for k in sizes)}", tc_ops=tc_ops)
-    return dict(res, call_ms=call_ms)
+    return dict(res, call_ms=call_ms, op_call_ms=op_ms, launch_bytes=moved)
+
+
+def _deep_params():
+    """Seeded codes for SNN_CONFIG_DEEP, normal(0, 170 / sqrt(fan-in)), as
+    numpy arrays: K1's second timed shape."""
+    ws = _fan_in_weights(np.random.default_rng(SEED + 31),
+                         cfgs.SNN_CONFIG_DEEP.layer_sizes, "cpu")
+    return {"layers": [{"w_q": w.numpy(), "scale": 1.0 / 128} for w in ws]}
 
 
 def _encoded(imgs, dev):
@@ -1391,6 +1540,9 @@ def phase_times(imgs, params, wide_params, dev) -> dict:
         "K2": _time_stack("K2", cfgs.SNN_CONFIG_WIDE, imgs, wide_params, dev,
                           fused_snn.fused_snn_stack_streamed, 50, 3,
                           planes=True)}
+    times["K1"]["deep"] = _time_stack("K1", cfgs.SNN_CONFIG_DEEP, imgs,
+                                      _deep_params(), dev,
+                                      fused_snn.fused_snn_stack, 200, 3)
     # K4 at (T, 1024, 784): the operands its op hands it, padded to 896
     B, T = SERVE_BATCH, T_STAGED
     pxp, stp, spikes = _encoded(imgs, dev)
@@ -1595,6 +1747,9 @@ def main() -> int:
                      "chunks": serve[tag]["chunks"]}
         else:
             extra = dict(staged[tag])
+        if tag == "K1":
+            for k in ("serve_device_ms", "glue_device_ms", "copy_device_ms"):
+                extra[k] = serve["K1"][k]
         if tag == "K2":
             extra["serve_device_ms"] = serve["K2"]["serve_device_ms"]
             extra["grids"] = serve["K2"]["grids"]

@@ -11,7 +11,7 @@ import torch
 
 from . import prng
 
-__all__ = ["poisson_encode_hw"]
+__all__ = ["poisson_encode_hw", "spike_train_rates"]
 
 
 def poisson_encode_hw(pixels_u8: torch.Tensor, state: torch.Tensor,
@@ -31,3 +31,12 @@ def poisson_encode_hw(pixels_u8: torch.Tensor, state: torch.Tensor,
         state = prng.xorshift32_step(state)
         spikes.append(pixels_u8 > prng.uniform_u8(state))
     return torch.stack(spikes), state
+
+
+def spike_train_rates(spikes: torch.Tensor) -> torch.Tensor:
+    """Empirical firing rate per lane: the float32 mean over the time axis
+    (axis 0), taken as the JAX package's mean is (the sum times the
+    float32 reciprocal of T, F-n), so that the two agree bit for bit."""
+    x = spikes.to(torch.float32)
+    inv = torch.ones((), dtype=torch.float32, device=x.device) / x.shape[0]
+    return x.sum(dim=0) * inv

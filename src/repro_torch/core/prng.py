@@ -14,8 +14,8 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["seed_state", "xorshift32_step", "uniform_u8", "to_carrier",
-           "from_carrier"]
+__all__ = ["seed_state", "xorshift32_step", "xorshift32_sequence",
+           "uniform_u8", "to_carrier", "from_carrier"]
 
 # Golden constant used by the RTL preloader to displace zero seeds.
 _ZERO_SEED_REMAP = np.uint32(0x9E3779B9)
@@ -68,6 +68,20 @@ def _step_carrier(x: torch.Tensor) -> torch.Tensor:
 def xorshift32_step(state: torch.Tensor) -> torch.Tensor:
     """One xorshift32 update: x ^= x<<13; x ^= x>>17; x ^= x<<5 (mod 2^32)."""
     return from_carrier(_step_carrier(to_carrier(state)))
+
+
+def xorshift32_sequence(state: torch.Tensor,
+                        num_steps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run ``num_steps`` updates; returns ``(final_state, states (T, ...))``,
+    every state uint32, as ``repro.core.prng.xorshift32_sequence``."""
+    x, seq = to_carrier(state), []
+    for _ in range(num_steps):
+        x = _step_carrier(x)
+        seq.append(x)
+    if not seq:
+        return state, torch.empty((0, *state.shape), dtype=torch.uint32,
+                                  device=state.device)
+    return from_carrier(x), from_carrier(torch.stack(seq))
 
 
 def uniform_u8(state: torch.Tensor) -> torch.Tensor:

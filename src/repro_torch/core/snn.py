@@ -85,14 +85,17 @@ def fused_unsupported_reason(cfg: SNNConfig, n_layers: int,
     """Why a CUDA stack kernel cannot run this stack (None = it can).
 
     The Hopper feasibility model.  The resident kernel keeps each lane's
-    pixels, PRNG state, per-layer membranes/enables/peaks, readout
-    registers and two spike lists in dynamic shared memory
+    pixels and PRNG state in registers (at most ``K1_MAX_PIXELS`` inputs,
+    counted after padding to ``K1_PIXEL_ALIGN``) and its per-layer
+    membranes/enables/peaks, readout registers and two spike bitmaps in
+    dynamic shared memory at the real widths
     (``kernels.fused_snn.stack_smem_bytes``); the weight-streaming kernel
     (``streamed``) keeps only its 64 lanes' spike bitmaps and small
-    counters there (``stack_streamed_smem_bytes``), whatever the batch.
-    One thread block may claim up to ``SMEM_LIMIT_BYTES`` (232,448 B on
-    sm_90).  Both kernels' parameter blocks hold ``MAX_LAYERS`` layers of
-    at most 65,535 neurons (the resident kernel's uint16 spike indices).
+    counters there (``stack_streamed_smem_bytes``, on the LANE-padded
+    widths), whatever the batch.  One thread block may claim up to
+    ``SMEM_LIMIT_BYTES`` (232,448 B on sm_90).  Both kernels' parameter
+    blocks hold ``MAX_LAYERS`` layers of at most 65,535 neurons (inputs
+    and neurons are indexed in 16 bits).
     On a ``model_shards``-way model axis every layer that divides
     (``kernels.fused_snn.layer_shard_ways``) holds only its
     output-column shard per peer, so the check runs on the per-shard
@@ -116,8 +119,12 @@ def fused_unsupported_reason(cfg: SNNConfig, n_layers: int,
     padded = [int(n) + (-int(n)) % lane for n in sizes]
     if max(padded) > 65535:
         return f"layer widths {tuple(sizes)} exceed the uint16 spike indices"
+    k0 = int(sizes[0]) + (-int(sizes[0])) % fused_snn.K1_PIXEL_ALIGN
+    if not streamed and k0 > fused_snn.K1_MAX_PIXELS:
+        return (f"{sizes[0]} inputs exceed the {fused_snn.K1_MAX_PIXELS} "
+                f"pixels a lane the resident kernel holds in registers")
     need = (fused_snn.stack_streamed_smem_bytes(padded) if streamed else
-            fused_snn.stack_smem_bytes(padded,
+            fused_snn.stack_smem_bytes([k0] + [int(n) for n in sizes[1:]],
                                        fused_snn.block_b_for(local_batch)))
     if need > fused_snn.SMEM_LIMIT_BYTES:
         kind = "streamed working set" if streamed else \

@@ -74,6 +74,15 @@ class ChunkTelemetry(NamedTuple):
         """Executed synaptic adds per (step, layer, lane) — n_spk · n_en."""
         return self.n_spk * self.n_en
 
+    def densities(self, layer_sizes) -> torch.Tensor:
+        """Observed input-spike density per (step, layer, lane) in [0, 1]
+        (float32): layer ``l``'s spikes over its fan-in
+        ``layer_sizes[l]``, the quantity the masked-vs-dot dispatch
+        threshold is compared against."""
+        fan_in = torch.tensor([float(n) for n in layer_sizes[:-1]],
+                              dtype=torch.float32, device=self.n_spk.device)
+        return self.n_spk.to(torch.float32) / fan_in[None, :, None]
+
 
 class EngineLoad(NamedTuple):
     """Host-side load summary of one serving engine (router currency)."""

@@ -20,7 +20,7 @@
 #define MAX_LAYERS 8
 #define MAX_DEVICES 64
 #define TILE 128
-#define BLOCK_B 8  // lanes per thread block, one warp each: 256 threads
+#define BLOCK_B 8  // lanes per batch block (the telemetry's block)
 #define FULL_MASK 0xffffffffu
 
 struct StackParams {
@@ -65,9 +65,14 @@ struct StackParams {
 //       pruning, gated, patience, readout, sparse_skip, smem_bytes, k0,
 //       then n[0..L-1].
 // Fills *p; returns cudaErrorInvalidValue for anything the kernels refuse.
+// With `real_widths` (the resident kernel) the batch is any positive count
+// and the widths are the layers' own, k0 a multiple of 16; otherwise (the
+// streamed kernel) the batch is a multiple of the 8-lane block and every
+// width a multiple of TILE.
 inline cudaError_t stack_params_from_c(const void* ptrs_v, int n_ptrs,
                                        const void* ints_v, int n_ints,
-                                       StackParams* out) {
+                                       StackParams* out,
+                                       bool real_widths = false) {
   void* const* ptrs = (void* const*)ptrs_v;
   const int* ints = (const int*)ints_v;
   if (n_ints < 17) return cudaErrorInvalidValue;
@@ -93,11 +98,14 @@ inline cudaError_t stack_params_from_c(const void* ptrs_v, int n_ptrs,
   p.smem_bytes = ints[15];
   p.k0 = ints[16];
   for (int l = 0; l < p.L; ++l) p.n[l] = ints[17 + l];
-  if (p.bB != BLOCK_B || p.B % p.bB != 0 || p.B <= 0)
+  if (p.bB != BLOCK_B || p.B <= 0 || (!real_widths && p.B % p.bB != 0))
     return cudaErrorInvalidValue;
-  if (p.k0 % TILE != 0 || p.k0 > 65535) return cudaErrorInvalidValue;
+  const int k_mult = real_widths ? 16 : TILE, n_mult = real_widths ? 1 : TILE;
+  if (p.k0 < k_mult || p.k0 % k_mult != 0 || p.k0 > 65535)
+    return cudaErrorInvalidValue;
   for (int l = 0; l < p.L; ++l)
-    if (p.n[l] % TILE != 0 || p.n[l] > 65535) return cudaErrorInvalidValue;
+    if (p.n[l] < n_mult || p.n[l] % n_mult != 0 || p.n[l] > 65535)
+      return cudaErrorInvalidValue;
   if (p.gated && (ptrs[5] == nullptr || ptrs[12] == nullptr))
     return cudaErrorInvalidValue;
   p.px = (const uint8_t*)ptrs[0];
@@ -195,7 +203,34 @@ __device__ inline int first_argmax_warp(int best_v, int best_i) {
   return __shfl_sync(FULL_MASK, best_i, 0);
 }
 
-// One stability-gate step for an active lane, run by the lane's warp: the
+// A final-layer column's readout score: its spike count (count), its
+// first-spike time in an additive 2^24 tier above its membrane clipped to
+// +-(2^24 - 1) (first_spike), or its peak membrane (membrane).
+__device__ __forceinline__ int gate_score(int readout, int window, int cnt,
+                                          int first, int v, int vp) {
+  if (readout == 1) {            // first_spike
+    const int large = 1 << 24;
+    if (cnt > 0) return large + (window - first);
+    return v < -large + 1 ? -large + 1 : (v > large - 1 ? large - 1 : v);
+  }
+  return readout == 2 ? vp : cnt;
+}
+
+// The streak update and retire decision of one gate step, from the warp's
+// prediction and whether the lane has spiked at all.
+__device__ __forceinline__ void gate_decide(int pred, bool has_spike,
+                                            int window, int patience,
+                                            int& steps, bool& act, int& gprev,
+                                            int& gstreak) {
+  const int streak_raw = pred == gprev ? gstreak + 1 : 0;
+  const bool done = streak_raw >= patience && has_spike;
+  gprev = has_spike ? pred : -1;
+  gstreak = has_spike ? streak_raw : 0;
+  steps += 1;
+  act = !done && steps < window;
+}
+
+// One stability-gate step for an active lane, run by one warp: the
 // prediction under the configured readout from the lane's final-layer
 // counts, first-spike latch, membrane and peak membrane (each lane of the
 // warp reads the columns i = lane, lane + 32, ...), then the streak update
@@ -208,33 +243,16 @@ __device__ inline void gate_step(const int32_t* cnt, const int32_t* first,
   bool any = false;
   for (int i = lane; i < nL; i += 32) any |= cnt[i] > 0;
   const bool has_spike = __any_sync(FULL_MASK, any);
-  int best_v = 0, best_i = 0;
+  // a lane with no column (nL < 32) loses every comparison, ties included
+  int best_v = -2147483647 - 1, best_i = 0x7fffffff;
   for (int i = lane; i < nL; i += 32) {
-    int score;
-    if (readout == 1) {          // first_spike
-      const int large = 1 << 24;
-      if (cnt[i] > 0) {
-        score = large + (window - first[i]);
-      } else {
-        const int vv = vL[i];
-        score = vv < -large + 1 ? -large + 1
-                                : (vv > large - 1 ? large - 1 : vv);
-      }
-    } else if (readout == 2) {   // membrane (peak)
-      score = vpL[i];
-    } else {                       // count
-      score = cnt[i];
-    }
+    const int score = gate_score(readout, window, cnt[i], first[i], vL[i],
+                                 vpL[i]);
     if (i == lane || score > best_v) {
       best_v = score;
       best_i = i;
     }
   }
-  const int pred = first_argmax_warp(best_v, best_i);
-  const int streak_raw = pred == gprev ? gstreak + 1 : 0;
-  const bool done = streak_raw >= patience && has_spike;
-  gprev = has_spike ? pred : -1;
-  gstreak = has_spike ? streak_raw : 0;
-  steps += 1;
-  act = !done && steps < window;
+  gate_decide(first_argmax_warp(best_v, best_i), has_spike, window, patience,
+              steps, act, gprev, gstreak);
 }

@@ -10,9 +10,10 @@ final-layer counts and first-spike latch → executed-add and telemetry
 counters → (gated) stability-gate readout and lane freeze.  Every piece of
 state goes in and comes out, so k chunks equal one launch.
 
-Two kernels compute that function on the same operands:
+Two kernels compute that function:
 :func:`fused_snn_stack` launches the resident kernel of
-``csrc/fused_snn_stack.cu`` (per-lane state in shared memory, sized by
+``csrc/fused_snn_stack.cu`` (each lane's pixels and PRNG state in
+registers, its other state in shared memory, sized by
 :func:`stack_smem_bytes`), :func:`fused_snn_stack_streamed` the
 weight-streaming kernel of ``csrc/fused_snn_streamed.cu`` (per-lane state
 in global memory, Σ W·S on the int8 tensor cores over the weights' two
@@ -22,11 +23,13 @@ Each counts its launches in its ``launches`` attribute.  For CPU tensors
 both run :func:`fused_snn_stack_plain`; there is no fallback from a
 kernel to the plain version.
 
-All arrays arrive padded, as ``kernels.ops.fused_snn_stack_op`` pads them:
-batch to the ``block_b`` block, every neuron axis to ``LANE``.  Weights are
-the int16 codes, (n_l_pad, n_{l+1}_pad), for the resident kernel, their
-int8 planes (2, n_{l+1}_pad, n_l_pad) of :func:`pack_weights` for the
-streamed one, and either for the plain version.
+The resident kernel takes the arrays at their real widths, as
+``kernels.ops.fused_snn_stack_op`` passes them: any batch, k0 a multiple
+of 16, every layer its own width, the weights (n_l, n_{l+1}) int16 codes.
+The streamed kernel takes them padded: batch to the ``block_b`` block,
+every neuron axis to ``LANE``, the weights the int8 planes (2,
+n_{l+1}_pad, n_l_pad) of :func:`pack_weights`.  The plain version takes
+either.
 
 The model-axis datapath's building block lives here too:
 :func:`partial_contraction` (port of ``partial_contraction_pallas``) is one
@@ -48,15 +51,19 @@ from ._build import check_operand, launch
 from .lif_step import _wrap32
 
 __all__ = ["LANE", "BLOCK_B", "MAX_LAYERS", "SMEM_LIMIT_BYTES",
-           "STREAM_LANES", "READOUTS", "block_b_for", "is_planes",
+           "STREAM_LANES", "K1_PIXEL_ALIGN", "K1_MAX_PIXELS", "READOUTS",
+           "block_b_for", "is_planes",
            "stack_smem_bytes", "stack_streamed_smem_bytes", "fused_snn_stack",
            "fused_snn_stack_streamed", "fused_snn_stack_plain",
            "layer_shard_ways", "pack_weights", "unpack_weights",
            "partial_contraction", "partial_contraction_plain"]
 
-LANE = 128              # every neuron axis pads to this (telemetry tile width)
-BLOCK_B = 8             # lanes per batch block: one warp per lane, and the
-                        # only block the kernels are built for (256 threads)
+LANE = 128              # telemetry tile width; the streamed kernel pads to it
+BLOCK_B = 8             # lanes per batch block (the telemetry's block), the
+                        # only block the kernels are built for
+K1_PIXEL_ALIGN = 16     # the resident kernel's k0 is a multiple of this
+K1_MAX_PIXELS = 3072    # ... and at most this: 3 register slots of 16
+                        # pixels per thread, 64 threads per lane
 MAX_LAYERS = 8          # layer pointers the kernels' parameter block holds
 STREAM_LANES = 64       # lanes one cluster of the streamed kernel owns
 # Dynamic shared memory one thread block may ask for on Hopper (sm_90).
@@ -86,23 +93,34 @@ def layer_shard_ways(layer_sizes, model_shards: int) -> tuple[int, ...]:
                  for n in layer_sizes[1:])
 
 
-def stack_smem_bytes(padded_sizes, block_b: int = BLOCK_B) -> int:
+def stack_smem_bytes(sizes, block_b: int = BLOCK_B) -> int:
     """Dynamic shared memory the resident kernel asks for, per thread block.
 
-    ``padded_sizes`` are the LANE-padded layer widths ``(K0, N1, ..., NL)``.
-    Per lane: pixels (1 B) and PRNG state (4 B) per input, membrane and
-    peak (4 B each) and enable (1 B) per neuron of every layer, count and
-    first-spike latch (4 B each) per output neuron, and two uint16 spike
-    lists as wide as the widest layer; plus one int flag per 128-wide tile
-    of every layer's input and output.  The kernel carves the same layout
-    and refuses a launch whose carve-up exceeds what it was given.
+    ``sizes`` are the real layer widths ``(k0, n_1, ..., n_L)`` (k0 a
+    multiple of ``K1_PIXEL_ALIGN``).  The pixels and PRNG state live in
+    registers; shared memory holds, each section rounded up to 16 bytes:
+    per layer the ``block_b`` lanes' membranes and peaks (4 B each) and
+    enables (1 B) per neuron; their output counts and first-spike latches
+    (4 B each); two lists of input-spike indices per lane (uint16, as long
+    as the widest layer input rounded up to 8); the hand-over of the
+    second warp's partial sums (32 threads x 4 columns, int32); four ints
+    per lane (gate and steps); per layer and lane the list length and the
+    enabled count; and one int flag per 128-wide tile of every layer's
+    input and output.  The kernel carves the same layout and refuses a
+    launch whose carve-up exceeds what it was given.
     """
-    k0, outs = int(padded_sizes[0]), [int(n) for n in padded_sizes[1:]]
-    widest = max([k0] + outs)
-    per_lane = k0 * 5 + sum(outs) * 9 + outs[-1] * 8 + 2 * widest * 2
+    k0, outs = int(sizes[0]), [int(n) for n in sizes[1:]]
     ins = [k0] + outs[:-1]
-    flags = sum(k // LANE for k in ins) + sum(n // LANE for n in outs)
-    return block_b * per_lane + 4 * flags
+
+    def r16(n):
+        return -(-n // 16) * 16
+
+    flags = sum(-(-k // LANE) for k in ins) + sum(-(-n // LANE) for n in outs)
+    return (sum(2 * r16(block_b * n * 4) + r16(block_b * n) for n in outs)
+            + 2 * r16(block_b * outs[-1] * 4)
+            + 2 * r16(block_b * -(-max(ins) // 8) * 8 * 2)
+            + r16(block_b * 32 * 4 * 4) + r16(block_b * 4 * 4)
+            + 2 * r16(len(outs) * block_b * 4) + r16(4 * flags))
 
 
 def _stream_passes(n: int) -> int:
@@ -153,14 +171,19 @@ def stack_streamed_smem_bytes(padded_sizes) -> int:
 # ---------------------------------------------------------------------------
 
 def _block_tile_skips(x, en, block_b: int, sparse_skip: bool):
-    """Skipped 128×128 tile pairs per batch block on padded operands."""
-    Bp = x.shape[0]
-    nb = Bp // block_b
+    """Skipped 128×128 tile pairs per batch block: the batch and both
+    widths zero-padded (no spike, no enable) to the block and ``LANE``."""
+    nb = -(-x.shape[0] // block_b)
     if not sparse_skip:
         return torch.zeros((nb,), dtype=torch.int32, device=x.device)
-    any_x = x.reshape(nb, block_b, -1, LANE).any(dim=3).any(dim=1)
-    any_e = en.reshape(nb, block_b, -1, LANE).any(dim=3).any(dim=1)
-    live = any_x[:, :, None] & any_e[:, None, :]
+
+    def tiles(a):
+        rows, cols = nb * block_b - a.shape[0], (-a.shape[1]) % LANE
+        if rows or cols:
+            a = torch.nn.functional.pad(a.to(torch.uint8), (0, cols, 0, rows))
+        return a.reshape(nb, block_b, -1, LANE).amax(dim=(1, 3)) != 0
+
+    live = tiles(x)[:, :, None] & tiles(en)[:, None, :]
     return (~live).sum(dim=(1, 2), dtype=torch.int32)
 
 
@@ -184,7 +207,8 @@ def fused_snn_stack_plain(pixels_u8, state_u32, weights, v_init, en_init,
                           active_pruning: bool = False, patience: int = 0,
                           readout: str = "count", sparse_skip: bool = True,
                           block_b: int = BLOCK_B):
-    """The stack kernel's function in plain PyTorch, on padded operands.
+    """The stack kernels' function in plain PyTorch, on the operands of
+    either kernel (real widths or padded).
 
     Returns ``(counts, v_trace (chunk, B, n_out), first, adds (chunk, B),
     state', v tuple, en tuple (uint8), v_peak tuple, (n_spk, n_en, tiles),
@@ -307,18 +331,23 @@ def _validate(pixels_u8, state_u32, weights, v_init, en_init, vp_init,
                          f"got {L}")
     if readout not in READOUTS:
         raise ValueError(f"unknown readout {readout!r}")
-    if block_b != BLOCK_B or Bp % block_b:
-        raise ValueError(f"batch {Bp} / block_b {block_b}: block_b must be "
-                         f"{BLOCK_B} and divide the padded batch")
     if streamed and not all(is_planes(w) for w in weights):
         raise ValueError("the streamed stack kernel takes the int8 planes "
                          "of pack_weights, not int16 codes")
     if not streamed and any(is_planes(w) for w in weights):
         raise ValueError("the resident stack kernel takes int16 codes, not "
                          "packed planes")
+    if block_b != BLOCK_B or (streamed and Bp % block_b):
+        raise ValueError(f"batch {Bp} / block_b {block_b}: block_b must be "
+                         f"{BLOCK_B}" + (" and divide the padded batch"
+                                         if streamed else ""))
     sizes = [k0] + [int(w.shape[1]) for w in weights]
-    if any(n % LANE for n in sizes):
+    if streamed and any(n % LANE for n in sizes):
         raise ValueError(f"layer widths {sizes} are not padded to {LANE}")
+    if not streamed and (k0 % K1_PIXEL_ALIGN or not 0 < k0 <= K1_MAX_PIXELS):
+        raise ValueError(f"the resident stack kernel takes a multiple of "
+                         f"{K1_PIXEL_ALIGN} pixels up to {K1_MAX_PIXELS}, "
+                         f"got {k0}")
     check_operand(pixels_u8, "pixels_u8", torch.uint8, (Bp, k0), dev)
     check_operand(state_u32, "state_u32", torch.uint32, (Bp, k0), dev)
     for l, w in enumerate(weights):
@@ -352,7 +381,7 @@ def _launch(streamed, pixels_u8, state_u32, weights, v_init, en_init,
     Bp, k0 = pixels_u8.shape
     L = len(weights)
     n_out = sizes[-1]
-    nb = Bp // block_b
+    nb = -(-Bp // block_b)
     gated = gate_init is not None
     if streamed:
         smem = stack_streamed_smem_bytes(sizes)
@@ -365,6 +394,14 @@ def _launch(streamed, pixels_u8, state_u32, weights, v_init, en_init,
                              f"addresses a layer's planes in 31 bits")
     else:
         smem = stack_smem_bytes(sizes, block_b)
+        if any(t.data_ptr() % 16 for t in (pixels_u8, state_u32)):
+            raise ValueError("the resident kernel reads pixel rows and PRNG "
+                             "state in whole 4- and 16-byte pieces: "
+                             "pixels_u8 and state_u32 must be 16-byte "
+                             "aligned")
+        if any(k * n >= 1 << 31 for k, n in zip(sizes, sizes[1:])):
+            raise ValueError(f"layer widths {sizes}: the resident kernel "
+                             f"addresses a layer's codes in 31 bits")
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"layer widths {sizes} need {smem} B of shared "
                          f"memory per block, over the {SMEM_LIMIT_BYTES} B "
@@ -434,12 +471,15 @@ def _run(streamed, pixels_u8, state_u32, weights, v_init, en_init, vp_init,
 
 
 def fused_snn_stack(*operands, **options):
-    """Run ``chunk_steps`` steps of the encode→LIF stack on padded operands.
+    """Run ``chunk_steps`` steps of the encode→LIF stack on operands at
+    their real widths.
 
     Operands, in order (keywords and defaults as
     :func:`fused_snn_stack_plain`'s):
 
-      pixels_u8/state_u32: (B, n_in) uint8 / uint32
+      pixels_u8/state_u32: (B, n_in) uint8 / uint32, any B, n_in a
+        multiple of ``K1_PIXEL_ALIGN`` up to ``K1_MAX_PIXELS``, both
+        16-byte aligned
       weights: per-layer (n_l, n_{l+1}) int16 codes
       v_init/en_init/vp_init: per-layer (B, n_{l+1}) int32 / uint8 / int32
       counts_init/first_init: (B, n_out) int32 (first sentinel = window)

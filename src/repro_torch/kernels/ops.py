@@ -14,14 +14,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core.telemetry import (ChunkTelemetry, MatmulTelemetry,
-                              resolve_density_threshold, resolve_sparse_skip)
+from ..core.telemetry import (DEFAULT_SPIKE_DENSITY_THRESHOLD, ChunkTelemetry,
+                              MatmulTelemetry, resolve_density_threshold,
+                              resolve_sparse_skip)
 from . import fused_snn, lif_step, poisson_encode, spike_matmul
 
-__all__ = ["poisson_encode_op", "lif_forward_op", "fused_snn_stack_op",
-           "partial_contraction_op", "spike_matmul_op", "stack_weights",
-           "stack_operands", "stack_results", "validate_weight_codes",
-           "V_PEAK_INIT"]
+__all__ = ["poisson_encode_op", "lif_forward_op", "fused_snn_op",
+           "fused_snn_stack_op", "partial_contraction_op", "spike_matmul_op",
+           "stack_weights", "stack_operands", "stack_results",
+           "validate_weight_codes", "V_PEAK_INIT",
+           "SPIKE_DENSITY_THRESHOLD", "resolve_density_threshold"]
+
+# The spike matmul's default dispatch threshold, under the JAX package's
+# name: the live value resolves through config / env / this default
+# (``core.telemetry.resolve_density_threshold``, re-exported here too).
+SPIKE_DENSITY_THRESHOLD = DEFAULT_SPIKE_DENSITY_THRESHOLD
 
 # window-start sentinel for the carried peak-membrane accumulator: the
 # first real membrane value always wins the max-fold
@@ -145,20 +152,27 @@ def stack_weights(weights, n_in: int, layer_sizes=None, *,
     ``[n_in, n_1, ..., n_L]``; the one place where codes become the
     streamed kernel's planes.
 
-    ``weights`` are per-layer (n_l, n_{l+1}) codes, padded here to ``LANE``
-    on both axes (and with ``streamed`` packed into their int8 planes by
-    ``kernels.fused_snn.pack_weights``), or, for the streamed kernel only,
-    already placed (2, pad(n_{l+1}), pad(n_l)) planes, which go through as
-    they are; planes need ``layer_sizes``, the true widths (n_in, n_1,
-    ..., n_L), since their padding hides them.  Returns ``(weights,
-    sizes)``.
+    ``weights`` are per-layer (n_l, n_{l+1}) codes.  For the resident
+    kernel they go through as int16 at their real widths (only the first
+    layer's rows are zero-padded, where n_in is not a multiple of
+    ``K1_PIXEL_ALIGN``, to the pixels' padding).  For the streamed kernel
+    they are padded to ``LANE`` on both axes and packed into their int8
+    planes by ``kernels.fused_snn.pack_weights``, or are already placed
+    (2, pad(n_{l+1}), pad(n_l)) planes, which go through as they are;
+    planes need ``layer_sizes``, the true widths (n_in, n_1, ..., n_L),
+    since their padding hides them.  Returns ``(weights, sizes)``.
     """
     lane = fused_snn.LANE
     if not any(fused_snn.is_planes(w) for w in weights):
-        ws = tuple(_pad2(w.to(torch.int16), lane, lane) for w in weights)
-        if streamed:
-            ws = tuple(fused_snn.pack_weights(w) for w in ws)
-        return ws, [n_in] + [int(w.shape[1]) for w in weights]
+        sizes = [n_in] + [int(w.shape[1]) for w in weights]
+        if not streamed:
+            ws = [_int16_codes(w, "fused_snn_stack_op").contiguous()
+                  for w in weights]
+            ws[0] = _pad_to(ws[0], 0, fused_snn.K1_PIXEL_ALIGN)
+            return tuple(ws), sizes
+        ws = tuple(fused_snn.pack_weights(_pad2(w.to(torch.int16), lane,
+                                                lane)) for w in weights)
+        return ws, sizes
     if not streamed:
         raise ValueError("the resident stack kernel takes int16 codes, not "
                          "packed planes")
@@ -177,41 +191,63 @@ def stack_weights(weights, n_in: int, layer_sizes=None, *,
     return tuple(weights), sizes
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and 16-byte aligned (a copy only where it is not)."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def stack_operands(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
                    weights, *, num_steps: int, v_rest: int = 0,
                    init: dict | None = None, gate: dict | None = None,
                    layer_sizes=None, streamed: bool = False):
-    """Pad the op's inputs into the stack kernel's launch operands.
+    """The op's inputs as the stack kernel's launch operands.
 
     Returns ``(args, meta)``: ``args`` is the positional argument list of
     :func:`kernels.fused_snn.fused_snn_stack` (with ``streamed``, of
     ``fused_snn_stack_streamed``; either way of the plain version),
     ``meta`` what :func:`stack_results` needs to cut the outputs back.
     ``weights``, ``layer_sizes`` and ``streamed`` as
-    :func:`stack_weights`.  The batch
-    pads to the ``block_b_for`` block and every neuron axis to
-    ``LANE``.  Zero-padded pixel and state lanes never spike (0 > r is
-    false, and 0 is the xorshift fixed point); padded neurons and padded
-    batch rows are disabled, so they neither fire nor count as executed
-    adds, and the tile-skip telemetry sees the same enable geometry whether
-    the state is fresh or carried.
+    :func:`stack_weights`.
+
+    The resident kernel takes the arrays at their real widths and batch:
+    they go through as they are (enables as the uint8 view of the bool
+    tensor), and are padded only where n_in is not a multiple of
+    ``K1_PIXEL_ALIGN`` (pixels and PRNG state, with zeros) or copied only
+    where pixels or state do not start on a 16-byte boundary.  For the
+    streamed kernel the batch pads to the ``block_b_for`` block and every
+    neuron axis to ``LANE``.  Zero-padded pixel and state lanes never
+    spike (0 > r is false, and 0 is the xorshift fixed point); padded
+    neurons and padded batch rows are disabled, so they neither fire nor
+    count as executed adds, and the tile-skip telemetry sees the same
+    enable geometry whether the state is fresh or carried.
     """
     dev = pixels_u8.device
     B, n_in = pixels_u8.shape
     L = len(weights)
     ws, sizes = stack_weights(weights, n_in, layer_sizes, streamed=streamed)
     bB = fused_snn.block_b_for(B)
-    lane = fused_snn.LANE
-    Bp = B + (-B) % bB
-    pads = [n + (-n) % lane for n in sizes]
+    if streamed:
+        lane = fused_snn.LANE
+        Bp = B + (-B) % bB
+        pads = [n + (-n) % lane for n in sizes]
+        px = _pad2(pixels_u8, bB, lane)
+        st = _pad2(state_u32, bB, lane)
 
-    px = _pad2(pixels_u8, bB, lane)
-    st = _pad2(state_u32, bB, lane)
+        def rows(x):
+            return _pad2(x, bB, lane)
+    else:
+        Bp, pads = B, sizes
+        px = _aligned(_pad_to(pixels_u8, 1, fused_snn.K1_PIXEL_ALIGN))
+        st = _aligned(_pad_to(state_u32, 1, fused_snn.K1_PIXEL_ALIGN))
+
+        def rows(x):
+            return x.contiguous()
 
     def valid_mask(n_true, n_pad):
         col = torch.arange(n_pad, device=dev)[None, :]
         row = torch.arange(Bp, device=dev)[:, None]
-        return (col < n_true) & (row < B)
+        return ((col < n_true) & (row < B)).to(torch.uint8)
 
     def vp_fresh():
         return tuple(torch.full((Bp, pads[l + 1]), V_PEAK_INIT,
@@ -229,19 +265,21 @@ def stack_operands(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
                               device=dev)
         steps_in = torch.zeros((Bp, 1), dtype=torch.int32, device=dev)
     else:
-        v_in = tuple(_pad2(init["v"][l], bB, lane) for l in range(L))
-        en_in = tuple(_pad2(init["en"][l].to(torch.bool), bB, lane)
+        v_in = tuple(rows(init["v"][l]) for l in range(L))
+        # bool is one byte of 0 / 1: the kernels read it as uint8
+        en_in = tuple(rows(init["en"][l].to(torch.bool)).view(torch.uint8)
                       for l in range(L))
         vp_in = (vp_fresh() if init.get("v_peak") is None else
-                 tuple(_pad2(init["v_peak"][l], bB, lane) for l in range(L)))
-        cnt_in = _pad2(init["counts"], bB, lane)
-        first_in = _pad2(init["first"], bB, lane)
-        steps_in = _pad_to(init["steps"].to(torch.int32)[:, None], 0, bB)
-    en_in = tuple(e.to(torch.uint8).contiguous() for e in en_in)
+                 tuple(rows(init["v_peak"][l]) for l in range(L)))
+        cnt_in = rows(init["counts"])
+        first_in = rows(init["first"])
+        steps_in = _pad_to(init["steps"].to(torch.int32)[:, None], 0,
+                           bB if streamed else 1)
 
     gate_in = None
     if gate is not None:
-        gate_in = tuple(_pad_to(gate[k].to(torch.int32)[:, None], 0, bB)
+        gate_in = tuple(_pad_to(gate[k].to(torch.int32)[:, None], 0,
+                                bB if streamed else 1)
                         for k in ("active", "prev", "streak"))
     args = [px, st, ws, v_in, en_in, vp_in, cnt_in, first_in, steps_in,
             gate_in]
@@ -249,7 +287,8 @@ def stack_operands(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
 
 
 def stack_results(outs, meta: dict) -> dict:
-    """Cut the stack kernel's padded outputs back to the op's result dict."""
+    """Cut the stack kernel's outputs back to the op's result dict (a view
+    of each output; the resident kernel's are at their real widths)."""
     B, sizes = meta["B"], meta["sizes"]
     n_in, n_out, L = sizes[0], sizes[-1], len(sizes) - 1
     (cnt, vtr, first, adds, st_out, v_fin, en_fin, vp_fin, tel,
@@ -263,7 +302,9 @@ def stack_results(outs, meta: dict) -> dict:
         "active_adds": adds[:, :B],
         "prng_state": st_out[:B, :n_in],
         "v": tuple(v_fin[l][:B, :sizes[l + 1]] for l in range(L)),
-        "en": tuple(en_fin[l][:B, :sizes[l + 1]] != 0 for l in range(L)),
+        # the kernels write enables as 0 / 1 bytes
+        "en": tuple(en_fin[l][:B, :sizes[l + 1]].view(torch.bool)
+                    for l in range(L)),
         "v_peak": tuple(vp_fin[l][:B, :sizes[l + 1]] for l in range(L)),
         "telemetry": ChunkTelemetry(n_spk=tspk[:, :, :B], n_en=ten[:, :, :B],
                                     tiles_skipped=ttile),
@@ -326,6 +367,24 @@ def fused_snn_stack_op(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
         sparse_skip=resolve_sparse_skip(sparse_skip),
         block_b=meta["block_b"])
     return stack_results(outs, meta)
+
+
+def fused_snn_op(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
+                 w_q: torch.Tensor, *, num_steps: int, decay_shift: int,
+                 v_threshold: int, v_rest: int = 0, v_min: int = -(1 << 20),
+                 v_max: int = (1 << 20) - 1, active_pruning: bool = False,
+                 sparse_skip: bool | None = None, streamed: bool = False):
+    """Single-layer whole-window wrapper over :func:`fused_snn_stack_op`.
+
+    Returns its dict (``spike_counts``, ``v_trace``, ``first_spike_t``,
+    ``v_final``, ``active_adds``, ``prng_state`` and the rest); the
+    (T, B, N_in) spike train is never materialised.
+    """
+    return fused_snn_stack_op(
+        pixels_u8, state_u32, (w_q,), num_steps=num_steps,
+        decay_shift=decay_shift, v_threshold=v_threshold, v_rest=v_rest,
+        v_min=v_min, v_max=v_max, active_pruning=active_pruning,
+        sparse_skip=sparse_skip, streamed=streamed)
 
 
 def partial_contraction_op(spikes: torch.Tensor, en: torch.Tensor,

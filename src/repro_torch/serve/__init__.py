@@ -1,6 +1,6 @@
 """Serving layer of the port: the streaming engine and its helpers."""
 
-from .early_exit import StabilityGateState, stability_step
+from .early_exit import StabilityGateState, stability_init, stability_step
 from .rollout import WeightBank, merge_version_chunks
 from .snn_engine import LaneState, RequestResult, ShardedSNNStreamEngine, \
     SNNStreamEngine, shard_weights, sharded_stream_chunk, split_lanes, \
@@ -10,7 +10,7 @@ from .telemetry import AdaptiveDispatchConfig, TelemetryController, \
 
 __all__ = ["SNNStreamEngine", "ShardedSNNStreamEngine", "LaneState",
            "RequestResult", "stream_chunk", "split_lanes", "shard_weights",
-           "sharded_stream_chunk",
-           "StabilityGateState", "stability_step", "WeightBank",
-           "merge_version_chunks", "AdaptiveDispatchConfig",
+           "sharded_stream_chunk", "StabilityGateState", "stability_init",
+           "stability_step", "WeightBank", "merge_version_chunks",
+           "AdaptiveDispatchConfig",
            "TelemetryController", "make_controller", "summarize_chunk"]

@@ -10,7 +10,9 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["StabilityGateState", "stability_step"]
+from ..device import resolve_device
+
+__all__ = ["StabilityGateState", "stability_init", "stability_step"]
 
 
 class StabilityGateState(NamedTuple):
@@ -18,6 +20,17 @@ class StabilityGateState(NamedTuple):
 
     prev: torch.Tensor     # int32 (B,): last prediction (-1 = none yet)
     streak: torch.Tensor   # int32 (B,): consecutive identical predictions
+
+
+def stability_init(batch: int, *,
+                   device: str | torch.device | None = None
+                   ) -> StabilityGateState:
+    """Fresh gate state for ``batch`` lanes: no prediction yet (-1), no
+    streak."""
+    dev = resolve_device(device)
+    return StabilityGateState(
+        prev=torch.full((batch,), -1, dtype=torch.int32, device=dev),
+        streak=torch.zeros((batch,), dtype=torch.int32, device=dev))
 
 
 def stability_step(state: StabilityGateState, pred: torch.Tensor,

@@ -16,6 +16,8 @@ import torch
 from repro.core import prng as jprng
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.configs import snn_mnist as tcfgs
+from repro_torch.core import snn as tsnn
 from repro_torch.kernels import fused_snn as tfused
 from repro_torch.kernels import ops as tops
 
@@ -106,6 +108,10 @@ def _carry(res):
     ((784, 10), 12, 6, True),
     ((784, 128, 64, 10), 3, 5, False),
     ((200, 40, 10), 9, 6, True),
+    # real widths through the resident kernel's operands: 100 inputs (the
+    # op pads them to 112), 37 and 130 columns (no padding)
+    ((100, 37, 10), 11, 8, False),
+    ((784, 130, 10), 10, 6, True),
 ])
 def test_ungated_matches_jax_kernel_and_oracle(sizes, b, t, prune,
                                                sparse_skip):
@@ -163,6 +169,8 @@ def _gate(b, active=None):
     ("membrane", False, (784, 10)),
     ("count", False, (784, 128, 64, 10)),
     ("first_spike", True, (150, 48, 10)),
+    ("count", False, (100, 37, 10)),
+    ("membrane", True, (784, 130, 10)),
 ])
 @pytest.mark.parametrize("sparse_skip", [True, False])
 def test_gated_chunks_match_jax(readout, prune, sizes, sparse_skip):
@@ -314,6 +322,58 @@ def test_wrapper_checks_and_cpu_dispatch():
             for a in args]
     with pytest.raises(ValueError, match="device"):
         tfused.fused_snn_stack(*meta, **kw)
+
+
+def _smem_earlier_layout(padded):
+    """The resident kernel's shared memory as its earlier layout carved
+    it: pixels and PRNG state, membranes, peaks, enables, counts, latches
+    and two uint16 spike lists per lane, on the LANE-padded widths."""
+    k0, outs = padded[0], padded[1:]
+    widest = max(padded)
+    per_lane = k0 * 5 + sum(outs) * 9 + outs[-1] * 8 + 2 * widest * 2
+    flags = sum(k // 128 for k in padded[:-1]) + sum(n // 128 for n in outs)
+    return 8 * per_lane + 4 * flags
+
+
+def test_smem_model_admits_every_stack_the_earlier_layout_did():
+    """Every stack the earlier resident layout held (pixels and PRNG state
+    in shared memory) still fits: one hidden layer of every width it held up
+    to 1,664 columns (784→1792→10 did not fit it), the widest input it
+    held (2,944 pixels, within the registers' 3,072), the deep stack and
+    784→512→512→10.  The present layout holds one hidden layer up to
+    2,176 columns."""
+    def pad(n):
+        return n + (-n) % 128
+
+    limit = tfused.SMEM_LIMIT_BYTES
+    stacks = [(784, n, 10) for n in range(16, 1665, 16)]
+    stacks += [(784, 128, 64, 10), (784, 512, 512, 10), (2944, 10),
+               (2944, 128, 10), (1024, 1024, 10), (784, 640, 640, 10)]
+    admitted = 0
+    for sizes in stacks:
+        if _smem_earlier_layout([pad(n) for n in sizes]) > limit:
+            continue
+        admitted += 1
+        k0 = sizes[0] + (-sizes[0]) % tfused.K1_PIXEL_ALIGN
+        assert k0 <= tfused.K1_MAX_PIXELS, sizes
+        assert tfused.stack_smem_bytes((k0,) + sizes[1:]) <= limit, sizes
+        cfg = tcfgs.SNN_CONFIG_DEEP if len(sizes) == 4 else tcfgs.SNN_CONFIG
+        assert tsnn.fused_unsupported_reason(
+            cfg, len(sizes) - 1, sizes, 8) is None, sizes
+    assert admitted == len(stacks) - 1        # all but 784→640→640→10
+    assert _smem_earlier_layout((896, 1792, 128)) > limit
+    held = [n for n in range(16, 4097, 16)
+            if tfused.stack_smem_bytes((784, n, 10)) <= limit]
+    assert held == list(range(16, 2177, 16))
+    assert tsnn.resolve_backend(
+        tcfgs.SNN_CONFIG, "auto", 2, layer_sizes=(784, 2176, 10),
+        device="cuda") == "fused"
+    assert tsnn.resolve_backend(
+        tcfgs.SNN_CONFIG, "auto", 2, layer_sizes=(784, 2192, 10),
+        device="cuda") == "fused_streamed"
+    # inputs past the registers go to the streamed kernel
+    assert "registers" in tsnn.fused_unsupported_reason(
+        tcfgs.SNN_CONFIG, 1, (3088, 10), 8)
 
 
 def test_smem_model_matches_configs():

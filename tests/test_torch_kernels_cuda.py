@@ -76,12 +76,19 @@ def _problem(cfg, b, dev, seed, fan_in_scale=None):
             seed_state(seed, (b, sizes[0]), device=dev), ws)
 
 
-_CASES = [(name, readout, gated, ss)
+_CASES = [(name, readout, gated, ss, None)
           for name, readout in [("SNN_CONFIG", "count"),
                                 ("SNN_CONFIG_PRUNED", "first_spike"),
                                 ("SNN_CONFIG_DEEP", "count"),
                                 ("SNN_CONFIG", "membrane")]
           for gated in (False, True) for ss in (True, False)]
+# chip_smoke.K1_CASES: ragged widths (k0 of 100, 64, 208, 1,040 and
+# 3,072; layers of 37, 130 and 300 columns; heads of 10 and 7), 24, 200
+# and 1,021 lanes, frozen lanes with sparse_skip on, the widest
+# one-hidden-layer stacks of the earlier and the present shared-memory
+# layouts, and codes in ±2,000
+_CASES += [(None, None, None, None, i)
+           for i in range(len(chip_smoke.K1_CASES))]
 
 
 def _check_chunks(card, kernel, cfg, px, st, ws, readout, gated,
@@ -123,9 +130,13 @@ def _check_chunks(card, kernel, cfg, px, st, ws, readout, gated,
         gate = res.get("gate")
 
 
-@pytest.mark.parametrize("name,readout,gated,sparse_skip", _CASES)
+@pytest.mark.parametrize("name,readout,gated,sparse_skip,edge", _CASES)
 def test_kernel_equals_plain_chunked(card, name, readout, gated,
-                                     sparse_skip):
+                                     sparse_skip, edge):
+    if edge is not None:
+        case = chip_smoke.K1_CASES[edge]
+        assert chip_smoke.k1_edge_case(card, case, seed=70 + edge) > 0
+        return
     cfg = dataclasses.replace(getattr(cfgs, name), readout=readout)
     px, st, ws = _problem(cfg, 61, card, seed=len(name))
     _check_chunks(card, fused_snn.fused_snn_stack, cfg, px, st, ws, readout,
@@ -149,6 +160,8 @@ def test_streamed_kernel_equals_plain_chunked(card, name, readout, prune,
 
 
 def test_streamed_kernel_equals_resident(card):
+    """K2 on padded operands and K1 at the real widths give the same
+    results once the op cuts K2's padding off."""
     cfg = cfgs.SNN_CONFIG_DEEP
     px, st, ws = _problem(cfg, 45, card, seed=2)
     args, meta = ops.stack_operands(px, st, ws, num_steps=cfg.num_steps)
@@ -156,8 +169,12 @@ def test_streamed_kernel_equals_resident(card):
                                    streamed=True)
     kw = dict(chunk_steps=20, window_steps=20, decay_shift=4,
               v_threshold=128, active_pruning=True, block_b=meta["block_b"])
-    _assert_equal(fused_snn.fused_snn_stack_streamed(*planes, **kw),
-                  fused_snn.fused_snn_stack(*args, **kw), "K2 vs K1")
+    k2 = ops.stack_results(fused_snn.fused_snn_stack_streamed(*planes, **kw),
+                           meta)
+    k1 = ops.stack_results(fused_snn.fused_snn_stack(*args, **kw), meta)
+    assert k2.keys() == k1.keys()
+    for key in k1:
+        _assert_equal(k2[key], k1[key], f"K2 vs K1: {key}")
 
 
 @pytest.mark.parametrize("gated", [True, False])
@@ -173,8 +190,8 @@ def test_streamed_kernel_edge_cases(card, case, gated):
 def test_streamed_kernel_refuses_misaligned_weights(card):
     cfg = cfgs.SNN_CONFIG
     px, st, ws = _problem(cfg, 8, card, seed=3)
-    args, meta = ops.stack_operands(px, st, ws, num_steps=20)
-    w = fused_snn.pack_weights(args[2][0])
+    args, meta = ops.stack_operands(px, st, ws, num_steps=20, streamed=True)
+    w = args[2][0]
     flat = torch.empty(w.numel() + 1, dtype=torch.int8, device=card)
     shifted = flat[1:].view(w.shape)          # contiguous, 1-byte offset
     shifted.copy_(w)
@@ -286,6 +303,15 @@ def test_kernel_refuses_bad_operands(card):
     bad[1] = args[1].cpu()
     with pytest.raises(ValueError, match="is on cpu"):
         fused_snn.fused_snn_stack(*bad, **kw)
+    # pixels that do not start on a 16-byte boundary are refused before the
+    # launch (the op copies such pixels), and nothing is counted
+    buf = torch.zeros(8 * 784 + 16, dtype=torch.uint8, device=card)
+    bad = list(args)
+    bad[0] = buf[8:8 + 8 * 784].view(8, 784)
+    before = fused_snn.fused_snn_stack.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_snn.fused_snn_stack(*bad, **kw)
+    assert fused_snn.fused_snn_stack.launches == before
 
 
 @pytest.mark.parametrize("name,backend,kernel", [

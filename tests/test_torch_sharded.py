@@ -561,24 +561,32 @@ def test_weight_shards_are_placed_once_as_their_own_tensors():
 def test_wide_resolves_fused_on_model_axis():
     """The counterpart of the JAX test of the same name: SNN_CONFIG_WIDE's
     per-lane state overflows the resident kernel's shared memory on one
-    shard (413,984 B against 232,448 B) but each 4-way model shard's fits
-    (155,744 B), so on a card ``auto`` resolves ``fused`` there and
-    ``fused_streamed`` on one shard."""
+    shard (366,512 B against 232,448 B) but each 4-way model shard's fits
+    (104,688 B), and each 2-way shard's too (186,160 B), so on a card
+    ``auto`` resolves ``fused`` there and ``fused_streamed`` on one shard;
+    the 2-way shards of a stack twice as wide do not fit, and resolve
+    ``fused_streamed``."""
     cfg = tcfgs.SNN_CONFIG_WIDE
     kw = dict(layer_sizes=cfg.layer_sizes, local_batch=256, device="cuda")
     assert tsnn.resolve_backend(cfg, "auto", 3, **kw) == "fused_streamed"
     assert tsnn.resolve_backend(cfg, "auto", 3, model_shards=4,
                                 **kw) == "fused"
-    assert tfused.stack_smem_bytes([896, 2048, 2048, 128]) == 413_984
-    assert tfused.stack_smem_bytes([896, 512, 512, 128]) == 155_744
+    assert tfused.stack_smem_bytes([784, 2048, 2048, 10]) == 366_512
+    assert tfused.stack_smem_bytes([784, 512, 512, 10]) == 104_688
+    assert tfused.stack_smem_bytes([784, 1024, 1024, 10]) == 186_160
     assert tfused.SMEM_LIMIT_BYTES == 232_448
     with pytest.raises(ValueError, match="shared-memory"):
         tsnn.resolve_backend(cfg, "fused", 3, **kw)
-    why = tsnn.fused_unsupported_reason(cfg, 3, cfg.layer_sizes, 256,
-                                        model_shards=2)
+    assert tsnn.fused_unsupported_reason(cfg, 3, cfg.layer_sizes, 256,
+                                         model_shards=2) is None
+    assert tsnn.resolve_backend(cfg, "auto", 3, model_shards=2,
+                                **kw) == "fused"
+    wider = (784, 4096, 4096, 10)
+    why = tsnn.fused_unsupported_reason(cfg, 3, wider, 256, model_shards=2)
     assert "2-way model axis" in why
     assert tsnn.resolve_backend(cfg, "auto", 3, model_shards=2,
-                                **kw) == "fused_streamed"
+                                **dict(kw, layer_sizes=wider)) == \
+        "fused_streamed"
     assert tsnn.resolve_backend(cfg, "auto", 3, model_shards=4,
                                 layer_sizes=cfg.layer_sizes,
                                 device="cpu") == "reference"

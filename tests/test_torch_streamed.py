@@ -328,12 +328,17 @@ def test_streamed_plain_on_planes_equals_codes_and_jax(gated):
                                        for k, v in gate.items()}
     args, meta = tops.stack_operands(
         torch.from_numpy(px), torch.from_numpy(st.copy()),
-        tuple(torch.from_numpy(w) for w in ws), num_steps=6, gate=tgate)
+        tuple(torch.from_numpy(w) for w in ws), num_steps=6, gate=tgate,
+        streamed=True)
     kw = dict(chunk_steps=6, window_steps=6, patience=2, readout="count",
               block_b=meta["block_b"], **_LIF)
-    on_codes = tfused.fused_snn_stack_plain(*args, **kw)
+    codes = tuple(torch.from_numpy(np.pad(w, ((0, (-w.shape[0]) % 128),
+                                              (0, (-w.shape[1]) % 128))))
+                  for w in ws)
+    on_codes = tfused.fused_snn_stack_plain(*args[:2], codes, *args[3:],
+                                            **kw)
     planes = _padded_planes(ws)
-    for w, c in zip(planes, args[2]):
+    for w, c in zip(planes, codes):
         assert tfused.is_planes(w)
         np.testing.assert_array_equal(tfused.unpack_weights(w).numpy(),
                                       c.numpy())
