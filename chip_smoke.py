@@ -81,6 +81,19 @@ result line):
    5 + 5), each equal to the single-device run.  The K6 path routes a
    wide hidden layer's 20-step spike train through ``spike_matmul_op``'s
    density dispatch.
+   Then the serving tier and the fault harness (``serve.faults``), each
+   run's results equal to the single-device serves' id for id:
+   ``SNNServingTier`` of 2 engines × 1,024 lanes serves the 4,096 784→10
+   requests under one ``FaultPlan``: dispatch faults on engine 0 walk its
+   ladder down (K1 → K2 → the plain ``reference`` rung) and clean chunks
+   walk it back up to K1, one corrupted telemetry record is dropped, a
+   poison request is quarantined with its replay seed, and engine 1 hangs
+   mid-window until the watchdog fails it and its lanes evacuate onto
+   engine 0; the same tier serves once more with no plan.  A data-sharded
+   tier (2 engines × 2 data shards of the card) loses engine 1 mid-window
+   and evacuates it.  ``ShardedSNNStreamEngine`` on the 1×4 mesh serves
+   1,024 wide requests under dispatch faults on ``fused``: one demotion
+   to ``fused_streamed``, K3 the only kernel on both rungs.
 5. times — each kernel and its plain version at the main path's shapes
    (K1 at ``SNN_CONFIG`` and at ``SNN_CONFIG_DEEP``, with the bytes its
    launch moves and the host time per wrapper call and per
@@ -126,7 +139,9 @@ from repro_torch.core import snn  # noqa: E402
 from repro_torch.core.prng import seed_state  # noqa: E402
 from repro_torch.kernels import (_build, fused_snn, lif_step, ops,  # noqa: E402
                                  poisson_encode, spike_matmul)
-from repro_torch.serve import SNNStreamEngine  # noqa: E402
+from repro_torch.serve import (FaultEvent, FaultInjector,  # noqa: E402
+                                FaultPlan, FaultToleranceConfig,
+                                SNNServingTier, SNNStreamEngine)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 # H100 SXM INT32 rate: the data sheet's 67 TFLOP/s float32 counts an FMA as
@@ -1348,6 +1363,260 @@ def phase_mesh_serve(imgs, params, cfg, mesh, lanes, want, dev,
 
 
 # ---------------------------------------------------------------------------
+# 4b. the serving tier, the fault harness and the degradation ladder
+# ---------------------------------------------------------------------------
+
+# engine 0: its first chunk's telemetry corrupted; consults 1-4 fault on
+# both fused rungs, so two faults a rung (demote_after) walk it down to
+# the reference rung within one round, and two clean chunks a rung
+# (promote_after) walk it back up to K1.  Engine 1: request 1 (its first
+# tile) is poison, quarantined at its first fault; it hangs from its
+# third consult on, mid-window, until the watchdog (4 stalls) fails it.
+TIER_POISON = 1
+TIER_FT = FaultToleranceConfig(demote_after=2, promote_after=2,
+                               quarantine_after=1)
+
+
+def _tier_plan() -> FaultPlan:
+    return FaultPlan(events=(
+        FaultEvent(kind="dispatch", engine=0, first_chunk=1, last_chunk=4,
+                   backends=("fused", "fused_streamed")),
+        FaultEvent(kind="telemetry", engine=0, first_chunk=0, last_chunk=0),
+        FaultEvent(kind="poison", request_id=TIER_POISON),
+        FaultEvent(kind="hang", engine=1, first_chunk=2)))
+
+
+def _rung_log(engines) -> list:
+    """Wrap each engine's ``_advance`` (one call per chunk it runs) to
+    record ``(engine, rung, kernel launches of that chunk)``."""
+    chunks = []
+    for i, eng in enumerate(engines):
+        def run(lanes, weights, i=i, eng=eng, advance=eng._advance):
+            before = counts()
+            out = advance(lanes, weights)
+            chunks.append((i, eng.backend_effective,
+                           {k: n - before[k] for k, n in counts().items()}))
+            return out
+        eng._advance = run
+    return chunks
+
+
+def _by_rung(chunks) -> dict:
+    """{rung: [chunks, {kernel: launches}]} over a ``_rung_log``."""
+    out = {}
+    for _, rung, launched in chunks:
+        n, tot = out.setdefault(rung, [0, dict.fromkeys(KERNELS, 0)])
+        out[rung][0] = n + 1
+        for k, v in launched.items():
+            tot[k] += v
+    return out
+
+
+def _timed_steps(tier) -> list:
+    """Wrap ``tier.step`` with a host-clock accumulator: [seconds, steps]."""
+    spent, step = [0.0, 0], tier.step
+
+    def run():
+        t = time.perf_counter()
+        try:
+            return step()
+        finally:
+            spent[0] += time.perf_counter() - t
+            spent[1] += 1
+
+    tier.step = run
+    return spent
+
+
+def _tier(params, cfg, plan, **kw):
+    return SNNServingTier(params, cfg, num_engines=2,
+                          lanes_per_engine=SERVE_BATCH,
+                          chunk_steps=SERVE_CHUNK, patience=SERVE_PATIENCE,
+                          seed=SEED, shedding=False, fault_plan=plan, **kw)
+
+
+def _run_tier(tier, imgs) -> tuple:
+    """Submit ``imgs`` (ids 0..n-1), run the tier with the launch counts
+    set to 0 just before, and return its results, the counts, the wall
+    time and the host time per tier step."""
+    for im in imgs:
+        tier.submit(im)
+    spent = _timed_steps(tier)
+    torch.cuda.synchronize()
+    reset_counts()                                # the tier's run starts
+    t0 = time.perf_counter()
+    results = tier.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()                           # the tier's run ended
+    return results, launched, wall, spent
+
+
+def _partition(tier, n) -> None:
+    res, shed, faulted = set(tier.results), set(tier.shed), set(tier.faulted)
+    if res | shed | faulted != set(range(n)) or (res & shed) or (
+            res & faulted) or (shed & faulted):
+        raise AssertionError(f"results {len(res)}, shed {len(shed)} and "
+                             f"faulted {len(faulted)} do not partition the "
+                             f"{n} ids")
+
+
+def phase_tier(imgs, params, want, single_rate) -> dict:
+    """The serving tier on 784→10 through K1, K2 and the reference rung,
+    with failover (``_tier_plan``), then the same tier with no plan."""
+    tier = _tier(params, cfgs.SNN_CONFIG, _tier_plan(), fault_cfg=TIER_FT)
+    ladders = [e._ladder for e in tier.engines]
+    if ladders != [("fused", "fused_streamed", "reference")] * 2:
+        raise AssertionError(f"tier ladders {ladders}")
+    chunks = _rung_log(tier.engines)
+    results, launched, wall, spent = _run_tier(tier, imgs)
+    _partition(tier, len(imgs))
+    rec = tier.faulted.get(TIER_POISON)
+    if set(tier.faulted) != {TIER_POISON} or rec.reason != "quarantined" \
+            or rec.replay_seed != SEED + TIER_POISON:
+        raise AssertionError(f"faulted {tier.faulted}")
+    _same_results(results, {rid: want[rid] for rid in results},
+                  "tier under the fault plan vs the single-engine K1 serve")
+    e0, e1 = tier.engines
+    moves = [(ev["event"], ev["from"], ev["to"]) for ev in e0.health.events
+             if ev["event"] in ("demote", "promote")]
+    walk = [("demote", "fused", "fused_streamed"),
+            ("demote", "fused_streamed", "reference"),
+            ("promote", "reference", "fused_streamed"),
+            ("promote", "fused_streamed", "fused")]
+    if moves != walk or e0.backend_effective != "fused":
+        raise AssertionError(f"engine 0 ladder moves {moves}, ends on "
+                             f"{e0.backend_effective!r}")
+    if e0.health.telemetry_faults != 1:
+        raise AssertionError(f"{e0.health.telemetry_faults} telemetry "
+                             f"faults on engine 0")
+    fails = [ev for ev in e1.health.events
+             if ev["event"] == "engine_failure"]
+    if [ev["reason"] for ev in fails] != ["hang"] or \
+            tier.stats["evacuated"] < 1 or tier._dead != {1}:
+        raise AssertionError(f"engine 1 failures {fails}, stats "
+                             f"{tier.stats}")
+    if not (launched["K1"] > 0 and launched["K2"] > 0) or any(
+            launched[k] for k in ("K3", "K4", "K5", "K6")):
+        raise AssertionError(f"the tier run launched {launched}")
+    rungs = _by_rung(chunks)
+    for rung, tag in (("fused", "K1"), ("fused_streamed", "K2"),
+                      ("reference", None)):
+        n, tot = rungs.get(rung, [0, {}])
+        if n == 0 or any(v for k, v in tot.items() if k != tag) or (
+                tag and tot[tag] != n):
+            raise AssertionError(f"{rung} rung: {n} chunks, launches {tot}")
+    log(f"[tier] SNN_CONFIG 784->10, 2 engines x {SERVE_BATCH} lanes, "
+        f"chunk={SERVE_CHUNK} patience={SERVE_PATIENCE}, the fault plan: "
+        f"{len(results)} results in {wall:.3f} s = "
+        f"{len(results) / wall:.1f} requests/s; {spent[1]} tier steps, "
+        f"{spent[0] / spent[1] * 1e3:.3f} ms host each; routed per engine "
+        f"{tier.stats['routed_per_engine']}; chunks by rung "
+        + ", ".join(f"{r} {n} ({tot})" for r, (n, tot) in rungs.items())
+        + f"; launches K1 {launched['K1']}, K2 {launched['K2']}; engine 0 "
+        f"{' -> '.join(m[1] for m in moves)} -> fused, consults "
+        f"{e0.injector.consults}; engine 1 failed (hang) at consult "
+        f"{e1.injector.consults - 1}, {tier.stats['evacuated']} lanes "
+        f"evacuated, {tier.stats['requeued']} requeued; request "
+        f"{TIER_POISON} quarantined (replay seed {rec.replay_seed}); "
+        f"results equal the K1 serve's id for id")
+    clean = _tier(params, cfgs.SNN_CONFIG, None)
+    got, clean_launched, clean_wall, clean_spent = _run_tier(clean, imgs)
+    _same_results(got, want, "tier with no plan vs the K1 serve")
+    if any(clean_launched[k] for k in KERNELS if k != "K1"):
+        raise AssertionError(f"the unfaulted tier launched {clean_launched}")
+    log(f"[tier] the same tier with no plan: {len(got)} requests in "
+        f"{clean_wall:.3f} s = {len(got) / clean_wall:.1f} requests/s, "
+        f"{clean_spent[1]} tier steps, "
+        f"{clean_spent[0] / clean_spent[1] * 1e3:.3f} ms host each, "
+        f"{clean_launched['K1']} K1 launches, routed per engine "
+        f"{clean.stats['routed_per_engine']}; the single-engine K1 serve "
+        f"{single_rate:.1f} requests/s (host clock); results equal")
+    return {"K1": launched["K1"], "K2": launched["K2"],
+            "requests_per_s": len(results) / wall,
+            "clean_requests_per_s": len(got) / clean_wall,
+            "chunks_by_rung": {r: n for r, (n, _) in rungs.items()}}
+
+
+def phase_sharded_tier(imgs, params, want, dev) -> dict:
+    """A data-sharded tier (2 engines over four names of the card, two
+    data shards each) on 784→10 loses engine 1 mid-window with its lane
+    state kept; its lanes evacuate and every result equals the K1
+    serve's."""
+    plan = FaultPlan(events=(FaultEvent(kind="device_loss", engine=1,
+                                        first_chunk=1),))
+    tier = _tier(params, cfgs.SNN_CONFIG, plan, sharded=True,
+                 devices=[dev] * 4)
+    if [(e.n_devices, e.backend) for e in tier.engines] != [(2, "fused")] * 2:
+        raise AssertionError("sharded tier engines "
+                             f"{[(e.n_devices, e.backend) for e in tier.engines]}")
+    results, launched, wall, _ = _run_tier(tier, imgs)
+    _partition(tier, len(imgs))
+    _same_results(results, {rid: want[rid] for rid in range(len(imgs))},
+                  "sharded tier vs the K1 serve")
+    if tier.stats["evacuated"] < 1 or tier._dead != {1} or tier.faulted:
+        raise AssertionError(f"sharded tier stats {tier.stats}")
+    if launched["K1"] == 0 or any(launched[k] for k in KERNELS if k != "K1"):
+        raise AssertionError(f"the sharded tier launched {launched}")
+    log(f"[tier] data-sharded tier, 2 engines x 2 data shards of the card, "
+        f"{SERVE_BATCH} lanes each: {len(results)} requests in {wall:.3f} s "
+        f"= {len(results) / wall:.1f} requests/s, {launched['K1']} K1 "
+        f"launches; engine 1 lost at consult 1, {tier.stats['evacuated']} "
+        f"lanes evacuated; results equal the K1 serve's id for id")
+    return {"K1": launched["K1"], "requests_per_s": len(results) / wall}
+
+
+def phase_model_axis_ladder(imgs, params, want, dev) -> dict:
+    """F-u on the card: the 1×4 mesh's engine on WIDE resolves ``fused``
+    and builds the three-rung ladder by the shared-memory model on one
+    peer's shard; dispatch faults on ``fused`` demote it once, and both
+    rungs run K3 alone."""
+    knobs = cfgs.SNNStreamMeshConfig(num_devices=MESH_WIDE[0],
+                                     model_devices=MESH_WIDE[1],
+                                     lanes_per_device=SERVE_BATCH,
+                                     chunk_steps=SERVE_CHUNK)
+    plan = FaultPlan(events=(FaultEvent(kind="dispatch", first_chunk=1,
+                                        last_chunk=2, backends=("fused",)),))
+    eng = cfgs.make_stream_engine(
+        params, cfgs.SNN_CONFIG_WIDE, knobs, devices=[dev] * 4,
+        patience=SERVE_PATIENCE, seed=SEED, injector=FaultInjector(plan, 0),
+        fault_cfg=FaultToleranceConfig(demote_after=2, promote_after=1000))
+    if eng.backend != "fused" or \
+            eng._ladder != ("fused", "fused_streamed", "reference"):
+        raise AssertionError(f"model-axis engine: {eng.backend!r}, ladder "
+                             f"{eng._ladder}")
+    for im in imgs:
+        eng.submit(im)
+    chunks = _rung_log([eng])
+    torch.cuda.synchronize()
+    reset_counts()                                # the mesh run starts
+    results = eng.run()
+    torch.cuda.synchronize()
+    launched = counts()                           # the mesh run ended
+    _same_results(results, {rid: want[rid] for rid in range(len(imgs))},
+                  "1x4 mesh under dispatch faults vs the K2 WIDE serve")
+    demotes = [(ev["from"], ev["to"]) for ev in eng.health.events
+               if ev["event"] == "demote"]
+    rungs = _by_rung(chunks)
+    if demotes != [("fused", "fused_streamed")] or \
+            set(rungs) != {"fused", "fused_streamed"} or any(
+                tot["K3"] == 0 or any(v for k, v in tot.items() if k != "K3")
+                for _, tot in rungs.values()):
+        raise AssertionError(f"model-axis ladder: demotions {demotes}, "
+                             f"rungs {rungs}")
+    if launched["K3"] == 0 or any(launched[k] for k in KERNELS if k != "K3"):
+        raise AssertionError(f"the model-axis ladder run launched {launched}")
+    log(f"[tier] WIDE on the 1x4 mesh, dispatch faults on 'fused': ladder "
+        f"{eng._ladder}, one demotion fused -> fused_streamed; chunks by "
+        f"rung " + ", ".join(f"{r} {n} ({tot['K3']} K3)"
+                             for r, (n, tot) in rungs.items())
+        + f"; {launched['K3']} K3 launches, no other kernel; results equal "
+        f"the K2 WIDE serve's id for id")
+    return {"K3": launched["K3"],
+            "chunks_by_rung": {r: n for r, (n, _) in rungs.items()}}
+
+
+# ---------------------------------------------------------------------------
 # 5. times
 # ---------------------------------------------------------------------------
 
@@ -1723,6 +1992,7 @@ def main() -> int:
              "K2": phase_serve(imgs, wide_params, cfgs.SNN_CONFIG_WIDE, "K2",
                                "fused_streamed")}
     wide_want = serve["K2"].pop("results")
+    k1_want = serve["K1"]["results"]
     serve["K3"] = phase_mesh_serve(imgs, wide_params, cfgs.SNN_CONFIG_WIDE,
                                    MESH_WIDE, SERVE_BATCH, wide_want, dev,
                                    profile=True)
@@ -1730,6 +2000,12 @@ def main() -> int:
                      (2, 2), SERVE_BATCH // 2, wide_want, dev)
     phase_mesh_serve(imgs, params, cfgs.SNN_CONFIG, (1, 2), SERVE_BATCH,
                      serve["K1"].pop("results"), dev)
+    tier = {"tier": phase_tier(imgs, params, k1_want,
+                               serve["K1"]["requests_per_s"]),
+            "sharded": phase_sharded_tier(imgs[:SERVE_BATCH], params,
+                                          k1_want, dev),
+            "model_axis": phase_model_axis_ladder(
+                imgs[:SERVE_BATCH], wide_params, wide_want, dev)}
     times = phase_times(imgs, params, wide_params, dev)
     staged["K6"] = times.pop("K6_path")
     # the per-launch time a kernel's row reports: K3 at its most frequent
@@ -1750,14 +2026,24 @@ def main() -> int:
         if tag == "K1":
             for k in ("serve_device_ms", "glue_device_ms", "copy_device_ms"):
                 extra[k] = serve["K1"][k]
+            extra["tier_launches"] = tier["tier"]["K1"]
+            extra["sharded_tier_launches"] = tier["sharded"]["K1"]
+            extra["tier_requests_per_s"] = tier["tier"]["requests_per_s"]
+            extra["tier_clean_requests_per_s"] = \
+                tier["tier"]["clean_requests_per_s"]
+            extra["tier_chunks_by_rung"] = tier["tier"]["chunks_by_rung"]
         if tag == "K2":
             extra["serve_device_ms"] = serve["K2"]["serve_device_ms"]
             extra["grids"] = serve["K2"]["grids"]
+            extra["tier_launches"] = tier["tier"]["K2"]
         if tag == "K3":
             extra["device_busy_ms"] = serve["K3"]["device_busy_ms"]
             extra["profiled_wall_ms"] = serve["K3"]["profiled_wall_ms"]
             extra["overlap_runs"] = serve["K3"]["overlap"]
             extra["shapes"] = k3_shapes
+            extra["ladder_launches"] = tier["model_axis"]["K3"]
+            extra["ladder_chunks_by_rung"] = \
+                tier["model_axis"]["chunks_by_rung"]
         if tag == "K6":
             extra["cases"], extra["max_abs_err"] = checks["K6"][0], max(
                 checks["K6"][1], extra["max_abs_err"])

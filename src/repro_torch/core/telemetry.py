@@ -26,6 +26,8 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["ChunkTelemetry", "EngineLoad", "MatmulTelemetry",
+           "engine_load_to_wire", "engine_load_from_wire", "load_score",
+           "estimate_eta_steps",
            "DEFAULT_SPIKE_DENSITY_THRESHOLD",
            "resolve_density_threshold", "resolve_sparse_skip", "tiles_total",
            "layer_tile_skips", "concat_telemetry", "model_tile_skips",
@@ -85,22 +87,93 @@ class ChunkTelemetry(NamedTuple):
 
 
 class EngineLoad(NamedTuple):
-    """Host-side load summary of one serving engine (router currency)."""
+    """Host-side load summary of one serving engine (router currency).
 
-    lanes_total: int
-    lanes_busy: int
-    queue_depth: int
-    mean_service_steps: float
-    retired_total: int
-    density_ewma: float | None
-    consecutive_faults: int = 0
-    demotion_level: int = 0
-    watchdog_margin: int | None = None
-    alive: bool = True
+    Every field is free host bookkeeping or an estimate the telemetry loop
+    keeps without device syncs: ``mean_service_steps`` is the EWMA of the
+    window steps retired requests consumed, ``density_ewma`` the adaptive
+    controller's estimate (``None`` when frozen or unobserved).  The
+    health fields (``serve.faults``) default to a healthy engine.  The
+    serving tier routes by :func:`load_score` and gates admission with
+    :func:`estimate_eta_steps`, both pure functions of this record.
+    """
+
+    lanes_total: int               # batch-tile slots the engine owns
+    lanes_busy: int                # slots currently bound to a request
+    queue_depth: int               # host-queue requests not yet admitted
+    mean_service_steps: float      # EWMA of consumed steps per request
+    retired_total: int             # requests completed since construction
+    density_ewma: float | None     # controller estimate (None if frozen)
+    consecutive_faults: int = 0    # dispatch faults since the last clean chunk
+    demotion_level: int = 0        # rungs down the backend degradation ladder
+    watchdog_margin: int | None = None  # chunks left before the hang deadline
+    alive: bool = True             # False once the engine declared failure
 
     @property
     def occupancy(self) -> float:
+        """Fraction of lane slots currently serving a request."""
         return self.lanes_busy / max(1, self.lanes_total)
+
+
+def engine_load_to_wire(load: EngineLoad) -> dict:
+    """JSON-safe dict of one load record: every field is already a JSON
+    scalar, and :func:`engine_load_from_wire` restores it exactly."""
+    return dict(load._asdict())
+
+
+def engine_load_from_wire(d: dict) -> EngineLoad:
+    """Inverse of :func:`engine_load_to_wire` (exact roundtrip)."""
+    return EngineLoad(**d)
+
+
+def _effective_service_steps(load: EngineLoad) -> float:
+    """Sanitized mean service window for the routing estimators.
+
+    A cold engine's record (or one assembled elsewhere) may carry a zero,
+    negative or non-finite ``mean_service_steps``; any value that cannot
+    be a measured window falls back to one step, the smallest window a
+    request can consume, so a cold engine's outstanding work still counts.
+    Every measured mean passes through untouched.
+    """
+    mean = float(load.mean_service_steps)
+    if not (0.0 < mean < float("inf")):   # ≤0, NaN and ±inf all fail this
+        return 1.0
+    return mean
+
+
+def load_score(load: EngineLoad) -> float:
+    """Expected outstanding work per lane slot, in window steps.
+
+    Busy lanes owe on average half a service window, queued requests a
+    full one, scaled by the measured mean service steps and normalized by
+    the slot count.  Each rung down the degradation ladder counts like
+    half the tile being busy and each consecutive unresolved fault like a
+    quarter, so a degraded engine keeps serving but stops being anyone's
+    first choice; a dead engine scores infinite.
+    """
+    if not load.alive:
+        return float("inf")
+    owed = 0.5 * load.lanes_busy + load.queue_depth
+    degraded = (0.5 * load.demotion_level
+                + 0.25 * load.consecutive_faults) * load.lanes_total
+    return ((owed + degraded) * _effective_service_steps(load)
+            / max(1, load.lanes_total))
+
+
+def estimate_eta_steps(load: EngineLoad) -> float:
+    """Expected window steps until a NEW admission would complete.
+
+    Queue-wave model: zero waves if a lane slot is free, else one wave per
+    ``lanes_total`` requests already ahead, each wave lasting the measured
+    mean service window; its own service appends one more.  Always finite
+    and ≥ 1 (see :func:`_effective_service_steps`).
+    """
+    free = load.lanes_total - load.lanes_busy
+    if load.queue_depth < free:
+        waves = 0
+    else:
+        waves = 1 + (load.queue_depth - free) // max(1, load.lanes_total)
+    return (waves + 1) * _effective_service_steps(load)
 
 
 class MatmulTelemetry(NamedTuple):

@@ -31,9 +31,17 @@ a device mesh and, on a model axis, each layer's output columns over the
 model peers, with one partial-contraction launch per (step, layer, shard)
 and a spike exchange between layers.
 
-Not ported yet: the fault-injection harness and its degradation ladder,
-and the tuned dispatch cache.  These engines are the reference package's
-engines with no injector armed and no cache.
+Both engines carry the reference package's fault harness
+(``serve.faults``): with an injector armed, every chunk dispatch consults
+it, transient faults retry and back off, persistent ones step the engine
+down its degradation ladder (``fused`` → ``fused_streamed`` →
+``reference``, infeasible rungs skipped at construction) and back up
+after clean chunks, a hang trips the chunk watchdog, and an engine that
+fails raises :class:`~.faults.EngineFailure` for the serving tier to
+evacuate.  The ``reference`` rung runs plain PyTorch, and only an
+injected fault leads there: an error a kernel raises is never taken for
+a fault.  With no injector the dispatch is the plain chunk, launch for
+launch.  Not ported yet: the tuned dispatch cache.
 """
 
 from __future__ import annotations
@@ -56,6 +64,9 @@ from ..kernels import ops
 from ..kernels.fused_snn import LANE, layer_shard_ways, pack_weights
 from ..kernels.ops import V_PEAK_INIT
 from .early_exit import StabilityGateState, stability_step
+from .faults import (DeviceLostFault, DispatchFault, EngineFailure,
+                     EngineHealthState, FaultInjector, FaultToleranceConfig,
+                     PoisonDispatchError, injector_from_env, telemetry_ok)
 from .rollout import WeightBank, merge_version_chunks, select_lanes
 from .telemetry import AdaptiveDispatchConfig, make_controller, \
     summarize_chunk
@@ -260,32 +271,66 @@ class SNNStreamEngine:
     telemetry controller (None = the REPRO_ADAPTIVE_DISPATCH default,
     frozen): it only moves value-neutral knobs, so results are the same
     either way.
+
+    ``injector`` arms the fault harness (``serve.faults``; None arms it
+    from ``REPRO_FAULT_PLAN`` when that is set) under the ``fault_cfg``
+    recovery policy.  The engine's degradation ladder ``_ladder`` holds
+    the rungs from the configured backend down that its shared-memory
+    model admits, ``reference`` last; ``backend_effective`` names the
+    rung chunks run on, and the bank places every weight version once in
+    the form of every rung.  ``local_batch`` and ``model_shards`` scope
+    the feasibility checks to one device's lanes and weight shard (the
+    sharded engine passes them).
     """
 
     _SERVICE_EWMA_ALPHA = 0.25
 
     def __init__(self, params_q: dict, cfg: SNNConfig, *,
-                 batch_size: int = 8, chunk_steps: int = 4,
+                 batch_size: int | None = None,
+                 chunk_steps: int | None = None,
                  patience: int = 2, seed: int = 0,
                  backend: str | None = None,
+                 local_batch: int | None = None,
+                 model_shards: int = 1,
                  adaptive: AdaptiveDispatchConfig | None = None,
-                 engine_id: int = 0, initial_weight_version: int = 0,
+                 engine_id: int = 0,
+                 injector: FaultInjector | None = None,
+                 fault_cfg: FaultToleranceConfig | None = None,
+                 initial_weight_version: int = 0,
                  device: str | torch.device | None = None):
         if cfg.readout not in ("count", "first_spike", "membrane"):
             raise ValueError(
                 f"unknown readout {cfg.readout!r}: the streaming engine "
                 f"implements 'count', 'first_spike' and 'membrane'")
+        batch_size = 8 if batch_size is None else batch_size
+        chunk_steps = 4 if chunk_steps is None else chunk_steps
         self.device = resolve_device(device)
         codes = tuple(layer["w_q"] for layer in params_q["layers"])
         self.layer_sizes = tuple([int(codes[0].shape[0])]
                                  + [int(w.shape[1]) for w in codes])
+        self.local_batch = batch_size if local_batch is None else local_batch
+        self.model_shards = int(model_shards)
         self.backend = self._resolve_backend(
-            cfg, "auto" if backend is None else backend, batch_size)
+            cfg, "auto" if backend is None else backend)
         if self.backend in ("fused", "fused_streamed"):
             ops.validate_weight_codes(codes)
-        weights = self._place_weights(codes)
+        # the resumable slice of the backend chain below the configured
+        # backend, rungs the feasibility model refuses skipped, so that a
+        # demotion never lands on a rung that cannot run;
+        # health.demotion_level indexes this tuple
+        rungs = ("fused", "fused_streamed", "reference")
+        self._ladder = tuple(
+            b for b in rungs[rungs.index(self.backend):]
+            if b in (self.backend, "reference")
+            or self._unsupported(cfg, b == "fused_streamed") is None)
         self.engine_id = int(engine_id)
-        self.bank = WeightBank(weights, version=int(initial_weight_version))
+        self.injector = (injector if injector is not None
+                         else injector_from_env(engine_id))
+        self.fault_cfg = fault_cfg or FaultToleranceConfig()
+        self.health = EngineHealthState()
+        self._cooldown = 0           # scheduling rounds left to sit out
+        self.bank = WeightBank(self._place_weights(codes),
+                               version=int(initial_weight_version))
         self.cfg = cfg
         self.batch_size = batch_size
         self.patience = patience
@@ -308,14 +353,22 @@ class SNNStreamEngine:
         self.dispatches = 0       # chunk executions (kernel launches on a
                                   # fused backend)
 
-    def _resolve_backend(self, cfg: SNNConfig, requested: str,
-                         batch_size: int) -> str:
-        """The chunk backend for a tile of ``batch_size`` lanes: the
-        resumable stack kernels only, since a chunk resumes mid-window."""
-        n_layers = len(self.layer_sizes) - 1
-        b = resolve_backend(cfg, requested, n_layers,
+    def _unsupported(self, cfg: SNNConfig, streamed: bool) -> str | None:
+        """Why a stack kernel cannot hold one device's lanes and weight
+        shard (None = it can)."""
+        return fused_unsupported_reason(
+            cfg, len(self.layer_sizes) - 1, self.layer_sizes,
+            self.local_batch, streamed=streamed,
+            model_shards=self.model_shards)
+
+    def _resolve_backend(self, cfg: SNNConfig, requested: str) -> str:
+        """The chunk backend: the resumable stack kernels only, since a
+        chunk resumes mid-window."""
+        b = resolve_backend(cfg, requested, len(self.layer_sizes) - 1,
                             layer_sizes=self.layer_sizes,
-                            local_batch=batch_size, device=self.device)
+                            local_batch=self.local_batch,
+                            model_shards=self.model_shards,
+                            device=self.device)
         if b != "staged":
             return b
         if requested == "staged":
@@ -323,29 +376,43 @@ class SNNStreamEngine:
                 "streaming chunk backend must be 'fused', 'fused_streamed' "
                 "or 'reference' (the staged kernels cannot resume "
                 "mid-window); got 'staged'")
-        why = fused_unsupported_reason(cfg, n_layers, self.layer_sizes,
-                                       batch_size, streamed=True)
         raise ValueError(
-            f"no resumable stack kernel holds this stack: {why} — the staged "
-            f"kernels cannot resume mid-window; pass backend='reference' to "
-            f"serve it in plain PyTorch")
+            f"no resumable stack kernel holds this stack: "
+            f"{self._unsupported(cfg, True)} — the staged kernels cannot "
+            f"resume mid-window; pass backend='reference' to serve it in "
+            f"plain PyTorch")
 
     @property
     def weights(self) -> tuple:
-        """Weights of the CURRENT bank version (new admissions bind these),
-        as placed: int16 codes, or int8 planes on ``fused_streamed``."""
-        return self.bank.weights(self.bank.current)
+        """Weights of the CURRENT bank version (new admissions bind these)
+        in the form the effective rung reads: int16 codes, or int8 planes
+        on ``fused_streamed``."""
+        return self._version_weights(self.bank.current)
 
-    def _place_weights(self, weights: tuple) -> tuple:
-        """The bank's copy of one weight version on the device: int16
-        codes, or for ``fused_streamed`` the LANE-padded int8 planes its
-        kernel reads (``kernels.fused_snn.pack_weights``), packed once
-        here so that no chunk pads or packs them."""
-        if self.backend == "fused_streamed":
+    def _version_weights(self, version: int) -> tuple:
+        return self.bank.weights(version)[
+            self._weight_form(self.backend_effective)]
+
+    def _weight_form(self, rung: str) -> str:
+        """The placed form a ladder rung reads."""
+        return "planes" if rung == "fused_streamed" else "codes"
+
+    def _place_form(self, codes: tuple, form: str) -> tuple:
+        """One weight version on the device in one form: int16 codes, or
+        the LANE-padded int8 planes the weight-streaming kernel reads
+        (``kernels.fused_snn.pack_weights``), packed here once so that no
+        chunk pads or packs them."""
+        if form == "planes":
             return tuple(pack_weights(_lane_pad(torch.as_tensor(w).to(
-                torch.int16))).to(self.device) for w in weights)
+                torch.int16))).to(self.device) for w in codes)
         return tuple(torch.as_tensor(w).to(self.device, torch.int16)
-                     .contiguous() for w in weights)
+                     .contiguous() for w in codes)
+
+    def _place_weights(self, codes: tuple) -> dict:
+        """The bank's entry for one weight version: its placed form for
+        every rung of the ladder, keyed by form."""
+        return {form: self._place_form(codes, form) for form in
+                dict.fromkeys(self._weight_form(b) for b in self._ladder)}
 
     @property
     def chunk_steps(self) -> int:
@@ -378,7 +445,11 @@ class SNNStreamEngine:
         return rid
 
     def load_summary(self) -> EngineLoad:
-        """Routing-tier load signals: host bookkeeping only, no device sync."""
+        """Routing-tier load signals: host bookkeeping only, no device sync.
+
+        Includes the health surface: consecutive faults, the ladder rung,
+        the hang watchdog's margin (``None`` when no injector is armed, so
+        the watchdog never runs) and liveness."""
         return EngineLoad(
             lanes_total=self.batch_size,
             lanes_busy=sum(r is not None for r in self.lane_req),
@@ -387,7 +458,13 @@ class SNNStreamEngine:
                                 if self._service_ewma is None
                                 else self._service_ewma),
             retired_total=self._retired_total,
-            density_ewma=self.controller.density_ewma)
+            density_ewma=self.controller.density_ewma,
+            consecutive_faults=self.health.consecutive_faults,
+            demotion_level=self.health.demotion_level,
+            watchdog_margin=(None if self.injector is None
+                             else self.fault_cfg.watchdog_chunks
+                             - self.health.stalled_chunks),
+            alive=self.health.alive)
 
     @property
     def pending(self) -> int:
@@ -529,6 +606,19 @@ class SNNStreamEngine:
         :meth:`snapshot_lanes`; the engine keeps running)."""
         return self._live_rows(self._host_tile())
 
+    def evict_lane(self, request_id: int) -> LaneState:
+        """Pull one in-flight lane off the tile (the poison-request path):
+        returns its row, as :meth:`snapshot_lanes` does, and frees its
+        slot without touching any other lane."""
+        slot = self.lane_req.index(request_id)
+        st = self._host_tile()
+        row = _map(lambda a: a[slot].copy(), st)
+        st.active[slot] = False
+        self.lane_req[slot] = None
+        self._sync_versions(st)
+        self.lanes = self._upload(st)
+        return row
+
     def adopt(self, request_id: int, row: LaneState) -> None:
         """Queue an evacuated lane row; it is admitted ahead of fresh
         requests and resumes where it stopped.  Its weight version must be
@@ -566,7 +656,7 @@ class SNNStreamEngine:
             num_steps=self.cfg.num_steps, lif_cfg=self.cfg.lif,
             dot_impl=self.cfg.dot_impl,
             active_pruning=self.cfg.active_pruning, patience=self.patience,
-            readout=self.cfg.readout, backend=self.backend,
+            readout=self.cfg.readout, backend=self.backend_effective,
             sparse_skip=self.cfg.sparse_skip)
 
     def _dispatch_versions(self, lanes: LaneState):
@@ -578,15 +668,132 @@ class SNNStreamEngine:
                            if o})
         if len(versions) <= 1:
             v = versions[0] if versions else self.bank.current
-            return self._advance(lanes, self.bank.weights(v))
+            return self._advance(lanes, self._version_weights(v))
         outs = []
         for v in versions:
             mask = self._lane_versions == v
             sub = lanes._replace(active=lanes.active & torch.as_tensor(
                 mask, device=self.device))
-            out, tel = self._advance(sub, self.bank.weights(v))
+            out, tel = self._advance(sub, self._version_weights(v))
             outs.append((mask, out, tel))
         return merge_version_chunks(outs)
+
+    # ---- fault-guarded dispatch (serve.faults) --------------------------
+    @property
+    def backend_effective(self) -> str:
+        """The ladder rung chunks dispatch on (the configured ``backend``
+        until faults demote the engine)."""
+        return self._ladder[self.health.demotion_level]
+
+    def _health_event(self, ev: dict) -> None:
+        """Record a health transition in the health log and in the
+        telemetry controller's history."""
+        self.health.events.append(ev)
+        self.controller.history.append(ev)
+
+    def _demote(self) -> None:
+        lvl = self.health.demotion_level
+        self._health_event({"event": "demote", "from": self._ladder[lvl],
+                            "to": self._ladder[lvl + 1], "level": lvl + 1})
+        self.health.demotion_level = lvl + 1
+        # the new rung gets a fresh fault budget and a fresh clean streak
+        self.health.consecutive_faults = 0
+        self.health.clean_chunks = 0
+
+    def _promote(self) -> None:
+        lvl = self.health.demotion_level
+        self._health_event({"event": "promote", "from": self._ladder[lvl],
+                            "to": self._ladder[lvl - 1], "level": lvl - 1})
+        self.health.demotion_level = lvl - 1
+        self.health.clean_chunks = 0
+
+    def _fail(self, reason: str, *, state_lost: bool = False):
+        self.health.alive = False
+        self._health_event({"event": "engine_failure", "reason": reason,
+                            "state_lost": state_lost})
+        raise EngineFailure(
+            f"engine {self.engine_id} failed: {reason}",
+            engine=self.engine_id, reason=reason, state_lost=state_lost)
+
+    def _dispatch_chunk(self, lanes: LaneState):
+        """Chunk dispatch with the fault harness in the loop.
+
+        With no injector armed this is exactly :meth:`_dispatch_versions`.
+        Armed, every launch attempt consults the injector first (the
+        ``try`` covers that consult alone: an error the chunk itself
+        raises propagates with the health state untouched):
+
+        * **transient dispatch fault** → up to ``max_retries`` immediate
+          retries of the pure chunk on unchanged lane state;
+          ``demote_after`` consecutive faults step down the ladder; a
+          round whose retries all faulted backs off a bounded number of
+          scheduling rounds; ``fail_after`` consecutive faults with no
+          rung left raise :class:`EngineFailure`;
+        * **hang** → no progress; ``watchdog_chunks`` stalls in a row fail
+          the engine with its lane state intact;
+        * **device loss** → immediate failure, optionally with the lane
+          state lost;
+        * **poison request** → propagates for the tier to evict the lane;
+        * **corrupted telemetry** → the record fails :func:`telemetry_ok`
+          and is dropped; the chunk's result stands.
+
+        Returns ``(lanes', telemetry | None)``: ``None`` marks a round
+        with no observable record (hang, backoff, corruption).
+        """
+        if self.injector is None:
+            return self._dispatch_versions(lanes)
+        if not self.health.alive:
+            raise EngineFailure(
+                f"engine {self.engine_id} is dead", engine=self.engine_id,
+                reason="dead", state_lost=False)
+        ft = self.fault_cfg
+        attempt = 0
+        while True:
+            try:
+                tok = self.injector.before_dispatch(
+                    attempt, backend=self.backend_effective,
+                    rids=[r for r in self.lane_req if r is not None])
+            except DeviceLostFault as e:
+                self._fail("device_lost", state_lost=e.state_lost)
+            except PoisonDispatchError:
+                raise
+            except DispatchFault as e:
+                self.health.record_fault("dispatch", str(e))
+                if (self.health.consecutive_faults >= ft.demote_after
+                        and self.health.demotion_level + 1
+                        < len(self._ladder)):
+                    self._demote()
+                    attempt = 0
+                    continue
+                if self.health.consecutive_faults >= ft.fail_after:
+                    self._fail("dispatch_exhausted")
+                attempt += 1
+                if attempt <= ft.max_retries:
+                    continue
+                # the whole round faulted: deterministic bounded backoff,
+                # counted in scheduling rounds (the tier's step currency)
+                burst = self.health.consecutive_faults - 1
+                self._cooldown = min(ft.backoff_base << min(burst, 8),
+                                     ft.backoff_max)
+                return lanes, None
+            if tok == "hang":
+                self.health.stalled_chunks += 1
+                if self.health.stalled_chunks >= ft.watchdog_chunks:
+                    self._fail("hang")
+                return lanes, None
+            out, tel = self._dispatch_versions(lanes)
+            self.health.stalled_chunks = 0
+            tel = self.injector.filter_telemetry(tel)
+            if not telemetry_ok(tel):
+                self.health.telemetry_faults += 1
+                self._health_event({"event": "fault", "kind": "telemetry"})
+                tel = None
+            else:
+                self.health.record_clean()
+                if (self.health.demotion_level > 0
+                        and self.health.clean_chunks >= ft.promote_after):
+                    self._promote()
+            return out, tel
 
     def _observe(self, src: LaneState, nxt: LaneState,
                  tel: ChunkTelemetry) -> None:
@@ -602,9 +809,14 @@ class SNNStreamEngine:
     def step(self) -> list[int]:
         """Admit + run one chunk.  Returns the request ids finished."""
         done = self._admit_and_compact()
+        if self._cooldown > 0:
+            # transient-fault backoff: sit this scheduling round out
+            self._cooldown -= 1
+            return done
         src = self.lanes
-        self.lanes, tel = self._dispatch_versions(src)
-        self._observe(src, self.lanes, tel)
+        self.lanes, tel = self._dispatch_chunk(src)
+        if tel is not None:
+            self._observe(src, self.lanes, tel)
         return done
 
     def run(self, max_chunks: int | None = None) -> dict[int, RequestResult]:
@@ -612,7 +824,10 @@ class SNNStreamEngine:
         limit = max_chunks if max_chunks is not None else (
             (self.pending + self.batch_size)
             * (self.cfg.num_steps // max(1, self.controller.min_chunk_steps)
-               + 2))
+               + 2)
+            # fault rounds (backoff, hang stalls) make no progress: an
+            # armed harness gets bounded slack instead of a hard wedge
+            + (0 if self.injector is None else 64))
         for _ in range(limit):
             if self.pending == 0:
                 break
@@ -757,12 +972,15 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
     move requests between any two engines.
 
     The mesh may name one device more than once (four model shards on one
-    card); the shards then run one after the other on it.  On a card,
-    ``backend`` None / ``"auto"`` resolves, without a model axis, to the
-    stack kernel that holds one data shard's lanes, and on a model axis to
-    ``fused``: there every fused backend runs the partial-contraction
-    kernel, whatever the stack's width.  Plain PyTorch runs the
-    contraction only when ``backend="reference"`` is named.
+    card); the shards then run one after the other on it.  ``backend``
+    resolves, and the degradation ladder is built, by the stack kernels'
+    feasibility model on one data shard's lanes and one model peer's
+    weight shard, as the reference package judges them: on a card
+    ``auto`` is ``fused``, else ``fused_streamed``, else it raises, and a
+    named backend the model refuses raises.  On a model axis both fused
+    rungs run the partial-contraction kernel (one launch per step, layer
+    and shard) on the same packed shards; only their labels differ.
+    Plain PyTorch runs the contraction only on the ``reference`` rung.
 
     Scheduling differences from the base engine:
 
@@ -790,7 +1008,10 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
                  patience: int = 2, seed: int = 0,
                  backend: str | None = None, overlap: bool = False,
                  adaptive: AdaptiveDispatchConfig | None = None,
-                 engine_id: int = 0, initial_weight_version: int = 0):
+                 engine_id: int = 0,
+                 injector: FaultInjector | None = None,
+                 fault_cfg: FaultToleranceConfig | None = None,
+                 initial_weight_version: int = 0):
         if mesh is None:
             mesh = make_2d_device_mesh(
                 model_devices=1, axis_names=(axis_name, model_axis_name))
@@ -824,7 +1045,6 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
             raise ValueError(
                 f"batch_size={batch_size} must divide evenly over the "
                 f"{self.n_devices}-device {axis_name!r} axis")
-        self.local_batch = batch_size // self.n_devices
         self.overlap = overlap
         self.stats = {"chunks": 0, "spec_used": 0, "spec_wasted": 0}
         self._spec: tuple | None = None
@@ -832,31 +1052,24 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
         self._spec_steps: int | None = None
         super().__init__(params_q, cfg, batch_size=batch_size,
                          chunk_steps=chunk_steps, patience=patience,
-                         seed=seed, backend=backend, adaptive=adaptive,
-                         engine_id=engine_id,
+                         seed=seed, backend=backend,
+                         local_batch=batch_size // self.n_devices,
+                         model_shards=self.model_devices, adaptive=adaptive,
+                         engine_id=engine_id, injector=injector,
+                         fault_cfg=fault_cfg,
                          initial_weight_version=initial_weight_version,
                          device=self._grid[0][0])
 
-    def _resolve_backend(self, cfg: SNNConfig, requested: str,
-                         batch_size: int) -> str:
-        """Without a model axis: the stack kernel that holds one data
-        shard's lanes.  On one: a fused backend is the partial-contraction
-        kernel, which keeps no per-lane state in shared memory, so no stack
-        kernel's feasibility model applies; ``auto`` takes it on a card."""
-        if (self.model_axis is None
-                or requested not in ("auto", "fused", "fused_streamed")):
-            return super()._resolve_backend(cfg, requested,
-                                            batch_size // self.n_devices)
-        if requested == "auto":
-            return "fused" if self.device.type == "cuda" else "reference"
-        return requested
-
     # ---- device placement ----------------------------------------------
-    def _place_weights(self, weights: tuple) -> tuple:
-        if self.model_axis:
-            return shard_weights(weights, self._grid, self.model_ways)
-        return shard_weights(weights, self._grid, None,
-                             planes=self.backend == "fused_streamed")
+    def _weight_form(self, rung: str) -> str:
+        # on a model axis every rung reads the same packed column shards
+        return "shards" if self.model_axis else super()._weight_form(rung)
+
+    def _place_form(self, codes: tuple, form: str) -> tuple:
+        if form == "shards":
+            return shard_weights(codes, self._grid, self.model_ways)
+        return shard_weights(codes, self._grid, None,
+                             planes=form == "planes")
 
     def _advance(self, lanes: LaneState, weights: tuple):
         self.dispatches += 1
@@ -867,7 +1080,7 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
             num_steps=self.cfg.num_steps, lif_cfg=self.cfg.lif,
             dot_impl=self.cfg.dot_impl,
             active_pruning=self.cfg.active_pruning, patience=self.patience,
-            readout=self.cfg.readout, backend=self.backend,
+            readout=self.cfg.readout, backend=self.backend_effective,
             sparse_skip=self.cfg.sparse_skip)
 
     # ---- scheduling -----------------------------------------------------
@@ -904,6 +1117,9 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
     def step(self) -> list[int]:
         """Admit + run one chunk, with chunk k+1 enqueued speculatively."""
         done = self._admit_and_compact()
+        if self._cooldown > 0:
+            self._cooldown -= 1
+            return done
         if (self._spec is not None and self.lanes is self._spec_src
                 and self._spec_steps == self.controller.chunk_steps):
             # the tile is the very one the speculation ran from and the
@@ -915,13 +1131,17 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
             if self._spec is not None:
                 self.stats["spec_wasted"] += 1
             src = self.lanes
-            nxt, tel = self._dispatch_versions(src)
+            nxt, tel = self._dispatch_chunk(src)
         self._spec = self._spec_src = self._spec_steps = None
         self.lanes = nxt
         self.stats["chunks"] += 1
-        self._observe(src, nxt, tel)
-        if self.overlap and (self.queue
-                             or any(r is not None for r in self.lane_req)):
+        if tel is not None:
+            self._observe(src, nxt, tel)
+        # no speculation while a fault harness is armed: a speculative
+        # launch would consume injector consults one step early and detach
+        # the fault coordinates from the committed dispatch sequence
+        if self.overlap and self.injector is None and (
+                self.queue or any(r is not None for r in self.lane_req)):
             self._spec_src = nxt
             self._spec_steps = self.controller.chunk_steps
             self._spec = self._dispatch_versions(nxt)

@@ -319,6 +319,11 @@ _JAX_2X2 = """
                                     max_chunk_steps=6, grow_patience=1))
     eng = make_stream_engine(params, cfg, knobs, patience=3, seed=3,
                              backend="reference")
+    ladders = {}
+    for b in ("fused", "fused_streamed", "reference"):
+        e = make_stream_engine(params, cfg, knobs, patience=3, seed=3,
+                               backend=b)
+        ladders[b] = [e.backend, list(e._ladder)]
     tels = []
     observe = eng._observe
 
@@ -342,7 +347,7 @@ _JAX_2X2 = """
         lengths.append(eng.chunk_steps)
     res = eng.run()
     print(json.dumps({"tels": tels, "loads": loads, "lengths": lengths,
-                      "stats": eng.stats,
+                      "stats": eng.stats, "ladders": ladders,
                       "results": {str(k): [r.pred, r.steps, r.adds,
                                            r.early_exit]
                                   for k, r in res.items()}}))
@@ -353,7 +358,9 @@ def test_mesh_engine_matches_jax_sharded_engine_chunk_for_chunk():
     """The JAX sharded engine on a forced-host 2×2 mesh and the port's on
     a 2×2 mesh of CPU devices, adaptive controller on: the same telemetry
     record every chunk (the tile leaf data-outer / model-inner, the 10-wide
-    head sharded 5 + 5), the same load summaries and chunk lengths."""
+    head sharded 5 + 5), the same load summaries and chunk lengths; and
+    for each named backend the same resolved backend and degradation
+    ladder (F-u)."""
     rng = np.random.default_rng(21)
     sizes, T = (40, 32, 10), 12
     p = _codes(rng, sizes)
@@ -378,6 +385,11 @@ def test_mesh_engine_matches_jax_sharded_engine_chunk_for_chunk():
                            adaptive=True, min_chunk_steps=2,
                            max_chunk_steps=6, grow_patience=1))
     assert eng.model_ways == (2, 2)
+    for b, want_ladder in want["ladders"].items():
+        e = _mesh_engine(p, cfg, 2, 2, 4, backend=b)
+        assert [e.backend, list(e._ladder)] == want_ladder, b
+    assert want["ladders"]["fused"][1] == ["fused", "fused_streamed",
+                                           "reference"]
     tels = []
     observe = eng._observe
 
@@ -593,10 +605,12 @@ def test_wide_resolves_fused_on_model_axis():
 
 
 def test_model_axis_serves_stacks_past_the_stack_kernels():
-    """On a model axis every fused backend is the partial contraction,
-    which holds no per-lane state in shared memory: a stack whose 2-way
-    shards neither stack kernel holds (784→32768→10) is served, with the
-    reference's results, where the single-device engine refuses it."""
+    """F-u: on a model axis the engine resolves ``backend`` and builds its
+    ladder by the stack kernels' feasibility model on one peer's weight
+    shard, as the JAX sharded engine does.  A stack whose 2-way shards
+    neither stack kernel holds (784→32768→10) is refused for ``fused``
+    and ``fused_streamed``, as on one device, and ``reference`` serves it
+    with the single-device engine's results."""
     rng = np.random.default_rng(31)
     sizes = (784, 32768, 10)
     cfg = dataclasses.replace(tcfgs.SNN_CONFIG, layer_sizes=sizes,
@@ -608,12 +622,17 @@ def test_model_axis_serves_stacks_past_the_stack_kernels():
     with pytest.raises(ValueError, match="streamed working set"):
         SNNStreamEngine(p, cfg, batch_size=8, backend="fused_streamed",
                         device="cpu")
-    runs = {}
-    for backend in ("fused", "fused_streamed", "reference"):
-        eng = _mesh_engine(p, cfg, 1, 2, 8, backend=backend)
-        assert eng.backend == backend and eng.model_ways == (2, 2)
-        for im in imgs:
-            eng.submit(im)
-        runs[backend] = eng.run()
-    _assert_results_equal(runs["fused"], runs["reference"])
-    _assert_results_equal(runs["fused_streamed"], runs["reference"])
+    with pytest.raises(ValueError, match="shared-memory carve-up"):
+        _mesh_engine(p, cfg, 1, 2, 8, backend="fused")
+    with pytest.raises(ValueError, match="2-way model axis"):
+        _mesh_engine(p, cfg, 1, 2, 8, backend="fused_streamed")
+    eng = _mesh_engine(p, cfg, 1, 2, 8, backend="reference")
+    assert eng.backend == "reference" and eng.model_ways == (2, 2)
+    assert eng._ladder == ("reference",)
+    for im in imgs:
+        eng.submit(im)
+    one = SNNStreamEngine(p, cfg, batch_size=8, backend="reference",
+                          device="cpu")
+    for im in imgs:
+        one.submit(im)
+    _assert_results_equal(eng.run(), one.run())
