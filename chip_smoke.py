@@ -94,6 +94,24 @@ result line):
    and evacuates it.  ``ShardedSNNStreamEngine`` on the 1×4 mesh serves
    1,024 wide requests under dispatch faults on ``fused``: one demotion
    to ``fused_streamed``, K3 the only kernel on both rungs.
+   Then the process-level cluster (``serve.cluster``): ``make_cluster``
+   with 2 worker processes × 1,024 lanes, each its own CUDA context on
+   the card, loading the built kernels, and each worker's promotion
+   probe must report ``fused`` (K1); it serves the 4,096 784→10 requests
+   with no plan, then under ``CLUSTER_PLAN`` (worker 1 killed at round 1,
+   the coordinator at round 2, both while the workers hold active lanes)
+   and ``ClusterCoordinator.recover`` on the same ledger; each run's
+   results equal the K1 serve's id for id, none faulted or shed.  It
+   prints the rounds, the failover stats, the wall time and rate, the
+   host ms per round and the bytes of each ``step`` reply.  The workers'
+   K1 launches happen in their processes and are not counted here.
+   Then the tuner (``tune``): ``autotune_engine`` on ``SNN_CONFIG`` with
+   ``backend=None`` on the card over ``TUNE_GRIDS`` (4,096 seeded
+   requests, 1,024 a round), every candidate on K1 and bit-identical to
+   the default shapes; its winner written with ``write_cache`` under a
+   key naming the card, and a fresh ``SNNStreamEngine`` with that file
+   hits it and serves the 4,096 requests with results equal to the K1
+   serve's.
 5. times — each kernel and its plain version at the main path's shapes
    (K1 at ``SNN_CONFIG`` and at ``SNN_CONFIG_DEEP``, with the bytes its
    launch moves and the host time per wrapper call and per
@@ -123,8 +141,10 @@ import dataclasses
 import functools
 import json
 import re
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -139,9 +159,12 @@ from repro_torch.core import snn  # noqa: E402
 from repro_torch.core.prng import seed_state  # noqa: E402
 from repro_torch.kernels import (_build, fused_snn, lif_step, ops,  # noqa: E402
                                  poisson_encode, spike_matmul)
-from repro_torch.serve import (FaultEvent, FaultInjector,  # noqa: E402
+from repro_torch.serve import (ClusterCoordinator,  # noqa: E402
+                                CoordinatorCrash, FaultEvent, FaultInjector,
                                 FaultPlan, FaultToleranceConfig,
                                 SNNServingTier, SNNStreamEngine)
+from repro_torch.tune import (ArrivalSchedule, AutotuneConfig,  # noqa: E402
+                              autotune_engine, write_cache)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 # H100 SXM INT32 rate: the data sheet's 67 TFLOP/s float32 counts an FMA as
@@ -1616,6 +1639,255 @@ def phase_model_axis_ladder(imgs, params, want, dev) -> dict:
             "chunks_by_rung": {r: n for r, (n, _) in rungs.items()}}
 
 
+# The cluster's faulted run: worker 1 dies at round 1, while both workers
+# hold 1,024 active lanes, and the coordinator at round 2, while both hold
+# lanes again (the rounds are deterministic: a CPU run at these sizes
+# takes the same ones).  The recovery runs under the same plan, as the
+# JAX package's contract test does, so it loses worker 1 at its round 1
+# too.
+CLUSTER_PLAN = "seed=0,worker_kill=1@1,coordinator_kill=2"
+CLUSTER_KILL_ROUNDS = (1, 2)
+
+
+def _cluster_kw(plan) -> dict:
+    return dict(num_workers=2, lanes_per_worker=SERVE_BATCH,
+                chunk_steps=SERVE_CHUNK, patience=SERVE_PATIENCE, seed=SEED,
+                backend=None, fault_plan=plan)
+
+
+def _run_cluster(co, imgs, crash=False) -> tuple[float, float]:
+    """Submit ``imgs`` (ids 0..n-1; None for a recovered coordinator,
+    whose ids are already submitted) and run; returns the wall seconds of
+    the whole and of the submits.  With ``crash`` the plan's coordinator
+    kill must end the run."""
+    t0 = time.perf_counter()
+    for im in () if imgs is None else imgs:
+        co.submit(im)
+    submit_s = time.perf_counter() - t0
+    try:
+        co.run()
+    except CoordinatorCrash:
+        if crash:
+            return time.perf_counter() - t0, submit_s
+        raise
+    if crash:
+        raise AssertionError("the plan's coordinator_kill did not fire")
+    return time.perf_counter() - t0, submit_s
+
+
+def _check_workers(co, what) -> list:
+    backends = [h.backend if h.alive else f"dead ({h.error})"
+                for h in co.workers]
+    if backends != ["fused"] * len(co.workers):
+        raise AssertionError(f"{what}: worker probes {backends}")
+    return backends
+
+
+def _per_round_ms(*tels) -> float:
+    """Host ms per round over coordinators' ``telemetry``."""
+    return sum(t["host_s"] for t in tels) / sum(
+        t["rounds"] for t in tels) * 1e3
+
+
+def _mean_reply_bytes(*tels) -> float:
+    return sum(t["step_reply_bytes"] for t in tels) / sum(
+        t["step_replies"] for t in tels)
+
+
+def phase_cluster(imgs, params, want) -> dict:
+    """``make_cluster``: 2 worker processes × 1,024 lanes on the card,
+    each on K1; a clean run, then a worker kill and a coordinator kill
+    recovered from the ledger, every result equal to the K1 serve's.
+    The rounds' host time and the step replies' bytes and RPC time are
+    the coordinators' own ``telemetry``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        knobs = cfgs.SNNClusterConfig(
+            num_workers=2, lanes_per_worker=SERVE_BATCH,
+            chunk_steps=SERVE_CHUNK, backend=None,
+            ledger_dir=os.path.join(tmp, "clean"))
+        t0 = time.perf_counter()
+        with cfgs.make_cluster(params, cfgs.SNN_CONFIG, knobs,
+                               patience=SERVE_PATIENCE, seed=SEED) as co:
+            spawn_s = time.perf_counter() - t0
+            backends = _check_workers(co, "clean cluster")
+            wall, submit_s = _run_cluster(co, imgs)
+            results, stats = dict(co.results), dict(co.stats)
+            clean = co.telemetry
+            if co.faulted or co.shed or stats["workers_failed"]:
+                raise AssertionError(f"clean cluster: {stats}")
+        _same_results(results, want, "clean cluster vs the K1 serve")
+
+        led = os.path.join(tmp, "faulted")
+        with ClusterCoordinator(params, cfgs.SNN_CONFIG, ledger_dir=led,
+                                **_cluster_kw(CLUSTER_PLAN)) as co:
+            _check_workers(co, "faulted cluster")
+            wall1, _ = _run_cluster(co, imgs, crash=True)
+            stats1, done1 = dict(co.stats), len(co.results)
+            crashed = co.telemetry
+        at = dict(crashed["active_lanes"])
+        if any(not all(at.get(r) or [0]) for r in CLUSTER_KILL_ROUNDS):
+            raise AssertionError(f"the kills did not land while both "
+                                 f"workers held lanes: {at}")
+        if (stats1["workers_failed"], stats1["respawned"]) != (1, 1) \
+                or stats1["evacuated"] == 0:
+            raise AssertionError(f"faulted cluster: {stats1}")
+        t0 = time.perf_counter()
+        with ClusterCoordinator.recover(
+                params, cfgs.SNN_CONFIG, ledger_dir=led,
+                **_cluster_kw(CLUSTER_PLAN)) as co:
+            recover_s = time.perf_counter() - t0
+            _check_workers(co, "recovered cluster")
+            folded = len(co.results)
+            wall2, _ = _run_cluster(co, None)
+            got, stats2 = dict(co.results), dict(co.stats)
+            rec = co.telemetry
+            _partition(co, len(imgs))
+            if co.faulted or co.shed:
+                raise AssertionError(f"recovered cluster: faulted "
+                                     f"{len(co.faulted)}, shed "
+                                     f"{len(co.shed)}")
+        _same_results(got, want, "faulted + recovered cluster vs the "
+                                 "K1 serve")
+    rounds = clean["rounds"]
+    log(f"[cluster] SNN_CONFIG 784->10, 2 worker processes x {SERVE_BATCH} "
+        f"lanes on the card, chunk={SERVE_CHUNK} patience={SERVE_PATIENCE}: "
+        f"worker probes {backends} (spawn + init + probe {spawn_s:.3f} s); "
+        f"no plan: {len(results)} requests in {wall:.3f} s = "
+        f"{len(results) / wall:.1f} requests/s: {len(results)} submit "
+        f"RPCs {submit_s:.3f} s, then {rounds} rounds, "
+        f"{_per_round_ms(clean):.3f} ms host per round; "
+        f"{clean['step_replies']} step replies, mean "
+        f"{_mean_reply_bytes(clean):.0f} B, largest "
+        f"{clean['step_reply_max_bytes']} B; the step RPCs (worker chunk, "
+        f"compaction, checkpoint encode, pipe, coordinator decode) take "
+        f"{clean['step_rpc_s'] * 1e3:.3f} ms of the rounds' "
+        f"{clean['host_s'] * 1e3:.3f}, the slowest "
+        f"{clean['step_rpc_max_s'] * 1e3:.3f} ms against the "
+        f"{FaultToleranceConfig().heartbeat_deadline_s} s heartbeat "
+        f"deadline; routed per worker "
+        f"{stats['routed_per_worker']}; results equal the K1 serve's id "
+        f"for id")
+    faulted_wall = wall1 + recover_s + wall2
+    log(f"[cluster] the same under {CLUSTER_PLAN!r}: active lanes per "
+        f"worker at the start of each round "
+        f"{list(crashed['active_lanes'])}; crashed with {done1} results "
+        f"in {wall1:.3f} s, stats {stats1}; recover "
+        f"(ledger fold, spawn + init + probe) {recover_s:.3f} s from "
+        f"{folded} results, then {rec['rounds']} rounds in "
+        f"{wall2:.3f} s, stats {stats2}; {len(got)} results, none faulted "
+        f"or shed, in {faulted_wall:.3f} s = "
+        f"{len(got) / faulted_wall:.1f} requests/s end to end; "
+        f"{_per_round_ms(crashed, rec):.3f} ms host per round; "
+        f"{crashed['step_replies'] + rec['step_replies']} step replies, "
+        f"mean {_mean_reply_bytes(crashed, rec):.0f} B; results "
+        f"equal the K1 serve's id for id")
+    return {"requests_per_s": len(results) / wall,
+            "faulted_requests_per_s": len(got) / faulted_wall,
+            "rounds": rounds,
+            "faulted_rounds": crashed["rounds"] + rec["rounds"],
+            "step_reply_mean_bytes": _mean_reply_bytes(clean),
+            "round_host_ms": _per_round_ms(clean),
+            "submit_s": submit_s,
+            "slowest_step_ms": max(t["step_rpc_max_s"] for t in
+                                   (clean, crashed, rec)) * 1e3,
+            "workers_failed": stats1["workers_failed"]
+            + stats2["workers_failed"],
+            "evacuated": stats1["evacuated"] + stats2["evacuated"]}
+
+
+# Tuner grids: lanes and chunk lengths around the serve cells' 1,024 and
+# 4, the one batch block, the JAX package's threshold grid; every
+# candidate the probe's pruning leaves is measured.
+TUNE_GRIDS = dict(lanes_grid=(256, 1024, 4096), chunk_steps_grid=(2, 4, 8),
+                  block_b_grid=(8,), threshold_grid=(0.1, 0.25, 0.4),
+                  repeats=3, warmup=1, max_candidates=19)
+
+
+def phase_tune(imgs, params, want, dev) -> dict:
+    """``autotune_engine`` on the card through K1, its cache written and
+    hit by a fresh engine that serves the 4,096 requests."""
+    tc = AutotuneConfig(schedule=ArrivalSchedule(
+        n_requests=SERVE_REQUESTS, per_round=SERVE_BATCH, seed=SEED),
+        **TUNE_GRIDS)
+    torch.cuda.synchronize()
+    reset_counts()                                # the tuner's run starts
+    t0 = time.perf_counter()
+    result = autotune_engine(params, cfgs.SNN_CONFIG, tune_cfg=tc,
+                             backend=None, patience=SERVE_PATIENCE,
+                             seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()                           # the tuner's run ended
+    if not result.bit_identical:
+        raise AssertionError("a tuner candidate's results differ from the "
+                             "default shapes'")
+    if {r["backend"] for r in result.records} != {"fused"} or \
+            result.probe["backend"] != "fused":
+        raise AssertionError(f"tuner backends "
+                             f"{[r['backend'] for r in result.records]}")
+    if launched["K1"] == 0 or any(launched[k] for k in KERNELS if k != "K1"):
+        raise AssertionError(f"the tuner launched {launched}")
+    name = torch.cuda.get_device_name(0)
+    for r in result.records:
+        c = r["candidate"]
+        log(f"[tune] lanes {c['lanes_per_device']} chunk {c['chunk_steps']} "
+            f"block_b {c['block_b']} threshold {c['threshold']}: "
+            f"{r['seconds_per_retired_request'] * 1e6:.3f} us per retired "
+            f"request (median of {r['timing']['repeats']}, stddev "
+            f"{r['timing']['stddev_s'] * 1e3:.3f} ms a serve)")
+    t = result.tuned
+    log(f"[tune] {len(result.records)} candidates in {wall:.3f} s, "
+        f"{launched['K1']} K1 launches; probe {result.probe}; pruned "
+        f"{result.pruned}; winner lanes {t.lanes_per_device} chunk "
+        f"{t.chunk_steps} threshold {t.spike_density_threshold} on "
+        f"{t.backend}: {t.seconds_per_retired_request * 1e6:.3f} us per "
+        f"retired request against the default's "
+        f"{result.baseline_spr * 1e6:.3f}; every candidate bit-identical")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dispatch_cache.json")
+        keys = list(write_cache(result, path).entries)
+        if result.device_kind != name or any(f"|{name}|" not in k
+                                             for k in keys):
+            raise AssertionError(f"cache keys {keys} for the card {name!r}")
+        eng = SNNStreamEngine(params, cfgs.SNN_CONFIG,
+                              patience=SERVE_PATIENCE, seed=SEED,
+                              dispatch_cache=path)
+    d = eng.cache_decision
+    if not d.hit or eng.backend != t.backend or (
+            eng.batch_size, eng.chunk_steps) != (t.lanes_per_device,
+                                                 t.chunk_steps):
+        raise AssertionError(f"tuned engine: {d}, backend {eng.backend}, "
+                             f"{eng.batch_size} lanes, chunk "
+                             f"{eng.chunk_steps}")
+    for im in imgs:
+        eng.submit(im)
+    torch.cuda.synchronize()
+    reset_counts()                                # the tuned serve starts
+    t1 = time.perf_counter()
+    got = eng.run()
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t1
+    served = counts()                             # the tuned serve ended
+    _same_results(got, want, "the cache-armed engine vs the K1 serve")
+    if served["K1"] == 0 or any(served[k] for k in KERNELS if k != "K1"):
+        raise AssertionError(f"the tuned serve launched {served}")
+    log(f"[tune] cache key {keys[0]!r}; a fresh SNNStreamEngine with "
+        f"dispatch_cache= that file: hit, {eng.batch_size} lanes, chunk "
+        f"{eng.chunk_steps}, {eng.backend}; served the {len(got)} requests "
+        f"in {serve_wall:.3f} s = {len(got) / serve_wall:.1f} requests/s, "
+        f"{served['K1']} K1 launches; results equal the K1 serve's id for "
+        f"id")
+    return {"launches": launched["K1"], "wall_s": wall,
+            "candidates": len(result.records),
+            "winner": {"lanes_per_device": t.lanes_per_device,
+                       "chunk_steps": t.chunk_steps,
+                       "threshold": t.spike_density_threshold},
+            "winner_us_per_request": t.seconds_per_retired_request * 1e6,
+            "default_us_per_request": result.baseline_spr * 1e6,
+            "tuned_serve_launches": served["K1"],
+            "tuned_requests_per_s": len(got) / serve_wall}
+
+
 # ---------------------------------------------------------------------------
 # 5. times
 # ---------------------------------------------------------------------------
@@ -2006,6 +2278,8 @@ def main() -> int:
                                           k1_want, dev),
             "model_axis": phase_model_axis_ladder(
                 imgs[:SERVE_BATCH], wide_params, wide_want, dev)}
+    cluster = phase_cluster(imgs, params, k1_want)
+    tune = phase_tune(imgs, params, k1_want, dev)
     times = phase_times(imgs, params, wide_params, dev)
     staged["K6"] = times.pop("K6_path")
     # the per-launch time a kernel's row reports: K3 at its most frequent
@@ -2032,6 +2306,8 @@ def main() -> int:
             extra["tier_clean_requests_per_s"] = \
                 tier["tier"]["clean_requests_per_s"]
             extra["tier_chunks_by_rung"] = tier["tier"]["chunks_by_rung"]
+            extra.update({f"cluster_{k}": v for k, v in cluster.items()})
+            extra.update({f"tune_{k}": v for k, v in tune.items()})
         if tag == "K2":
             extra["serve_device_ms"] = serve["K2"]["serve_device_ms"]
             extra["grids"] = serve["K2"]["grids"]

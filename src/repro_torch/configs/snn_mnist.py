@@ -19,7 +19,8 @@ from ..serve.telemetry import AdaptiveDispatchConfig
 __all__ = ["SNN_CONFIG", "SNN_CONFIG_PRUNED", "SNN_CONFIG_DEEP",
            "SNN_CONFIG_WIDE", "SNNStreamMeshConfig", "SNN_STREAM_MESH",
            "make_stream_mesh", "make_stream_engine", "TIER_PRIORITY_CLASSES",
-           "SNNServingTierConfig", "SNN_SERVING_TIER", "make_serving_tier"]
+           "SNNServingTierConfig", "SNN_SERVING_TIER", "make_serving_tier",
+           "SNNClusterConfig", "SNN_CLUSTER", "make_cluster"]
 
 _LIF = LIFConfig(decay_shift=4, v_threshold=128, v_rest=0)
 
@@ -55,12 +56,18 @@ class SNNStreamMeshConfig:
     num_devices: int | None = None     # data-axis width (None = the rest)
     model_axis_name: str = "model"
     model_devices: int = 1             # model-axis width (1 = pure data)
-    lanes_per_device: int | None = None  # slots per data shard (None = 8)
-    chunk_steps: int = 4               # window steps per chunk
+    # None defers to the engine: a dispatch-cache hit supplies the tuned
+    # value, otherwise 8 lanes and 4-step chunks
+    lanes_per_device: int | None = None  # slots per data shard
+    chunk_steps: int | None = None     # window steps per chunk
     overlap: bool = False              # speculative chunk k+1 dispatch
     # telemetry controller (serve.telemetry): None reads the
     # REPRO_ADAPTIVE_DISPATCH env default, frozen unless it is set
     adaptive: AdaptiveDispatchConfig | None = None
+    # tuned shapes (repro_torch.tune): a DispatchCache, a path to its JSON
+    # file, None for the REPRO_DISPATCH_CACHE env, or False for none; they
+    # fill the None knobs above, explicit values win
+    dispatch_cache: "object | None" = None
 
 
 SNN_STREAM_MESH = SNNStreamMeshConfig()
@@ -89,7 +96,8 @@ def make_stream_engine(params_q: dict, snn_cfg: SNNConfig = SNN_CONFIG,
         axis_name=knobs.axis_name, model_axis_name=knobs.model_axis_name,
         lanes_per_device=knobs.lanes_per_device,
         chunk_steps=knobs.chunk_steps, overlap=knobs.overlap,
-        adaptive=knobs.adaptive, **engine_kw)
+        adaptive=knobs.adaptive, dispatch_cache=knobs.dispatch_cache,
+        **engine_kw)
 
 
 # Priority classes of the serving tier, ordered lowest → highest: under
@@ -105,8 +113,10 @@ TIER_PRIORITY_CLASSES = ("batch", "standard", "interactive")
 @dataclass(frozen=True)
 class SNNServingTierConfig:
     num_engines: int = 2
-    lanes_per_engine: int | None = None  # None: the engine's 8 lanes
-    chunk_steps: int | None = None       # None: the engine's 4 steps
+    # None defers to each engine's dispatch-cache decision (tuned shapes
+    # on a hit, else 8 lanes and 4-step chunks)
+    lanes_per_engine: int | None = None
+    chunk_steps: int | None = None
     priority_classes: tuple = TIER_PRIORITY_CLASSES
     default_priority: str = "standard"
     default_deadline_steps: int | None = None
@@ -124,6 +134,10 @@ class SNNServingTierConfig:
     # the FaultToleranceConfig defaults).
     fault_plan: "FaultPlan | str | None" = None
     fault_cfg: "FaultToleranceConfig | None" = None
+    # Tuned shapes (repro_torch.tune) for every engine of the tier, as
+    # SNNStreamMeshConfig.dispatch_cache; each engine's hit or miss is on
+    # SNNServingTier.cache_decisions.
+    dispatch_cache: "object | None" = None
     # The recovery knobs one by one: a non-None value is folded into the
     # config :meth:`resolve_fault_cfg` builds (and validates); setting
     # any of them beside an explicit ``fault_cfg`` raises.
@@ -190,4 +204,53 @@ def make_serving_tier(params_q: dict, snn_cfg: SNNConfig = SNN_CONFIG,
         sharded=knobs.sharded,
         devices_per_engine=knobs.devices_per_engine,
         adaptive=knobs.adaptive, fault_plan=knobs.fault_plan,
-        fault_cfg=knobs.resolve_fault_cfg(), **tier_kw)
+        fault_cfg=knobs.resolve_fault_cfg(),
+        dispatch_cache=knobs.dispatch_cache, **tier_kw)
+
+
+# Process-level cluster knobs (serve.ClusterCoordinator): ``num_workers``
+# engine processes supervised over heartbeat RPC, lane checkpoints shipped
+# every round, accounting written ahead to ``ledger_dir``.  The recovery
+# policy (heartbeat interval and deadline, respawn budget) comes from the
+# tier knobs' resolve_fault_cfg() through make_cluster.
+@dataclass(frozen=True)
+class SNNClusterConfig:
+    num_workers: int = 2
+    lanes_per_worker: int = 4
+    chunk_steps: int = 4
+    backend: str | None = None
+    fault_plan: "FaultPlan | str | None" = None
+    ledger_dir: str | None = None      # required at build time
+
+    def __post_init__(self):
+        if self.num_workers < 1:
+            raise ValueError(
+                f"num_workers must be >= 1, got {self.num_workers}")
+        if self.lanes_per_worker < 1:
+            raise ValueError(
+                f"lanes_per_worker must be >= 1, got "
+                f"{self.lanes_per_worker}")
+
+
+SNN_CLUSTER = SNNClusterConfig()
+
+
+def make_cluster(params_q: dict, snn_cfg: SNNConfig = SNN_CONFIG,
+                 knobs: SNNClusterConfig = SNN_CLUSTER,
+                 tier_knobs: SNNServingTierConfig = SNN_SERVING_TIER,
+                 **cluster_kw):
+    """A ``serve.ClusterCoordinator`` built from the knobs
+    (``cluster_kw`` adds the rest: ``device``, ``patience``, ``seed``,
+    ``ledger_dir``).  The recovery policy is
+    ``tier_knobs.resolve_fault_cfg()``, the source the in-process tier
+    uses, so heartbeat, respawn and watchdog settings are set once for
+    both."""
+    from ..serve import ClusterCoordinator
+    cluster_kw.setdefault("ledger_dir", knobs.ledger_dir)
+    return ClusterCoordinator(
+        params_q, snn_cfg, num_workers=knobs.num_workers,
+        lanes_per_worker=knobs.lanes_per_worker,
+        chunk_steps=knobs.chunk_steps, backend=knobs.backend,
+        fault_plan=knobs.fault_plan,
+        fault_cfg=tier_knobs.resolve_fault_cfg(),
+        **cluster_kw)

@@ -142,7 +142,10 @@ def resolve_backend(cfg: SNNConfig, backend: str | None = None,
                     layer_sizes: tuple[int, ...] | None = None,
                     local_batch: int | None = None,
                     model_shards: int = 1,
-                    device: str | torch.device = "cuda") -> str:
+                    device: str | torch.device = "cuda",
+                    dispatch_cache=None, mesh_shape=(1,),
+                    shapes: tuple[int, int] | None = None,
+                    resumable: bool = False) -> str:
     """Pick the integer-engine backend that runs on ``device``.
 
     ``auto`` on a CUDA device walks the chain fused → fused_streamed →
@@ -154,16 +157,54 @@ def resolve_backend(cfg: SNNConfig, backend: str | None = None,
     plain PyTorch runs on the card only when the caller names
     ``reference``.  ``model_shards`` scopes the shared-memory check to one
     model peer's shard (see :func:`fused_unsupported_reason`).
+
+    ``dispatch_cache`` (a ``repro_torch.tune.DispatchCache``, a cache-file
+    path, a ``CacheDecision`` already made, or None) short-circuits an
+    ``auto`` resolution: a hit for this config on this device kind and
+    ``mesh_shape`` carries the backend that resolved in the tuned run,
+    adopted if it passes this device's gate — a stack kernel only on a
+    card whose shared memory holds the lanes, ``staged`` unless the
+    caller needs a ``resumable`` backend, ``reference`` only off the card
+    — and otherwise the chain above runs.  ``shapes`` is the caller's
+    running ``(chunk_steps, lanes)``: when given, the cached backend
+    applies only at the shapes it was tuned at.  Explicit requests ignore
+    the cache.
     """
     b = backend if backend is not None else cfg.backend
+    on_cuda = torch.device(device).type == "cuda"
 
-    def reason(streamed: bool) -> str | None:
+    def reason(streamed: bool, lanes: int | None = local_batch
+               ) -> str | None:
         return fused_unsupported_reason(cfg, n_layers, layer_sizes,
-                                        local_batch, streamed=streamed,
+                                        lanes, streamed=streamed,
                                         model_shards=model_shards)
 
+    if b == "auto" and dispatch_cache is not None:
+        from ..tune.cache import CacheDecision, decide_dispatch
+        decision = (dispatch_cache
+                    if isinstance(dispatch_cache, CacheDecision)
+                    else decide_dispatch(dispatch_cache, cfg=cfg,
+                                         backend="auto",
+                                         mesh_shape=mesh_shape,
+                                         device=device))
+        t = decision.tuned if decision.hit else None
+        lanes = (None if t is None else t.lanes_per_device
+                 if local_batch is None else local_batch)
+        if t is None or (shapes is not None and tuple(shapes)
+                         != (t.chunk_steps, t.lanes_per_device)):
+            ok = False
+        elif t.backend in ("fused", "fused_streamed"):
+            ok = on_cuda and reason(t.backend == "fused_streamed",
+                                    lanes) is None
+        elif t.backend == "staged":
+            ok = not resumable
+        else:
+            ok = not on_cuda
+        if ok:
+            return t.backend
+
     if b == "auto":
-        if torch.device(device).type != "cuda":
+        if not on_cuda:
             b = "reference"
         elif reason(False) is None:
             b = "fused"

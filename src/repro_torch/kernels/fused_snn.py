@@ -52,7 +52,7 @@ from .lif_step import _wrap32
 
 __all__ = ["LANE", "BLOCK_B", "MAX_LAYERS", "SMEM_LIMIT_BYTES",
            "STREAM_LANES", "K1_PIXEL_ALIGN", "K1_MAX_PIXELS", "READOUTS",
-           "block_b_for", "is_planes",
+           "block_b_for", "check_block_b", "is_planes",
            "stack_smem_bytes", "stack_streamed_smem_bytes", "fused_snn_stack",
            "fused_snn_stack_streamed", "fused_snn_stack_plain",
            "layer_shard_ways", "pack_weights", "unpack_weights",
@@ -76,6 +76,19 @@ def block_b_for(batch: int | None = None) -> int:
     """Batch block launched for a ``batch``-row tile: always ``BLOCK_B``
     (batches pad up to it), which is also the telemetry's block geometry."""
     return BLOCK_B
+
+
+def check_block_b(block_b: int | None) -> None:
+    """Refuse a batch block the kernels are not built for.
+
+    The JAX package's kernel takes any multiple of 8 and its results do
+    not depend on it; the port's kernels fix their lane grouping (K1: 8
+    lanes per 512-thread block, also the telemetry's block; K2: 64 lanes a
+    cluster), so the only block there is to ask for is ``BLOCK_B``."""
+    if block_b is not None and block_b != BLOCK_B:
+        raise ValueError(
+            f"block_b={block_b!r}: the port's kernels run a fixed batch "
+            f"block of {BLOCK_B} lanes; pass block_b=None or {BLOCK_B}")
 
 
 def layer_shard_ways(layer_sizes, model_shards: int) -> tuple[int, ...]:

@@ -1,6 +1,8 @@
 """Serving layer of the port: the streaming engines, their fault harness,
-the serving tier above them, and the tier's wire codec and ledger."""
+the serving tier above them, the tier's wire codec and ledger, and the
+process-level cluster over engine workers."""
 
+from .cluster import ClusterCoordinator, CoordinatorCrash, WorkerDied
 from .early_exit import StabilityGateState, stability_init, stability_step
 from .faults import (DeviceLostFault, DispatchFault, EngineFailure,
                      EngineHealthState, FaultEvent, FaultInjector, FaultPlan,
@@ -30,4 +32,5 @@ __all__ = ["SNNStreamEngine", "ShardedSNNStreamEngine", "LaneState",
            "DispatchFault", "DeviceLostFault", "PoisonDispatchError",
            "FaultPlanSpecError", "Ledger", "LedgerCorruptError",
            "read_ledger", "recover_accounting", "WIRE_CODEC_VERSION",
-           "WireError", "lane_to_wire", "lane_from_wire"]
+           "WireError", "lane_to_wire", "lane_from_wire",
+           "ClusterCoordinator", "CoordinatorCrash", "WorkerDied"]

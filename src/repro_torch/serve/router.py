@@ -116,7 +116,8 @@ class SNNServingTier:
     ``ShardedSNNStreamEngine`` over its own slice's data mesh, a
     simulated per-host lane mesh.  ``shedding=False`` disables both shed
     paths (every request is eventually served — the bit-identity
-    property's configuration).
+    property's configuration).  ``dispatch_cache`` goes to every engine;
+    their startup decisions are :attr:`cache_decisions`.
     """
 
     def __init__(self, params_q: dict, cfg: SNNConfig, *,
@@ -135,7 +136,8 @@ class SNNServingTier:
                  fault_cfg: FaultToleranceConfig | None = None,
                  ledger=None,
                  device: str | torch.device | None = None,
-                 devices=None):
+                 devices=None,
+                 dispatch_cache=None):
         if num_engines < 1:
             raise ValueError(f"num_engines must be >= 1, got {num_engines}")
         if default_priority not in priority_classes:
@@ -178,7 +180,7 @@ class SNNServingTier:
                     batch_size=lanes_per_engine, chunk_steps=chunk_steps,
                     patience=patience, seed=seed, backend=backend,
                     adaptive=adaptive, engine_id=i, injector=_inj(i),
-                    fault_cfg=self.fault_cfg))
+                    fault_cfg=self.fault_cfg, dispatch_cache=dispatch_cache))
         else:
             for i in range(num_engines):
                 self.engines.append(SNNStreamEngine(
@@ -186,7 +188,7 @@ class SNNServingTier:
                     chunk_steps=chunk_steps, patience=patience, seed=seed,
                     backend=backend, adaptive=adaptive, engine_id=i,
                     injector=_inj(i), fault_cfg=self.fault_cfg,
-                    device=device))
+                    device=device, dispatch_cache=dispatch_cache))
         # Optional write-ahead accounting ledger (serve.ledger.Ledger):
         # every terminal record — shed, fault, result — is appended as a
         # JSON line the moment the tier commits to it, so a crash of the
@@ -212,6 +214,12 @@ class SNNServingTier:
                       "shed_deadline": 0, "shed_overload": 0,
                       "displaced": 0, "engines_failed": 0, "evacuated": 0,
                       "requeued": 0, "poison_retries": 0, "quarantined": 0}
+
+    @property
+    def cache_decisions(self) -> list:
+        """Per-engine dispatch-cache startup decisions (hit/miss, key,
+        reason): whether the fleet serves tuned shapes."""
+        return [e.cache_decision for e in self.engines]
 
     # ---- routing --------------------------------------------------------
     def _alive(self) -> list[int]:

@@ -41,11 +41,18 @@ fails raises :class:`~.faults.EngineFailure` for the serving tier to
 evacuate.  The ``reference`` rung runs plain PyTorch, and only an
 injected fault leads there: an error a kernel raises is never taken for
 a fault.  With no injector the dispatch is the plain chunk, launch for
-launch.  Not ported yet: the tuned dispatch cache.
+launch.
+
+Both engines consult the tuned dispatch cache (``repro_torch.tune``) once
+at construction: a hit fills the lane count, the chunk length and the
+controller's threshold that the caller left unset, and an ``auto``
+backend adopts the tuned run's backend where this device's gate admits
+it.  A miss serves the static defaults (8 lanes, 4-step chunks).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -61,15 +68,16 @@ from ..core.telemetry import (ChunkTelemetry, EngineLoad,
 from ..device import resolve_device
 from ..distributed.sharding import DeviceMesh, make_2d_device_mesh
 from ..kernels import ops
-from ..kernels.fused_snn import LANE, layer_shard_ways, pack_weights
+from ..kernels.fused_snn import LANE, check_block_b, layer_shard_ways, \
+    pack_weights
 from ..kernels.ops import V_PEAK_INIT
 from .early_exit import StabilityGateState, stability_step
 from .faults import (DeviceLostFault, DispatchFault, EngineFailure,
                      EngineHealthState, FaultInjector, FaultToleranceConfig,
                      PoisonDispatchError, injector_from_env, telemetry_ok)
 from .rollout import WeightBank, merge_version_chunks, select_lanes
-from .telemetry import AdaptiveDispatchConfig, make_controller, \
-    summarize_chunk
+from .telemetry import AdaptiveDispatchConfig, TelemetryController, \
+    make_controller, summarize_chunk
 
 __all__ = ["SNNStreamEngine", "ShardedSNNStreamEngine", "LaneState",
            "RequestResult", "stream_chunk", "split_lanes", "shard_weights",
@@ -272,6 +280,19 @@ class SNNStreamEngine:
     frozen): it only moves value-neutral knobs, so results are the same
     either way.
 
+    ``dispatch_cache`` (a ``repro_torch.tune.DispatchCache``, a path,
+    None for the ``REPRO_DISPATCH_CACHE`` env, or False for none) is
+    consulted once, keyed by this device's kind and the mesh ``(1,)``;
+    the outcome is ``cache_decision``.  A hit fills ``batch_size``,
+    ``chunk_steps`` and the controller's threshold where the caller left
+    them None (explicit arguments win knob by knob), and an ``auto``
+    backend adopts the tuned run's backend when the cached shapes are the
+    ones running and ``core.snn.resolve_backend``'s cache gate admits it
+    (a resumable backend; a stack kernel only on a card whose shared
+    memory holds the lanes).  ``block_b`` is the
+    kernels' fixed batch block: None or ``kernels.fused_snn.BLOCK_B``;
+    any other value raises.
+
     ``injector`` arms the fault harness (``serve.faults``; None arms it
     from ``REPRO_FAULT_PLAN`` when that is set) under the ``fault_cfg``
     recovery policy.  The engine's degradation ladder ``_ladder`` holds
@@ -297,21 +318,43 @@ class SNNStreamEngine:
                  injector: FaultInjector | None = None,
                  fault_cfg: FaultToleranceConfig | None = None,
                  initial_weight_version: int = 0,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 block_b: int | None = None,
+                 dispatch_cache=None):
+        from ..tune.cache import CacheDecision, decide_dispatch
         if cfg.readout not in ("count", "first_spike", "membrane"):
             raise ValueError(
                 f"unknown readout {cfg.readout!r}: the streaming engine "
                 f"implements 'count', 'first_spike' and 'membrane'")
+        check_block_b(block_b)
+        self.device = resolve_device(device)
+        # the dispatch cache, resolved once (the sharded engine passes the
+        # decision it made for its mesh); explicit arguments beat tuned
+        # values knob by knob, and a miss serves the static defaults
+        if isinstance(dispatch_cache, CacheDecision):
+            self.cache_decision = dispatch_cache
+        else:
+            self.cache_decision = decide_dispatch(
+                dispatch_cache, cfg=cfg, backend=backend, mesh_shape=(1,),
+                device=self.device)
+        tuned = (self.cache_decision.tuned if self.cache_decision.hit
+                 else None)
+        if tuned is not None:
+            batch_size = (tuned.lanes_per_device if batch_size is None
+                          else batch_size)
+            chunk_steps = (tuned.chunk_steps if chunk_steps is None
+                           else chunk_steps)
         batch_size = 8 if batch_size is None else batch_size
         chunk_steps = 4 if chunk_steps is None else chunk_steps
-        self.device = resolve_device(device)
         codes = tuple(layer["w_q"] for layer in params_q["layers"])
         self.layer_sizes = tuple([int(codes[0].shape[0])]
                                  + [int(w.shape[1]) for w in codes])
         self.local_batch = batch_size if local_batch is None else local_batch
         self.model_shards = int(model_shards)
-        self.backend = self._resolve_backend(
-            cfg, "auto" if backend is None else backend)
+        requested = "auto" if backend is None else backend
+        self.backend = self._resolve_backend(cfg, requested,
+                                             shapes=(chunk_steps,
+                                                     self.local_batch))
         if self.backend in ("fused", "fused_streamed"):
             ops.validate_weight_codes(codes)
         # the resumable slice of the backend chain below the configured
@@ -335,9 +378,16 @@ class SNNStreamEngine:
         self.batch_size = batch_size
         self.patience = patience
         self.seed = seed
-        self.controller = make_controller(
-            adaptive, spike_density_threshold=cfg.spike_density_threshold,
-            chunk_steps=chunk_steps, num_steps=cfg.num_steps)
+        if tuned is not None:
+            # the tuned threshold, and the chunk length unless the caller
+            # set it (``chunk_steps`` is the effective value either way)
+            self.controller = TelemetryController.from_cache(
+                dataclasses.replace(tuned, chunk_steps=chunk_steps),
+                cfg_adaptive=adaptive, num_steps=cfg.num_steps)
+        else:
+            self.controller = make_controller(
+                adaptive, spike_density_threshold=cfg.spike_density_threshold,
+                chunk_steps=chunk_steps, num_steps=cfg.num_steps)
         self.n_in, self.n_out = self.layer_sizes[0], self.layer_sizes[-1]
         self.lanes = _init_lanes(batch_size, self.layer_sizes, cfg.num_steps,
                                  cfg.lif.v_rest, self.device)
@@ -361,14 +411,19 @@ class SNNStreamEngine:
             self.local_batch, streamed=streamed,
             model_shards=self.model_shards)
 
-    def _resolve_backend(self, cfg: SNNConfig, requested: str) -> str:
+    def _resolve_backend(self, cfg: SNNConfig, requested: str, *,
+                         shapes: tuple[int, int]) -> str:
         """The chunk backend: the resumable stack kernels only, since a
-        chunk resumes mid-window."""
+        chunk resumes mid-window; an ``auto`` request adopts the tuned
+        run's backend when ``shapes`` (chunk steps, lanes) are the tuned
+        ones."""
         b = resolve_backend(cfg, requested, len(self.layer_sizes) - 1,
                             layer_sizes=self.layer_sizes,
                             local_batch=self.local_batch,
                             model_shards=self.model_shards,
-                            device=self.device)
+                            device=self.device,
+                            dispatch_cache=self.cache_decision,
+                            shapes=shapes, resumable=True)
         if b != "staged":
             return b
         if requested == "staged":
@@ -981,6 +1036,8 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
     rungs run the partial-contraction kernel (one launch per step, layer
     and shard) on the same packed shards; only their labels differ.
     Plain PyTorch runs the contraction only on the ``reference`` rung.
+    The dispatch cache is keyed by the ``(data, model)`` mesh shape, and a
+    hit's lane count is per data shard.
 
     Scheduling differences from the base engine:
 
@@ -1004,14 +1061,18 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
                  mesh: DeviceMesh | None = None, axis_name: str = "data",
                  model_axis_name: str = "model",
                  lanes_per_device: int | None = None,
-                 batch_size: int | None = None, chunk_steps: int = 4,
+                 batch_size: int | None = None,
+                 chunk_steps: int | None = None,
                  patience: int = 2, seed: int = 0,
                  backend: str | None = None, overlap: bool = False,
                  adaptive: AdaptiveDispatchConfig | None = None,
                  engine_id: int = 0,
                  injector: FaultInjector | None = None,
                  fault_cfg: FaultToleranceConfig | None = None,
-                 initial_weight_version: int = 0):
+                 initial_weight_version: int = 0,
+                 block_b: int | None = None,
+                 dispatch_cache=None):
+        from ..tune.cache import CacheDecision, decide_dispatch
         if mesh is None:
             mesh = make_2d_device_mesh(
                 model_devices=1, axis_names=(axis_name, model_axis_name))
@@ -1030,6 +1091,19 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
         w_shapes = [tuple(layer["w_q"].shape) for layer in params_q["layers"]]
         sizes = tuple([w_shapes[0][0]] + [s[1] for s in w_shapes])
         self.model_ways = layer_shard_ways(sizes, self.model_devices)
+        # the cache is consulted here, keyed by this (data, model) mesh,
+        # since the tuned per-device lane count fixes the tile's shape;
+        # the base constructor takes the decision as made
+        if isinstance(dispatch_cache, CacheDecision):
+            decision = dispatch_cache
+        else:
+            decision = decide_dispatch(
+                dispatch_cache, cfg=cfg, backend=backend,
+                mesh_shape=(self.n_devices, self.model_devices),
+                device=self._grid[0][0])
+        if (decision.hit and batch_size is None
+                and lanes_per_device is None):
+            lanes_per_device = decision.tuned.lanes_per_device
         if batch_size is None:
             batch_size = (8 if lanes_per_device is None
                           else lanes_per_device) * self.n_devices
@@ -1058,7 +1132,8 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
                          engine_id=engine_id, injector=injector,
                          fault_cfg=fault_cfg,
                          initial_weight_version=initial_weight_version,
-                         device=self._grid[0][0])
+                         device=self._grid[0][0], block_b=block_b,
+                         dispatch_cache=decision)
 
     # ---- device placement ----------------------------------------------
     def _weight_form(self, rung: str) -> str:

@@ -132,6 +132,26 @@ class TelemetryController:
             return self.static_chunk_steps
         return max(1, min(self.cfg.min_chunk_steps, self.num_steps))
 
+    @classmethod
+    def from_cache(cls, tuned, *,
+                   cfg_adaptive: AdaptiveDispatchConfig | None = None,
+                   num_steps: int) -> "TelemetryController":
+        """Start at cache-tuned values instead of the static defaults.
+
+        ``tuned`` is a :class:`repro_torch.tune.cache.TunedShapes` (or
+        anything with ``chunk_steps`` / ``spike_density_threshold``): the
+        measured winner becomes the controller's *static* choice, so
+        frozen mode serves the tuned shapes with no readbacks and
+        adaptive mode walks its law from them.  Duck-typed, so that
+        ``serve`` does not import ``tune`` at module scope.
+        """
+        return cls(
+            cfg=(adaptive_config_from_env() if cfg_adaptive is None
+                 else cfg_adaptive),
+            static_threshold=float(tuned.spike_density_threshold),
+            static_chunk_steps=int(tuned.chunk_steps),
+            num_steps=num_steps)
+
     def observe(self, summary: ChunkSummary) -> None:
         """Fold one chunk's summary into the estimator and retune (no-op
         when frozen)."""

@@ -58,7 +58,7 @@ __all__ = [
     "fault_cfg_to_wire", "fault_cfg_from_wire",
     "plan_to_wire", "plan_from_wire",
     "result_to_wire", "result_from_wire",
-    "write_msg", "read_msg",
+    "write_msg", "read_msg", "read_frame",
 ]
 
 # Bump when the LaneState row layout (fields, dtypes, meaning) changes.
@@ -306,9 +306,15 @@ def read_msg(fd: int, timeout_s: float | None = None):
     """Read one frame.  ``timeout_s=None`` blocks forever (worker side);
     a finite timeout is the coordinator's heartbeat deadline — the whole
     frame (header + body) must arrive within it."""
+    return read_frame(fd, timeout_s)[0]
+
+
+def read_frame(fd: int, timeout_s: float | None = None):
+    """:func:`read_msg` that also returns the frame's size in bytes
+    (header + body)."""
     import time
     deadline = None if timeout_s is None else time.monotonic() + timeout_s
     header = _read_exact(fd, _HEADER.size, deadline, time.monotonic)
     (length,) = _HEADER.unpack(header)
     body = _read_exact(fd, length, deadline, time.monotonic)
-    return json.loads(body.decode("utf-8"))
+    return json.loads(body.decode("utf-8")), _HEADER.size + length

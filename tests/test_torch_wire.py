@@ -188,6 +188,22 @@ def test_framing_crosses_packages():
         os.close(w)
 
 
+def test_read_frame_returns_the_frame_size():
+    """``read_frame`` reads what ``read_msg`` reads, and counts the
+    frame's header and body bytes."""
+    msg = {"op": "step", "rows": ["x" * 100, {"y": "ü"}]}
+    body = len(json.dumps(msg, separators=(",", ":")).encode("utf-8"))
+    r, w = os.pipe()
+    try:
+        jwire.write_msg(w, msg, timeout_s=5.0)
+        got, nbytes = twire.read_frame(r, timeout_s=5.0)
+        assert got == msg
+        assert nbytes - body == twire._HEADER.size
+    finally:
+        os.close(r)
+        os.close(w)
+
+
 _RECORDS = [{"kind": "submit", "rid": 0, "px": [1, 2]},
             {"kind": "submit", "rid": 1, "px": [3]},
             {"kind": "shed", "rid": 1, "reason": "deadline"},
