@@ -112,6 +112,22 @@ result line):
    key naming the card, and a fresh ``SNNStreamEngine`` with that file
    hits it and serves the 4,096 requests with results equal to the K1
    serve's.
+   Then training (``core.train_snn``): the port trains ``SNN_CONFIG`` on
+   the card from the procedural digits (``data.digits.make_dataset``,
+   6,000 training and 1,000 test images) by surrogate-gradient BPTT with
+   QAT for 1,500 steps, the JAX package's budget (ms per step, the logged
+   losses, and a ``torch.profiler`` trace of 20 more steps for the device
+   busy share and the three device ops that take the most time);
+   ``quantize_params`` must give int16 codes in [-256, 255];
+   ``int_accuracy`` at T = 1, 5, 10 and 20 must run on K1 and reach 0.85
+   at T=10 with T=20 >= T=1; K1 must equal the reference backend bit for
+   bit on the trained codes; the pruned config on 200 test images must
+   keep every neuron to one spike, make fewer adds and reach 0.6; the
+   ANN→SNN route (1,500 steps) must reach 0.75 at T=20; and the test
+   images, cycled to 4,096 requests, are served through K1 by
+   ``make_stream_engine`` with results equal to a reference engine's id
+   for id (served accuracy, mean steps, early-exit share, rate).  It
+   prints one ``{"train": {...}}`` line.
 5. times — each kernel and its plain version at the main path's shapes
    (K1 at ``SNN_CONFIG`` and at ``SNN_CONFIG_DEEP``, with the bytes its
    launch moves and the host time per wrapper call and per
@@ -137,8 +153,10 @@ Nothing here imports JAX or the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import re
 import os
@@ -155,8 +173,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import snn_mnist as cfgs  # noqa: E402
-from repro_torch.core import snn  # noqa: E402
+from repro_torch.core import snn, train_snn  # noqa: E402
 from repro_torch.core.prng import seed_state  # noqa: E402
+from repro_torch.data import digits  # noqa: E402
 from repro_torch.kernels import (_build, fused_snn, lif_step, ops,  # noqa: E402
                                  poisson_encode, spike_matmul)
 from repro_torch.serve import (ClusterCoordinator,  # noqa: E402
@@ -1889,6 +1908,216 @@ def phase_tune(imgs, params, want, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4c. training: the port trains its own 784->10 weights and serves them
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 1500            # the JAX package's fit_or_load budget
+TRAIN_LOG_EVERY = 100
+TRAIN_PROFILE_STEPS = 20
+TRAIN_EVAL_T = (1, 5, 10, 20)
+TRAIN_EVAL_SEED = 1234        # int_accuracy's PRNG seed of batch 0
+TRAIN_PRUNED_IMAGES = 200
+
+
+def _train_logged(cfg, ds, dev) -> tuple[dict, float, list]:
+    """``train_bptt`` at the full budget with its log lines captured:
+    the float params, the wall seconds (host clock after a synchronise)
+    and the logged losses."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        params = train_snn.train_bptt(cfg, ds, steps=TRAIN_STEPS, seed=SEED,
+                                      log_every=TRAIN_LOG_EVERY, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"[train] {line.strip()}")
+    losses = [float(re.search(r"loss ([0-9.]+)", line).group(1))
+              for line in lines]
+    if len(losses) != TRAIN_STEPS // TRAIN_LOG_EVERY:
+        raise AssertionError(f"{len(losses)} logged losses")
+    return params, wall, losses
+
+
+def _k1_vs_reference(params_q, cfg, x, dev) -> int:
+    """``int_accuracy``'s batches (the same pixels and PRNG seeds) through
+    K1 and through the reference backend on the card: every output must
+    be equal.  Returns the number of images compared."""
+    keys = ("pred", "spike_counts", "active_adds", "first_spike_t",
+            "v_final", "v_trace", "v_peak", "prng_state")
+    for i in range(0, len(x), 500):
+        px = torch.from_numpy((x[i:i + 500] * 255).astype(np.uint8)).to(dev)
+        st = seed_state(TRAIN_EVAL_SEED + i, tuple(px.shape), device=dev)
+        k = snn.snn_apply_int(params_q, px, st, cfg, backend="fused")
+        r = snn.snn_apply_int(params_q, px, st, cfg, backend="reference")
+        if _max_abs_err([k[n] for n in keys], [r[n] for n in keys]):
+            raise AssertionError(f"K1 differs from the reference backend on "
+                                 f"the trained codes, images {i}..")
+    return len(x)
+
+
+def _trained_engine(params_q, backend, dev):
+    knobs = cfgs.SNNStreamMeshConfig(lanes_per_device=SERVE_BATCH,
+                                     chunk_steps=SERVE_CHUNK)
+    return cfgs.make_stream_engine(params_q, cfgs.SNN_CONFIG, knobs,
+                                   devices=[dev], patience=SERVE_PATIENCE,
+                                   seed=SEED, backend=backend)
+
+
+def phase_train(dev, smi) -> dict:
+    """Train ``SNN_CONFIG`` on the card by BPTT (and by conversion),
+    quantize, score the codes through K1 (equal to the reference backend
+    bit for bit), check the pruned engine, and serve the test images
+    through K1.  Every gate raises."""
+    cfg = cfgs.SNN_CONFIG
+    t0 = time.perf_counter()
+    ds = digits.make_dataset(seed=SEED)
+    data_s = time.perf_counter() - t0
+    log(f"[train] make_dataset(seed={SEED}): {ds.n_train} training and "
+        f"{len(ds.y_test)} test images in {data_s:.2f} s (host)")
+    params, wall, losses = _train_logged(cfg, ds, dev)
+    ms_step = wall / TRAIN_STEPS * 1e3
+    busy, prof_ms, top = _device_busy_ms(lambda: train_snn.train_bptt(
+        cfg, ds, steps=TRAIN_PROFILE_STEPS, seed=SEED + 1, device=dev))
+    log(f"[train] train_bptt {cfg.layer_sizes} T={cfg.num_steps} batch 128 "
+        f"qat={cfg.qat}: {TRAIN_STEPS} steps in {wall:.3f} s = "
+        f"{ms_step:.3f} ms/step (host clock); loss {losses[0]:.4f} at step "
+        f"{TRAIN_LOG_EVERY} -> {losses[-1]:.4f} at {TRAIN_STEPS}; "
+        f"{TRAIN_PROFILE_STEPS} more steps under torch.profiler: device "
+        f"busy {busy:.3f} ms of {prof_ms:.3f} ms = "
+        f"{busy / prof_ms * 100:.2f}%; most device time (ms, calls): "
+        + "; ".join(f"{k[:60]} {ms:.3f} ({n})" for k, ms, n in top[:3]))
+
+    params_q = snn.quantize_params(params, cfg)
+    w_q = params_q["layers"][0]["w_q"]
+    lo, hi = int(w_q.min()), int(w_q.max())
+    if w_q.dtype != torch.int16 or lo < -256 or hi > 255:
+        raise AssertionError(f"codes {w_q.dtype} in [{lo}, {hi}]")
+    backend = snn.resolve_backend(cfg, None, 1, layer_sizes=cfg.layer_sizes,
+                                  local_batch=500, device=dev)
+    if backend != "fused":
+        raise AssertionError(f"int_accuracy resolves to {backend!r}")
+    torch.cuda.synchronize()
+    reset_counts()                                # the scoring run starts
+    acc = {t: train_snn.int_accuracy(params_q, cfg, ds.x_test, ds.y_test,
+                                     num_steps=t, seed=TRAIN_EVAL_SEED,
+                                     device=dev)
+           for t in TRAIN_EVAL_T}
+    scored = counts()                             # the scoring run ended
+    if scored["K1"] == 0 or any(n for k, n in scored.items() if k != "K1"):
+        raise AssertionError(f"int_accuracy launched {scored}")
+    log(f"[train] int_accuracy on {len(ds.y_test)} test images through K1 "
+        f"({scored['K1']} launches), codes in [{lo}, {hi}]: " + ", ".join(
+            f"T={t} {a:.4f} ({aux['adds_per_img']:.1f} adds/image)"
+            for t, (a, aux) in acc.items()))
+    if acc[10][0] < 0.85 or acc[20][0] < acc[1][0]:
+        raise AssertionError(f"accuracy {acc} below the band (0.85 at "
+                             f"T=10, T=20 >= T=1)")
+    n_eq = _k1_vs_reference(params_q, cfg, ds.x_test, dev)
+    log(f"[train] K1 == reference backend on the trained codes, bit for "
+        f"bit (pred, counts, adds, first spike, membranes, peaks, PRNG), "
+        f"{n_eq} images at T={cfg.num_steps}")
+
+    px = torch.from_numpy((ds.x_test[:TRAIN_PRUNED_IMAGES] * 255)
+                          .astype(np.uint8)).to(dev)
+    st = seed_state(5, tuple(px.shape), device=dev)
+    reset_counts()
+    on = snn.snn_apply_int(params_q, px, st, cfgs.SNN_CONFIG_PRUNED)
+    off = snn.snn_apply_int(params_q, px, st, cfg)
+    pruned_k1 = counts()["K1"]
+    adds_on, adds_off = int(on["active_adds"].sum()), \
+        int(off["active_adds"].sum())
+    acc_on = float((on["pred"].cpu().numpy()
+                    == ds.y_test[:TRAIN_PRUNED_IMAGES]).mean())
+    max_count = int(on["spike_counts"].max())
+    log(f"[train] SNN_CONFIG_PRUNED on {TRAIN_PRUNED_IMAGES} test images "
+        f"through K1 ({pruned_k1} launches): accuracy {acc_on:.4f}, at most "
+        f"{max_count} spike a neuron, {adds_on} adds against {adds_off} "
+        f"unpruned")
+    if pruned_k1 != 2 or max_count > 1 or adds_on >= adds_off \
+            or acc_on < 0.6:
+        raise AssertionError(f"pruned engine: K1 {pruned_k1}, max count "
+                             f"{max_count}, adds {adds_on} vs {adds_off}, "
+                             f"accuracy {acc_on}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    conv = train_snn.train_converted(cfg, ds, steps=TRAIN_STEPS, seed=SEED,
+                                     device=dev)
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    conv_acc, _ = train_snn.int_accuracy(snn.quantize_params(conv, cfg), cfg,
+                                         ds.x_test, ds.y_test, num_steps=20,
+                                         device=dev)
+    log(f"[train] train_converted: {TRAIN_STEPS} ANN steps and Diehl "
+        f"normalisation in {conv_s:.3f} s = "
+        f"{conv_s / TRAIN_STEPS * 1e3:.3f} ms/step; accuracy at T=20 "
+        f"through K1 {conv_acc:.4f}")
+    if conv_acc < 0.75:
+        raise AssertionError(f"converted accuracy {conv_acc} < 0.75")
+
+    imgs = (ds.x_test * 255).astype(np.uint8)
+    labels = np.resize(ds.y_test, SERVE_REQUESTS)
+    requests = np.resize(imgs, (SERVE_REQUESTS, imgs.shape[1]))
+    eng = _trained_engine(params_q, "fused", dev)
+    for im in requests:
+        eng.submit(im)
+    torch.cuda.synchronize()
+    reset_counts()                                # the trained serve starts
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    served = counts()                             # the trained serve ended
+    if served["K1"] == 0 or any(n for k, n in served.items() if k != "K1"):
+        raise AssertionError(f"the trained serve launched {served}")
+    ref = _trained_engine(params_q, "reference", dev)
+    for im in requests:
+        ref.submit(im)
+    _same_results(results, ref.run(), "trained serve, K1 vs reference")
+    if len(results) != SERVE_REQUESTS:
+        raise AssertionError(f"{len(results)} results")
+    preds = np.array([results[i].pred for i in range(SERVE_REQUESTS)])
+    steps = np.array([results[i].steps for i in range(SERVE_REQUESTS)])
+    early = np.array([results[i].early_exit for i in range(SERVE_REQUESTS)])
+    serve = {"requests": SERVE_REQUESTS, "accuracy": float(
+        (preds == labels).mean()), "mean_steps": float(steps.mean()),
+        "early_exit_share": float(early.mean()), "K1_launches": served["K1"],
+        "chunks": eng.stats["chunks"],
+        "requests_per_s": SERVE_REQUESTS / serve_s}
+    log(f"[train] trained serve: the {len(ds.y_test)} test images cycled to "
+        f"{SERVE_REQUESTS} requests, make_stream_engine backend=fused batch "
+        f"{SERVE_BATCH} chunk {SERVE_CHUNK} patience {SERVE_PATIENCE}: "
+        f"accuracy {serve['accuracy']:.4f}, mean steps "
+        f"{serve['mean_steps']:.2f}, early exits "
+        f"{serve['early_exit_share'] * 100:.2f}%, {served['K1']} K1 "
+        f"launches, {serve['requests_per_s']:.1f} requests/s (host clock); "
+        f"results equal to the reference engine's id for id")
+    out = {"card": smi, "dataset_s": data_s, "bptt_steps": TRAIN_STEPS,
+           "ms_per_step": ms_step, "first_logged_loss": losses[0],
+           "last_logged_loss": losses[-1], "profiled_steps":
+           TRAIN_PROFILE_STEPS, "device_busy_ms": busy,
+           "profiled_wall_ms": prof_ms, "device_busy_share": busy / prof_ms,
+           "top_device_ops": [{"name": k, "ms": ms, "calls": n}
+                              for k, ms, n in top[:3]],
+           "codes_range": [lo, hi],
+           "accuracy": {str(t): a for t, (a, _) in acc.items()},
+           "adds_per_img": {str(t): aux["adds_per_img"]
+                            for t, (_, aux) in acc.items()},
+           "scoring_K1_launches": scored["K1"],
+           "k1_equals_reference_images": n_eq,
+           "pruned": {"accuracy": acc_on, "max_spike_count": max_count,
+                      "adds": adds_on, "adds_unpruned": adds_off,
+                      "K1_launches": pruned_k1},
+           "converted": {"accuracy_T20": conv_acc, "seconds": conv_s},
+           "serve": serve}
+    print(json.dumps({"train": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 5. times
 # ---------------------------------------------------------------------------
 
@@ -2280,6 +2509,7 @@ def main() -> int:
                 imgs[:SERVE_BATCH], wide_params, wide_want, dev)}
     cluster = phase_cluster(imgs, params, k1_want)
     tune = phase_tune(imgs, params, k1_want, dev)
+    train = phase_train(dev, smi)
     times = phase_times(imgs, params, wide_params, dev)
     staged["K6"] = times.pop("K6_path")
     # the per-launch time a kernel's row reports: K3 at its most frequent
@@ -2308,6 +2538,10 @@ def main() -> int:
             extra["tier_chunks_by_rung"] = tier["tier"]["chunks_by_rung"]
             extra.update({f"cluster_{k}": v for k, v in cluster.items()})
             extra.update({f"tune_{k}": v for k, v in tune.items()})
+            extra["train_launches"] = {
+                "scoring": train["scoring_K1_launches"],
+                "pruned": train["pruned"]["K1_launches"],
+                "serve": train["serve"]["K1_launches"]}
         if tag == "K2":
             extra["serve_device_ms"] = serve["K2"]["serve_device_ms"]
             extra["grids"] = serve["K2"]["grids"]

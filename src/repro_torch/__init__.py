@@ -1,11 +1,14 @@
 """PyTorch/CUDA port of the Poisson-encoded integer SNN (the ``repro`` package's
-serving path on an NVIDIA Hopper card).
+serving and training paths on an NVIDIA Hopper card).
 
-The module layout mirrors ``repro``: ``core`` (PRNG, encoder, integer LIF,
-telemetry, the SNN module), ``configs``, ``kernels`` (the hand-written CUDA
-encode→LIF stack kernel, its launcher and its plain PyTorch version) and
-``serve`` (the streaming engine).  ``convert`` turns ``repro``'s quantized
-parameters into this package's.
+The module layout mirrors ``repro``: ``core`` (PRNG, encoders, integer and
+float LIF, telemetry, the SNN module, fixed point, conversion, pruning,
+energy and the training routes), ``configs``, ``data`` (the procedural
+digits and the input pipeline), ``optim`` (SGD / AdamW and schedules),
+``kernels`` (the hand-written CUDA kernels, their launchers and their
+plain PyTorch versions), ``serve`` (the streaming engines, the serving
+tier and the cluster) and ``tune``.  ``convert`` turns ``repro``'s
+parameters, quantized or float, into this package's.
 
 Entry points that create tensors take a ``device``: ``None`` means the CUDA
 card, and raises when there is none — pass ``device="cpu"`` to run the plain

@@ -1,8 +1,12 @@
-"""Hardware-faithful Poisson spike encoding (paper §III-C, Fig. 2).
+"""Poisson spike encoding (paper §III-C, Fig. 2; port of
+``repro.core.encoding``).
 
-At every timestep each pixel's xorshift32 lane draws an 8-bit value R and
-emits a spike iff ``I > R`` — bit-identical to
-``repro.core.encoding.poisson_encode_hw``.
+:func:`poisson_encode_hw` is the hardware-faithful encoder: at every
+timestep each pixel's xorshift32 lane draws an 8-bit value R and emits a
+spike iff ``I > R``, bit-identical to
+``repro.core.encoding.poisson_encode_hw``.  :func:`poisson_encode_float`
+is the training path's encoder: the same distribution from a
+``torch.Generator``, where PRNG bit-compatibility does not matter.
 """
 
 from __future__ import annotations
@@ -11,7 +15,7 @@ import torch
 
 from . import prng
 
-__all__ = ["poisson_encode_hw", "spike_train_rates"]
+__all__ = ["poisson_encode_hw", "poisson_encode_float", "spike_train_rates"]
 
 
 def poisson_encode_hw(pixels_u8: torch.Tensor, state: torch.Tensor,
@@ -31,6 +35,21 @@ def poisson_encode_hw(pixels_u8: torch.Tensor, state: torch.Tensor,
         state = prng.xorshift32_step(state)
         spikes.append(pixels_u8 > prng.uniform_u8(state))
     return torch.stack(spikes), state
+
+
+def poisson_encode_float(pixels01: torch.Tensor, num_steps: int, *,
+                         generator: torch.Generator) -> torch.Tensor:
+    """Training-path Poisson encoding from float intensities in [0, 1]
+    (the counterpart of ``repro.core.encoding.poisson_encode_jax``).
+
+    Draws ``(num_steps, *pixels01.shape)`` uniforms from ``generator``,
+    which must live on the pixels' device, and returns float32 spikes in
+    {0.0, 1.0} (float, so the surrogate-gradient path treats them as
+    activations).
+    """
+    u = torch.rand((num_steps,) + tuple(pixels01.shape), generator=generator,
+                   dtype=torch.float32, device=pixels01.device)
+    return (pixels01[None] > u).to(torch.float32)
 
 
 def spike_train_rates(spikes: torch.Tensor) -> torch.Tensor:

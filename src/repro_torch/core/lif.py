@@ -1,7 +1,11 @@
-"""Integer Leaky Integrate-and-Fire dynamics (paper §III-A/B, Fig. 1/4).
+"""Leaky Integrate-and-Fire dynamics (paper §III-A/B, Fig. 1/4; port of
+``repro.core.lif``).
 
-The bit-exact model of the RTL datapath, ported from the integer half of
-``repro.core.lif``.  Timestep ordering (Integrate → Leak → Fire/Reset):
+Two datapaths share one timestep semantics: the integer one, the bit-exact
+model of the RTL, and the float one (:func:`lif_step_float`,
+:func:`run_lif_float`) with a surrogate-gradient spike, used to train
+weights with BPTT before they are quantised onto the integer one.
+Timestep ordering (Integrate → Leak → Fire/Reset):
 
     I[t]   = Σ_i W_i · S_i[t]                 (Adder, spike-gated)
     V'     = clip(V[t-1] + I[t], v_min, v_max) (saturating Accumulator)
@@ -22,8 +26,10 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["LIFConfig", "LIFStateInt", "init_state_int",
-           "synaptic_current_int", "lif_step_int", "run_lif_int"]
+__all__ = ["LIFConfig", "LIFStateInt", "LIFStateFloat", "init_state_int",
+           "init_state_float", "synaptic_current_int", "lif_step_int",
+           "run_lif_int", "spike_surrogate", "lif_step_float",
+           "run_lif_float"]
 
 
 @dataclass(frozen=True)
@@ -36,10 +42,18 @@ class LIFConfig:
     v_min: int = -(1 << 20)       # accumulator saturation floor
     v_max: int = (1 << 20) - 1    # accumulator saturation ceiling
 
+    @property
+    def beta(self) -> float:
+        return 2.0 ** (-self.decay_shift)
+
 
 class LIFStateInt(NamedTuple):
     v: torch.Tensor        # int32 membrane accumulator, shape (..., N)
     enable: torch.Tensor   # bool per-neuron clock gate (True = active)
+
+
+class LIFStateFloat(NamedTuple):
+    v: torch.Tensor        # float32 membrane potential
 
 
 def init_state_int(shape: tuple[int, ...], cfg: LIFConfig, *,
@@ -49,6 +63,14 @@ def init_state_int(shape: tuple[int, ...], cfg: LIFConfig, *,
         v=torch.full(shape, cfg.v_rest, dtype=torch.int32, device=dev),
         enable=torch.ones(shape, dtype=torch.bool, device=dev),
     )
+
+
+def init_state_float(shape: tuple[int, ...], cfg: LIFConfig, *,
+                     device: str | torch.device | None = None
+                     ) -> LIFStateFloat:
+    return LIFStateFloat(v=torch.full(shape, float(cfg.v_rest),
+                                      dtype=torch.float32,
+                                      device=resolve_device(device)))
 
 
 def synaptic_current_int(spikes: torch.Tensor, w_q: torch.Tensor,
@@ -114,3 +136,59 @@ def run_lif_int(spikes_t: torch.Tensor, w_q: torch.Tensor, cfg: LIFConfig, *,
         adds.append(n_spk * n_en)
     return {"spikes": torch.stack(spk), "v_trace": torch.stack(vtr),
             "state": state, "active_adds": torch.stack(adds)}
+
+
+# ---------------------------------------------------------------------------
+# Float (training) datapath with surrogate gradient
+# ---------------------------------------------------------------------------
+
+class _SpikeSurrogate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, slope):
+        ctx.save_for_backward(x)
+        ctx.slope = slope
+        return (x >= 0).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        slope = ctx.slope
+        return g * (slope / (1.0 + slope * torch.abs(x)) ** 2), None
+
+
+def spike_surrogate(v_minus_th: torch.Tensor,
+                    slope: float = 4.0) -> torch.Tensor:
+    """Heaviside spike with a fast-sigmoid surrogate derivative.
+
+    Forward: 1[v ≥ v_th].  Backward: slope / (1 + slope·|x|)² (Zenke &
+    Ganguli 2018); ``slope`` is a plain float and gets no gradient.
+    """
+    return _SpikeSurrogate.apply(v_minus_th, float(slope))
+
+
+def lif_step_float(state: LIFStateFloat, current: torch.Tensor,
+                   cfg: LIFConfig, slope: float = 4.0):
+    """Float twin of :func:`lif_step_int` (same op ordering, soft
+    gradients).  The hard reset is a multiply by the spike, so the
+    surrogate gradient flows through the reset as well as the no-reset
+    path; detaching the spike there would change the gradients."""
+    v_int = state.v + current
+    v_leak = v_int - v_int * cfg.beta        # == v_int * (1 - 2^-n)
+    spike = spike_surrogate(v_leak - float(cfg.v_threshold), slope)
+    v_new = v_leak * (1.0 - spike) + float(cfg.v_rest) * spike
+    return LIFStateFloat(v=v_new), spike
+
+
+def run_lif_float(spikes_t: torch.Tensor, w: torch.Tensor, cfg: LIFConfig,
+                  slope: float = 4.0):
+    """Run T float LIF steps over ``spikes_t`` (T, ..., n_in).  Returns
+    ``(out_spikes (T, ..., N), v_trace (T, ..., N), final_state)``."""
+    batch_shape = tuple(spikes_t.shape[1:-1])
+    state = init_state_float(batch_shape + (int(w.shape[-1]),), cfg,
+                             device=spikes_t.device)
+    spk, vtr = [], []
+    for s_t in spikes_t:
+        state, spike = lif_step_float(state, s_t @ w, cfg, slope)
+        spk.append(spike)
+        vtr.append(state.v)
+    return torch.stack(spk), torch.stack(vtr), state

@@ -1,10 +1,14 @@
-"""The paper's integer SNN on torch tensors (port of ``repro.core.snn``).
+"""The paper's SNN on torch tensors (port of ``repro.core.snn``).
 
 Network topology (paper §IV-A): Poisson encoder → fully-connected LIF
 layer stack → spike-register readout over a T-step window; the paper's
-configuration is the single 784→10 layer.  This module holds the integer
-inference engine: :func:`snn_apply_int` (whole window) and the resumable
-:func:`snn_window_chunk`, on backends that give the same integers:
+configuration is the single 784→10 layer.  Training: :func:`snn_init`,
+the differentiable :func:`snn_apply_float` (surrogate gradients, QAT
+through fake-quantised weights) and :func:`snn_loss`;
+:func:`quantize_params` maps the float weights onto 9-bit codes.  The
+integer inference engine: :func:`snn_apply_int` (whole window) and the
+resumable :func:`snn_window_chunk`, on backends that give the same
+integers:
 
   fused           — the resident encode→LIF stack kernel (``kernels.ops``):
                     one launch per chunk on CUDA
@@ -21,7 +25,8 @@ inference engine: :func:`snn_apply_int` (whole window) and the resumable
 
 On CPU tensors every kernel backend runs its kernels' plain versions.
 
-Parameters: ``{"layers": [{"w_q": int16 (n_in, n_out), "scale": float}]}``.
+Parameters: float ``{"layers": [{"w": float32 (n_in, n_out)}]}``;
+quantized ``{"layers": [{"w_q": int16 (n_in, n_out), "scale": float}]}``.
 """
 
 from __future__ import annotations
@@ -31,13 +36,15 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
 from ..kernels import fused_snn, ops
 from ..kernels.ops import V_PEAK_INIT
-from . import encoding, lif, prng
+from . import encoding, fixed_point, lif, prng
 from .telemetry import (ChunkTelemetry, layer_tile_skips, model_tile_skips,
                         resolve_sparse_skip)
 
-__all__ = ["SNNConfig", "readout_pred", "encode_lif_timestep",
+__all__ = ["SNNConfig", "snn_init", "snn_apply_float", "snn_loss",
+           "quantize_params", "readout_pred", "encode_lif_timestep",
            "snn_int_stack_step", "snn_int_stack_step_sharded",
            "snn_apply_int", "resolve_backend",
            "fused_unsupported_reason", "SNNWindowState", "snn_window_init",
@@ -50,6 +57,8 @@ class SNNConfig:
     num_steps: int = 20                        # simulation window
     lif: lif.LIFConfig = field(default_factory=lif.LIFConfig)
     weight_bits: int = 8                       # paper: 8-bit codes (+ sign)
+    qat: bool = True                           # train through fake-quant
+    surrogate_slope: float = 4.0
     readout: str = "count"                     # count|first_spike|membrane
     active_pruning: bool = False
     dot_impl: str = "int32"                    # reference Σ W·S precision
@@ -62,6 +71,9 @@ class SNNConfig:
     # False: the fused-encoder scan keeps no trace, so v_trace,
     # active_adds, input_spikes, v_peak and telemetry come back None
     emit_trace: bool = True
+    # float threshold of training; quantize_params scales it onto the
+    # integer Threshold-Reg
+    train_threshold: float = 1.0
 
     @property
     def n_in(self) -> int:
@@ -70,6 +82,86 @@ class SNNConfig:
     @property
     def n_classes(self) -> int:
         return self.layer_sizes[-1]
+
+
+def snn_init(generator: torch.Generator, cfg: SNNConfig, *,
+             device: str | torch.device | None = None) -> dict:
+    """Float params: per layer normal weights × 2/√fan_in (LeCun-style,
+    scaled for spiking inputs of rate ≲ 0.5), drawn from ``generator`` on
+    its own device and placed on ``device`` (None = the card)."""
+    dev = resolve_device(device)
+    layers = []
+    for fan_in, fan_out in zip(cfg.layer_sizes[:-1], cfg.layer_sizes[1:]):
+        w = torch.randn((fan_in, fan_out), generator=generator,
+                        dtype=torch.float32, device=generator.device)
+        layers.append({"w": (w * (2.0 / fan_in ** 0.5)).to(dev)})
+    return {"layers": layers}
+
+
+def _train_lif_cfg(cfg: SNNConfig) -> lif.LIFConfig:
+    """Float-threshold LIF of training (V_th = ``train_threshold``)."""
+    return lif.LIFConfig(decay_shift=cfg.lif.decay_shift,
+                         v_threshold=cfg.train_threshold, v_rest=0)
+
+
+def snn_apply_float(params: dict, pixels01: torch.Tensor,
+                    generator: torch.Generator, cfg: SNNConfig):
+    """Differentiable forward; ``pixels01`` (batch, n_in) in [0, 1], the
+    spike train drawn from ``generator`` on the pixels' device.
+
+    Returns dict(rates=(batch, n_classes) mean firing rates,
+    spikes=(T, batch, n_classes), v_trace=(T, batch, n_classes)).
+    """
+    spikes = encoding.poisson_encode_float(pixels01, cfg.num_steps,
+                                           generator=generator)
+    tcfg = _train_lif_cfg(cfg)
+    for layer in params["layers"]:
+        w = layer["w"]
+        if cfg.qat:
+            w = fixed_point.fake_quant(w, cfg.weight_bits)
+        spikes, v_trace, _ = lif.run_lif_float(spikes, w, tcfg,
+                                               cfg.surrogate_slope)
+    return {"rates": encoding.spike_train_rates(spikes), "spikes": spikes,
+            "v_trace": v_trace}
+
+
+def snn_loss(params: dict, pixels01: torch.Tensor, labels: torch.Tensor,
+             generator: torch.Generator, cfg: SNNConfig):
+    """Rate-coded cross-entropy: softmax over time-summed spike counts,
+    plus a small L2 on rates against saturation.  Returns
+    ``(loss, {"loss": nll, "acc": accuracy})``."""
+    out = snn_apply_float(params, pixels01, generator, cfg)
+    # counts in [0, T] -> logits; the scale keeps softmax in a sane range
+    logits = out["rates"] * float(cfg.num_steps) * 0.5
+    logp = torch.log_softmax(logits, dim=-1)
+    labels = labels.to(torch.int64)
+    nll = -torch.gather(logp, -1, labels[:, None]).mean()
+    reg = 1e-3 * torch.mean(out["rates"] ** 2)
+    acc = (torch.argmax(logits, -1) == labels).to(torch.float32).mean()
+    return nll + reg, {"loss": nll.detach(), "acc": acc}
+
+
+@torch.no_grad()
+def quantize_params(params: dict, cfg: SNNConfig) -> dict:
+    """Float → fixed point for the integer engine.
+
+    Integer codes are ``w · gain`` with ``gain = v_threshold /
+    train_threshold``, so Σ w_q·S crosses the Threshold-Reg exactly when
+    the float accumulator would cross ``train_threshold`` (up to
+    rounding); signed ``weight_bits + 1``-bit codes (paper §V-B: 9 bits),
+    int16, on the weights' device.
+    """
+    gain = float(cfg.lif.v_threshold) / cfg.train_threshold
+    code_bits = cfg.weight_bits + 1
+    qmin, qmax = -(1 << (code_bits - 1)), (1 << (code_bits - 1)) - 1
+    out = []
+    for layer in params["layers"]:
+        w = layer["w"]
+        if cfg.qat:
+            w = fixed_point.fake_quant(w, cfg.weight_bits)
+        w_q = torch.clamp(torch.round(w * gain), qmin, qmax)
+        out.append({"w_q": w_q.to(torch.int16), "scale": 1.0 / gain})
+    return {"layers": out}
 
 
 def _param_sizes(params_q: dict) -> tuple[int, ...]:

@@ -7,10 +7,10 @@ fingerprint is a SHA-256 over the **canonical JSON** of every
 its launches are — topology, window length, LIF constants, quantization
 width, readout, pruning, dot implementation, sparse skipping and the
 static dispatch threshold.  The backend *request* is left out (the cache
-key carries it separately), and so are training-only concerns, which the
-port's ``SNNConfig`` does not have.  The payload and the hash are the JAX
-package's, field for field, so one config has one fingerprint in both
-packages and a cache file reads the same in either.
+key carries it separately), and so are training-only concerns
+(``qat``, ``surrogate_slope``, ``train_threshold``).  The payload and the
+hash are the JAX package's, field for field, so one config has one
+fingerprint in both packages and a cache file reads the same in either.
 
 A fingerprint that splits two equivalent configs costs one cache miss
 (static defaults, always safe); one that merged two different configs

@@ -1,5 +1,7 @@
 """Parity of the port's ``SNNConfig`` fields ``weight_bits``,
-``fuse_encoder`` and ``emit_trace`` with the JAX package, on the CPU.
+``fuse_encoder`` and ``emit_trace`` with the JAX package, on the CPU
+(the training fields ``qat``, ``surrogate_slope`` and ``train_threshold``
+default alike too).
 
 The reference backend's ``snn_apply_int`` of both packages on the same
 seeded numpy inputs, in all four (``fuse_encoder``, ``emit_trace``)
@@ -50,7 +52,8 @@ def _assert_same(got, want, msg):
 
 def test_config_fields_default_as_in_jax():
     t, j = tsnn.SNNConfig(), jsnn.SNNConfig()
-    for f in ("weight_bits", "fuse_encoder", "emit_trace"):
+    for f in ("weight_bits", "fuse_encoder", "emit_trace", "qat",
+              "surrogate_slope", "train_threshold"):
         assert getattr(t, f) == getattr(j, f), f
 
 

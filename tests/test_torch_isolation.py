@@ -37,7 +37,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.convert,"
             " repro_torch.configs.snn_mnist, repro_torch.kernels.ops,"
             " repro_torch.distributed.sharding,"
-            " repro_torch.kernels.spike_matmul;"
+            " repro_torch.kernels.spike_matmul, repro_torch.core.train_snn,"
+            " repro_torch.core.conversion, repro_torch.data.digits,"
+            " repro_torch.optim;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -122,6 +122,26 @@ def test_results_params_and_plans_encode_alike():
     assert st["plan_back"][0]["backends"] == ["fused"]
 
 
+@pytest.mark.parametrize("variant", [{}, {"qat": False,
+                                      "surrogate_slope": 2.5,
+                                      "train_threshold": 0.75}])
+@pytest.mark.parametrize("name", ["SNN_CONFIG", "SNN_CONFIG_PRUNED",
+                                  "SNN_CONFIG_DEEP", "SNN_CONFIG_WIDE"])
+def test_snn_configs_cross_the_wire_between_packages(name, variant):
+    """F-ag: a JAX-encoded config (the JAX coordinator's ``init`` RPC
+    carries one) decodes in the port to the port's config, the port's
+    encoding decodes in JAX to JAX's, and both encodings are the same
+    JSON, the training fields ``qat``, ``surrogate_slope`` and
+    ``train_threshold`` included."""
+    j = dataclasses.replace(getattr(JAX.cfgs, name), **variant)
+    t = dataclasses.replace(getattr(TORCH.cfgs, name), **variant)
+    j_json = json.dumps(jwire.snn_cfg_to_wire(j))
+    t_json = json.dumps(twire.snn_cfg_to_wire(t))
+    assert t_json == j_json
+    assert twire.snn_cfg_from_wire(json.loads(j_json)) == t
+    assert jwire.snn_cfg_from_wire(json.loads(t_json)) == j
+
+
 def test_port_config_and_tensors_roundtrip():
     cfg = dataclasses.replace(TORCH.cfgs.SNN_CONFIG_PRUNED, sparse_skip=False)
     d = json.loads(json.dumps(twire.snn_cfg_to_wire(cfg)))
