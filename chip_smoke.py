@@ -128,6 +128,28 @@ result line):
    ``make_stream_engine`` with results equal to a reference engine's id
    for id (served accuracy, mean steps, early-exit share, rate).  It
    prints one ``{"train": {...}}`` line.
+   Then the LM serving path (``phase_lm``; the JAX package's LM path runs
+   no Pallas kernel, so it launches none of K1-K6, which is checked):
+   (a) the ten LM archs at ``get_reduced``, each built once by ``lm_init``
+   on the card from a seeded generator and copied to the CPU: prefill
+   logits, three teacher-forced decode steps and the prefill cache, card
+   against CPU, and decode after prefill against the full forward, within
+   ``LM_F32_REL_MAX``; (b) qwen3-4b at its published config and full depth
+   (36 × 2560, 32q/8kv heads of 80, d_ff 9,728, vocab 151,936 padded to
+   152,064; 16.23 GB of float32 weights computed in bfloat16) served by
+   ``generate`` with the launcher's traffic (8 requests, prompt 32, 24
+   generated, ``stability_gate(patience=3)``, ``max_len`` 57): the
+   loop's tokens and active counts equal ``generate``'s, retired lanes
+   stay frozen bit for bit, the active count never rises, every decode
+   step's logits (gated, and once more with no early exit) match
+   ``lm_apply(mode="train")`` over the tokens they fed, the same in
+   float32, and a 2-layer cut at full width in bfloat16 matches its
+   float32 twin (TF32 off), which matches float64 under a bound that
+   TF32 and float16 runs of the twin are shown to fail.  It records
+   prefill ms and decode ms a step (CUDA events) beside the step's bound
+   (float32 weights cast to bf16 at each use; bf16 weights alone), peak
+   memory, and a ``torch.profiler`` trace of one more ``generate`` (busy
+   share, top device ops), and prints one ``{"lm": {...}}`` line.
 5. times — each kernel and its plain version at the main path's shapes
    (K1 at ``SNN_CONFIG`` and at ``SNN_CONFIG_DEEP``, with the bytes its
    launch moves and the host time per wrapper call and per
@@ -154,8 +176,10 @@ Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
+import gc
 import io
 import json
 import re
@@ -172,6 +196,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import configs as lm_configs  # noqa: E402
+from repro_torch import models  # noqa: E402
 from repro_torch.configs import snn_mnist as cfgs  # noqa: E402
 from repro_torch.core import snn, train_snn  # noqa: E402
 from repro_torch.core.prng import seed_state  # noqa: E402
@@ -181,7 +207,9 @@ from repro_torch.kernels import (_build, fused_snn, lif_step, ops,  # noqa: E402
 from repro_torch.serve import (ClusterCoordinator,  # noqa: E402
                                 CoordinatorCrash, FaultEvent, FaultInjector,
                                 FaultPlan, FaultToleranceConfig,
-                                SNNServingTier, SNNStreamEngine)
+                                SNNServingTier, SNNStreamEngine, generate,
+                                make_decode_step, make_prefill, pad_cache_to,
+                                stability_gate)
 from repro_torch.tune import (ArrivalSchedule, AutotuneConfig,  # noqa: E402
                               autotune_engine, write_cache)
 
@@ -2118,6 +2146,386 @@ def phase_train(dev, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4b. the LM serving path
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-4b"          # the launcher's default arch
+# the launcher's traffic: 8 requests, prompt 32, 24 generated, patience 3
+LM_REQUESTS, LM_PROMPT, LM_GEN, LM_PATIENCE = 8, 32, 24, 3
+LM_MAX_LEN = LM_PROMPT + LM_GEN + 1
+LM_B, LM_S, LM_DEC = 2, 12, 3  # the reduced archs' batch, length, decodes
+# Tolerances.  Each "rel max" is max|Δ| over the reference's max|logit|;
+# each "rel RMS" is ‖Δ‖ / ‖reference‖.
+# Card against CPU, and decode against the full forward, in float32
+# (the reduced configs): an attention operand within an ulp of a bf16
+# rounding boundary can round the other way (tests/test_torch_models.py).
+LM_F32_REL_MAX = 1e-2
+# qwen3-4b in bfloat16, decode against the full forward: the two compute
+# the same sums in GEMMs of different shapes and round each sublayer's
+# output and residual sum to bf16 (2^-8) at different points, 72 times
+# over 36 layers; a random walk of those roundings is ~2e-2 of the RMS.
+LM_BF16_REL_RMS = 5e-2
+LM_BF16_REL_MAX = 1.5e-1
+# The same 36 layers computed in float32, decode against the full forward:
+# float32 sums, but bf16-rounded attention operands (as above), whose
+# rounding flips the depth amplifies.
+LM_F32_REL_RMS = 1e-2
+# The 2-layer cut: bf16 against its float32 twin (two layers' bf16
+# roundings: 8.3e-3 measured on the CPU at d_model 1,024), and the twin
+# against float64 under 1e-3.  The twin sits above float64's 1e-7 only by
+# the bf16-rounded attention operands' flips (5.0e-4 in that measurement);
+# products with their operands rounded to 11 bits sit higher (TF32-rounded
+# weights 2.5e-3, float16 3.2e-3 there), so a "float32" twin whose
+# products ran in TF32 or float16 fails the bound: both are run to show it.
+LM_CUT_BF16_REL_RMS = 2e-2
+LM_CUT_F32_REL_RMS = 1e-3
+
+
+def _rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double().to(want.device), want.double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double().to(want.device), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+def _lm_inputs(cfg, rng, b, s) -> dict:
+    """Seeded numpy inputs: tokens, and the vlm patches / whisper frames the
+    stub frontends provide."""
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.frontend == "vision":
+        p = min(cfg.num_patches, s // 2)
+        out["patches"] = rng.normal(0, 0.5, (b, p, cfg.d_model)) \
+            .astype(np.float32)
+        out["tokens"] = out["tokens"][:, :s - p]
+    if cfg.is_encdec:
+        out["frames"] = rng.normal(0, 0.5, (b, cfg.encoder_seq, cfg.d_model)) \
+            .astype(np.float32)
+    return out
+
+
+@torch.no_grad()
+def _lm_reduced_run(model, cfg, nb) -> tuple:
+    """Full forward, prefill on all but the last LM_DEC tokens, and LM_DEC
+    teacher-forced decode steps."""
+    d = model.embed.device
+    b = {k: torch.from_numpy(v).to(d) for k, v in nb.items()}
+    full = models.lm_apply(model, b, cfg, mode="train")[0]
+    pre = dict(b, tokens=b["tokens"][:, :-LM_DEC])
+    plog, cache, _ = models.lm_apply(model, pre, cfg, mode="prefill")
+    kv = pad_cache_to(cache, plog.shape[1] + LM_DEC + 1)
+    dec = []
+    for i in range(LM_DEC):
+        cur = torch.full((LM_B,), plog.shape[1] + i, dtype=torch.int32,
+                         device=d)
+        tok = b["tokens"][:, b["tokens"].shape[1] - LM_DEC + i][:, None]
+        lg, kv, _ = models.lm_apply(model, {"tokens": tok}, cfg,
+                                    mode="decode", cache=kv, cur_len=cur)
+        dec.append(lg[:, 0])
+    return full, plog, cache, dec
+
+
+def _lm_reduced(dev) -> dict:
+    """(a) Every arch at ``get_reduced`` on the card against the same model
+    on the CPU, and decode after prefill against the full forward."""
+    out = {}
+    for arch in [a for a in lm_configs.list_archs() if a != "snn-mnist"]:
+        cfg = lm_configs.get_reduced(arch)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        card = models.lm_init(cfg, generator=gen, device=dev)
+        cpu = copy.deepcopy(card).to("cpu")
+        nb = _lm_inputs(cfg, np.random.default_rng(SEED), LM_B, LM_S)
+        c_full, c_pre, c_cache, c_dec = _lm_reduced_run(card, cfg, nb)
+        h_full, h_pre, h_cache, h_dec = _lm_reduced_run(cpu, cfg, nb)
+        err = {"prefill": _rel_max(c_pre, h_pre),
+               "decode": max(_rel_max(c, h) for c, h in zip(c_dec, h_dec)),
+               "cache": max(_rel_max(c, h)
+                            for ce, he in zip(c_cache, h_cache)
+                            for part in he
+                            for c, h in zip(ce[part], he[part])),
+               "decode_vs_full": max(
+                   _rel_max(c, c_full[:, c_pre.shape[1] + i])
+                   for i, c in enumerate(c_dec))}
+        out[arch] = err
+        log(f"[lm] {cfg.name}: card vs CPU rel max |Δ| prefill "
+            f"{err['prefill']:.3e}, {LM_DEC} decode steps "
+            f"{err['decode']:.3e}, prefill cache {err['cache']:.3e}; "
+            f"decode vs full forward on the card {err['decode_vs_full']:.3e}"
+            f" (bound {LM_F32_REL_MAX})")
+        if max(err.values()) > LM_F32_REL_MAX or not all(
+                torch.isfinite(x).all() for x in (c_full, c_pre, *c_dec)):
+            raise AssertionError(f"{arch} reduced: {err}")
+    return out
+
+
+@torch.no_grad()
+def _lm_loop(model, cfg, batch, gate, keep=True) -> dict:
+    """``generate``'s loop on ``make_prefill`` / ``make_decode_step``, with
+    a CUDA event after the prefill and after every step and no host sync
+    in the loop.  ``keep`` keeps every step's state and logits (for the
+    checks); the timed run keeps only the last, as ``generate`` does, so
+    the allocator reuses each step's cache.  ``gate=None``: no early exit,
+    so every step feeds a new position."""
+    prefill = make_prefill(cfg, max_len=LM_MAX_LEN)
+    decode = make_decode_step(cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(LM_GEN + 2)]
+    ev[0].record()
+    state, plog = prefill(model, batch)
+    ev[1].record()
+    states, logits = [state], []
+    for t in range(LM_GEN):
+        state, lg = decode(model, state)
+        ev[t + 2].record()
+        if gate is not None:
+            state = state._replace(done=state.done
+                                   | gate(state.last_token, lg))
+        if keep:
+            states.append(state)
+            logits.append(lg)
+    torch.cuda.synchronize()
+    return {"prefill_logits": plog[:, -1], "states": states,
+            "logits": logits, "last": state,
+            "prefill_ms": ev[0].elapsed_time(ev[1]),
+            "step_ms": [ev[t + 1].elapsed_time(ev[t + 2])
+                        for t in range(LM_GEN)]}
+
+
+@torch.no_grad()
+def _lm_vs_full(model, cfg, prompt, run) -> tuple[float, float]:
+    """Every decode step's logits against ``lm_apply(mode="train")`` over
+    the token sequence the steps fed (a retired lane re-feeds its last
+    token at its frozen length): (rel RMS, rel max) over all steps."""
+    b = prompt.shape[0]
+    seq = torch.zeros((b, LM_PROMPT + LM_GEN), dtype=torch.int32,
+                      device=prompt.device)
+    seq[:, :LM_PROMPT] = prompt
+    lanes = torch.arange(b, device=prompt.device)
+    for st in run["states"][:-1]:
+        seq[lanes, st.cur_len.long()] = st.last_token
+    full = models.lm_apply(model, {"tokens": seq}, cfg, mode="train")[0]
+    got = torch.stack([run["prefill_logits"]] + run["logits"])
+    want = torch.stack([full[:, LM_PROMPT - 1]] + [
+        full[lanes, st.cur_len.long()] for st in run["states"][:-1]])
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{cfg.name}: logits are not finite")
+    return _rel_rms(got, want), _rel_max(got, want)
+
+
+def _lm_frozen(run) -> int:
+    """Every retired lane keeps its cache rows, length and token bit for bit
+    through each later step, and the active count never rises; returns
+    the lane-steps checked."""
+    checked = 0
+    states = run["states"]
+    for old, new in zip(states[:-1], states[1:]):
+        d = old.done
+        if not d.any():
+            continue
+        checked += int(d.sum())
+        same = torch.equal(new.cur_len[d], old.cur_len[d]) and \
+            torch.equal(new.last_token[d], old.last_token[d]) and all(
+                torch.equal(n[d], o[d]) for ne, oe in zip(new.cache,
+                                                          old.cache)
+                for part in ne for n, o in zip(ne[part], oe[part]))
+        if not same:
+            raise AssertionError("a retired lane changed")
+    active = [int((~s.done).sum()) for s in states[1:]]
+    if any(b > a for a, b in zip(active, active[1:])):
+        raise AssertionError(f"active rose: {active}")
+    return checked
+
+
+@torch.no_grad()
+def _lm_cut(cfg, dev) -> dict:
+    """(b2) A 2-layer cut of ``cfg`` at full width: bfloat16 against its
+    float32 twin (TF32 off), the twin against float64, and float16 and
+    TF32 runs against float64, on the same tokens."""
+    cut = dataclasses.replace(cfg, num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    model = models.lm_init(cut, generator=gen, device=dev)
+    tokens = torch.randint(0, cut.vocab_size, (LM_REQUESTS, LM_MAX_LEN),
+                           generator=gen, device=dev, dtype=torch.int32)
+
+    def run(dtype, tf32=False):
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            c = dataclasses.replace(cut, compute_dtype=dtype)
+            return models.lm_apply(model, {"tokens": tokens}, c)[0]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for float32 products")
+    f64 = run("float64")
+    f32 = run("float32")
+    out = {"bf16_vs_f32": _rel_rms(run("bfloat16"), f32),
+           "f32_vs_f64": _rel_rms(f32, f64),
+           "tf32_vs_f64": _rel_rms(run("float32", tf32=True), f64),
+           "f16_vs_f64": _rel_rms(run("float16"), f64)}
+    log(f"[lm] {cut.name} cut to 2 layers at full width, {LM_REQUESTS} x "
+        f"{LM_MAX_LEN} tokens, rel RMS: bf16 vs float32 twin "
+        f"{out['bf16_vs_f32']:.3e} (bound {LM_CUT_BF16_REL_RMS}); float32 "
+        f"(TF32 off) vs float64 {out['f32_vs_f64']:.3e} (bound "
+        f"{LM_CUT_F32_REL_RMS}); the same bound fails TF32 "
+        f"({out['tf32_vs_f64']:.3e}) and float16 ({out['f16_vs_f64']:.3e})")
+    if out["bf16_vs_f32"] > LM_CUT_BF16_REL_RMS \
+            or out["f32_vs_f64"] > LM_CUT_F32_REL_RMS \
+            or out["tf32_vs_f64"] <= LM_CUT_F32_REL_RMS \
+            or out["f16_vs_f64"] <= LM_CUT_F32_REL_RMS:
+        raise AssertionError(f"2-layer cut: {out}")
+    del model, f64, f32
+    return out
+
+
+def phase_lm(dev, smi) -> dict:
+    """(a) The ten archs at ``get_reduced`` on the card against the CPU;
+    (b) qwen3-4b at its published config, full depth, served by
+    ``generate`` with the launcher's traffic, its decode steps held to the
+    full forward, and a 2-layer cut held to float32 and float64.  Launches
+    none of K1-K6.  Every gate raises."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    reduced = _lm_reduced(dev)
+
+    cfg = lm_configs.get_config(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = models.lm_init(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.randint(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": prompt}
+    kw = dict(steps=LM_GEN, max_len=LM_MAX_LEN)
+    log(f"[lm] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}q/{cfg.num_kv_heads}kv heads of {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}), {n_params:,} parameters in "
+        f"{cfg.param_dtype} ({n_params * 4 / 1e9:.2f} GB), computed in "
+        f"{cfg.compute_dtype}; lm_init on the card {init_s:.2f} s")
+
+    generate(model, batch, cfg, steps=2, max_len=LM_MAX_LEN,
+             early_exit_fn=stability_gate(LM_REQUESTS, LM_PATIENCE,
+                                          device=dev))       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks, active = generate(model, batch, cfg, **kw,
+                            early_exit_fn=stability_gate(
+                                LM_REQUESTS, LM_PATIENCE, device=dev))
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    active = active.tolist()
+    if toks.shape != (LM_REQUESTS, LM_GEN) or \
+            not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"generate: {toks.shape}, {toks.min()}, "
+                             f"{toks.max()}")
+
+    timed = _lm_loop(model, cfg, batch, stability_gate(
+        LM_REQUESTS, LM_PATIENCE, device=dev), keep=False)
+    run = _lm_loop(model, cfg, batch, stability_gate(
+        LM_REQUESTS, LM_PATIENCE, device=dev))
+    loop_toks = torch.stack([s.last_token for s in run["states"][1:]], 1)
+    loop_active = [int((~s.done).sum()) for s in run["states"][1:]]
+    if not torch.equal(loop_toks, toks) or loop_active != active or \
+            not torch.equal(timed["last"].last_token, toks[:, -1]):
+        raise AssertionError("the checked loop is not generate's run")
+    frozen = _lm_frozen(run)
+    rms_g, rmax_g = _lm_vs_full(model, cfg, prompt, run)
+    del run
+    # the same without early exit: every step feeds a new position
+    run = _lm_loop(model, cfg, batch, None)
+    rms, rmax = _lm_vs_full(model, cfg, prompt, run)
+    step_ms = float(np.mean(timed["step_ms"]))
+    log(f"[lm] generate: {LM_REQUESTS} requests x prompt {LM_PROMPT}, "
+        f"{LM_GEN} generated, stability_gate(patience={LM_PATIENCE}), "
+        f"max_len {LM_MAX_LEN}: {gen_ms:.1f} ms (host clock), active per "
+        f"step {active} ({sum(active)}/{LM_REQUESTS * LM_GEN} lane-steps); "
+        f"{frozen} retired lane-steps frozen bit for bit; decode vs full "
+        f"forward (bf16), gated: rel RMS {rms_g:.3e}, rel max "
+        f"{rmax_g:.3e}; ungated (positions {LM_PROMPT}-"
+        f"{LM_PROMPT + LM_GEN - 1}): rel RMS {rms:.3e} (bound "
+        f"{LM_BF16_REL_RMS}), rel max {rmax:.3e} (bound {LM_BF16_REL_MAX})")
+    if max(rms, rms_g) > LM_BF16_REL_RMS or \
+            max(rmax, rmax_g) > LM_BF16_REL_MAX:
+        raise AssertionError(f"decode vs full forward: {rms}, {rmax}, "
+                             f"{rms_g}, {rmax_g}")
+
+    # per decode step: every weight but the embedding table (which is
+    # gathered) read as float32, written and read again as bf16
+    w_numel = n_params - model.embed.numel()
+    cast_bytes, bf16_bytes = w_numel * (4 + 2 + 2), w_numel * 2
+    bound_ms = cast_bytes / HBM_BYTES_PER_S * 1e3
+    bf16_bound_ms = bf16_bytes / HBM_BYTES_PER_S * 1e3
+    busy, prof_ms, top = _device_busy_ms(lambda: generate(
+        model, batch, cfg, **kw, early_exit_fn=stability_gate(
+            LM_REQUESTS, LM_PATIENCE, device=dev)))
+    log(f"[lm] prefill {timed['prefill_ms']:.3f} ms, decode "
+        f"{step_ms:.3f} ms a step (CUDA events, mean of {LM_GEN}; min "
+        f"{min(timed['step_ms']):.3f}, max {max(timed['step_ms']):.3f}); "
+        f"bound "
+        f"{bound_ms:.3f} ms a step ({cast_bytes / 1e9:.2f} GB: float32 "
+        f"weights cast to bf16 at each use), {bf16_bound_ms:.3f} ms for "
+        f"bf16 weights alone ({bf16_bytes / 1e9:.2f} GB); peak memory "
+        f"{peak_gb:.2f} GB; one more generate under torch.profiler: device "
+        f"busy {busy:.3f} ms of {prof_ms:.3f} ms = "
+        f"{busy / prof_ms * 100:.2f}%; most device time (ms, calls): "
+        + "; ".join(f"{k[:60]} {ms:.3f} ({n})" for k, ms, n in top[:3]))
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    run32 = _lm_loop(model, cfg32, batch, None)
+    rms32, rmax32 = _lm_vs_full(model, cfg32, prompt, run32)
+    timed32 = _lm_loop(model, cfg32, batch, None, keep=False)
+    log(f"[lm] the same {cfg.num_layers} layers computed in float32, no "
+        f"early exit: decode vs full forward rel RMS {rms32:.3e} (bound "
+        f"{LM_F32_REL_RMS}), rel max {rmax32:.3e}; decode "
+        f"{np.mean(timed32['step_ms']):.3f} ms a step (CUDA events)")
+    if rms32 > LM_F32_REL_RMS:
+        raise AssertionError(f"float32 decode vs full forward: {rms32}")
+    prefill_ms, timed_steps = timed["prefill_ms"], timed["step_ms"]
+    step32_ms = float(np.mean(timed32["step_ms"]))
+    del model, run, run32, timed, timed32, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = _lm_cut(cfg, dev)
+    launched = counts()
+    if any(launched.values()):
+        raise AssertionError(f"the LM path launched {launched}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": smi, "reduced": reduced, "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "padded_vocab": cfg.padded_vocab, "params": n_params,
+           "requests": LM_REQUESTS, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "patience": LM_PATIENCE, "active": active,
+           "generate_ms": gen_ms, "prefill_ms": prefill_ms,
+           "decode_ms_per_step": step_ms,
+           "decode_ms_per_step_f32": step32_ms,
+           "bound_ms_per_step": bound_ms,
+           "bf16_weights_bound_ms_per_step": bf16_bound_ms,
+           "peak_memory_gb": peak_gb, "device_busy_ms": busy,
+           "profiled_wall_ms": prof_ms, "device_busy_share": busy / prof_ms,
+           "top_device_ops": [{"name": k, "ms": ms, "calls": n}
+                              for k, ms, n in top[:3]],
+           "step_ms": timed_steps,
+           "frozen_lane_steps": frozen, "decode_vs_full_rel_rms": rms,
+           "decode_vs_full_rel_max": rmax,
+           "decode_vs_full_gated_rel_rms": rms_g,
+           "decode_vs_full_gated_rel_max": rmax_g,
+           "decode_vs_full_rel_rms_f32": rms32,
+           "decode_vs_full_rel_max_f32": rmax32, "cut": cut}
+    print(json.dumps({"lm": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 5. times
 # ---------------------------------------------------------------------------
 
@@ -2510,6 +2918,7 @@ def main() -> int:
     cluster = phase_cluster(imgs, params, k1_want)
     tune = phase_tune(imgs, params, k1_want, dev)
     train = phase_train(dev, smi)
+    phase_lm(dev, smi)
     times = phase_times(imgs, params, wide_params, dev)
     staged["K6"] = times.pop("K6_path")
     # the per-launch time a kernel's row reports: K3 at its most frequent

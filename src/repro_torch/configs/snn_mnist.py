@@ -15,12 +15,22 @@ from dataclasses import dataclass
 from ..core.lif import LIFConfig
 from ..core.snn import SNNConfig
 from ..serve.telemetry import AdaptiveDispatchConfig
+from .base import ArchConfig
+from .registry import register
 
-__all__ = ["SNN_CONFIG", "SNN_CONFIG_PRUNED", "SNN_CONFIG_DEEP",
+__all__ = ["CONFIG", "SNN_CONFIG", "SNN_CONFIG_PRUNED", "SNN_CONFIG_DEEP",
            "SNN_CONFIG_WIDE", "SNNStreamMeshConfig", "SNN_STREAM_MESH",
            "make_stream_mesh", "make_stream_engine", "TIER_PRIORITY_CLASSES",
            "SNNServingTierConfig", "SNN_SERVING_TIER", "make_serving_tier",
            "SNNClusterConfig", "SNN_CLUSTER", "make_cluster"]
+
+# LM-shaped registry entry (family "snn") so arch listings include it.
+CONFIG = register(ArchConfig(
+    name="snn-mnist", family="snn",
+    num_layers=1, d_model=784, num_heads=1, num_kv_heads=1,
+    head_dim=1, d_ff=0, vocab_size=10,
+    optimizer="adamw", remat=False, scan_layers=False,
+))
 
 _LIF = LIFConfig(decay_shift=4, v_threshold=128, v_rest=0)
 

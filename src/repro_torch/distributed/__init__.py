@@ -1,2 +1,2 @@
-"""Device meshes for the serving engines (port of ``repro.distributed``'s
-mesh constructors)."""
+"""Device meshes for the serving engines and the LM's logical-axis sharding
+rules (port of ``repro.distributed``'s mesh constructors and rules)."""

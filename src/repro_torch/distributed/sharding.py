@@ -1,5 +1,5 @@
-"""Device meshes for the serving engines (port of ``repro.distributed.
-sharding``' ``make_device_mesh`` and ``make_2d_device_mesh``).
+"""Device meshes for the serving engines and the LM's logical-axis rules
+(port of ``repro.distributed.sharding``).
 
 A :class:`DeviceMesh` is a grid of ``torch.device``s with named axes.  The
 serving engine shards its lane tile over the data axis and each layer's
@@ -9,17 +9,29 @@ than once: on one card, ``make_2d_device_mesh(1, 4, devices=["cuda:0"] *
 the grid names several cards, the shards sit on them and the exchange is
 a peer copy.  Nothing here starts a process group: every shard is driven
 from the calling process.
+
+The LM substrate annotates its activations with *logical* axis names
+("batch", "heads", "kv_seq", ...).  :class:`ShardingRules` maps each name
+to mesh axes, as in the JAX package, and :func:`use_rules` installs a table
+for the code below it.  On one device there is nothing to place, so
+:func:`shard` only checks the names it is given against the active table
+and returns its tensor unchanged; placing LM tensors over a mesh of several
+cards is later work (the model axis across processes).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from dataclasses import dataclass
+import threading
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-__all__ = ["DeviceMesh", "make_device_mesh", "make_2d_device_mesh"]
+__all__ = ["DeviceMesh", "make_device_mesh", "make_2d_device_mesh",
+           "ShardingRules", "make_rules", "use_rules", "current_rules",
+           "logical_spec", "shard", "DEFAULT_RULES", "FSDP_RULES"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -113,3 +125,124 @@ def make_2d_device_mesh(data_devices: int | None = None,
             f"{need} devices but only {len(pool)} are visible")
     return make_device_mesh((data_devices, model_devices),
                             tuple(axis_names), devices=pool[:need])
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    """Mapping logical axis name → mesh axis (str | tuple | None)."""
+
+    rules: dict = field(default_factory=dict)
+    axis_sizes: dict = field(default_factory=dict)  # mesh axis → size
+
+    def spec(self, *logical_axes: str | None) -> tuple:
+        """The mesh axes of each logical axis (a ``PartitionSpec``'s
+        entries, as a tuple)."""
+        return tuple(self.rules.get(a) if a is not None else None
+                     for a in logical_axes)
+
+    def ways(self, logical_axis: str | None) -> int:
+        """How many shards the resolved mesh axes would create."""
+        entry = self.rules.get(logical_axis) if logical_axis else None
+        if entry is None:
+            return 1
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        n = 1
+        for a in axes:
+            n *= self.axis_sizes.get(a, 1)
+        return n
+
+    def spec_for_shape(self, shape: tuple, *logical_axes) -> tuple:
+        """Like spec(), but drops axes that do not divide the dim."""
+        entries = []
+        for dim, a in zip(shape, logical_axes):
+            w = self.ways(a)
+            ok = w > 1 and dim % w == 0
+            entries.append(self.rules.get(a) if (a and ok) else None)
+        return tuple(entries)
+
+    def with_overrides(self, **kw) -> "ShardingRules":
+        new = dict(self.rules)
+        new.update(kw)
+        return ShardingRules(new, self.axis_sizes)
+
+
+def make_rules(mesh: DeviceMesh | None, *, fsdp: bool = True,
+               sequence_parallel: bool = False) -> ShardingRules:
+    """The production table over ``mesh``'s axes ("pod", "data",
+    "model"), as ``repro.distributed.sharding.make_rules`` builds it."""
+    if mesh is None:
+        return ShardingRules({})
+    axes = mesh.axis_names
+    data_axes = tuple(a for a in ("pod", "data") if a in axes) or None
+    model = "model" if "model" in axes else None
+    rules = {
+        "batch": data_axes,
+        "seq": model if sequence_parallel else None,
+        "seq_act": model if sequence_parallel else None,
+        "embed": None,
+        "heads": model,
+        "kv": None,            # kv heads replicated within a TP group
+        "head_dim": None,
+        "mlp": model,
+        "vocab": model,
+        "experts": model,
+        "expert_cap": data_axes,   # token capacity dim rides the data axes
+        "kv_seq": model,       # decode-time KV cache sequence sharding
+        "layers": None,
+        "conv": None,
+        "state": None,
+        # parameter-only axes (FSDP shards the non-TP dim of weights):
+        "fsdp": ("data" if (fsdp and "data" in axes) else None),
+    }
+    return ShardingRules(rules, mesh.shape)
+
+
+DEFAULT_RULES = ShardingRules({})
+FSDP_RULES = DEFAULT_RULES  # alias; see make_rules(fsdp=True)
+
+_ctx = threading.local()
+
+
+@contextlib.contextmanager
+def use_rules(rules: ShardingRules):
+    prev = getattr(_ctx, "rules", None)
+    _ctx.rules = rules
+    try:
+        yield rules
+    finally:
+        _ctx.rules = prev
+
+
+def current_rules() -> ShardingRules | None:
+    return getattr(_ctx, "rules", None)
+
+
+def logical_spec(*logical_axes) -> tuple:
+    rules = current_rules()
+    if rules is None:
+        return ()
+    return rules.spec(*logical_axes)
+
+
+def shard(x: torch.Tensor, *logical_axes) -> torch.Tensor:
+    """Check a tensor's logical axis names against the active rules and
+    return it unchanged.
+
+    The JAX package turns the names into a sharding constraint.  On one
+    device no placement exists, and placing over a mesh of several cards
+    waits for the model axis across processes, so here the names are only
+    checked: one a table does not know raises, as does a list of names
+    that does not match the tensor's rank.
+    """
+    rules = current_rules()
+    if rules is None or not rules.rules:
+        return x
+    if len(logical_axes) != x.dim():
+        raise ValueError(f"{len(logical_axes)} logical axes {logical_axes} "
+                         f"for a tensor of rank {x.dim()}")
+    unknown = [a for a in logical_axes if a is not None
+               and a not in rules.rules]
+    if unknown:
+        raise KeyError(f"logical axes {unknown} are not in the active "
+                       f"sharding rules")
+    return x
