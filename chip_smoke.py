@@ -150,6 +150,23 @@ result line):
    (float32 weights cast to bf16 at each use; bf16 weights alone), peak
    memory, and a ``torch.profiler`` trace of one more ``generate`` (busy
    share, top device ops), and prints one ``{"lm": {...}}`` line.
+   Then the LM training path (``phase_lm_train``; it launches none of
+   K1-K6 either, which is checked): (a) one train step of each of the ten
+   reduced archs (their own optimizer: AdamW, or Adafactor for five) on
+   the card and on the CPU from the same parameters: loss, grad norm and
+   the updated parameters within ``LM_TRAIN_REL_MAX``; (b) reduced
+   qwen3-4b trained 6 steps straight against a run that crashes after
+   step 4, restores its checkpoint (``CheckpointManager``) and replays 2
+   steps, equal bit for bit under deterministic algorithms; (c) qwen3-4b
+   at its published config and full depth trained by
+   ``launch.train.train(..., reduced=False)``: AdamW, 8 sequences of
+   1,024 tokens a step in 2 microbatches, lr 1e-3, token stream seed 0,
+   10 steps, the loss finite and lower at step 10 than at step 1.  It
+   records the step time (CUDA events between the steps' ends, steps
+   3-10), tokens/s, peak memory, the step's bound (matmul work at the
+   bf16 rate against the AdamW update's bytes) and a ``torch.profiler``
+   trace of 2 more steps (busy share, top device ops), and prints one
+   ``{"lm_train": {...}}`` line.
 5. times — each kernel and its plain version at the main path's shapes
    (K1 at ``SNN_CONFIG`` and at ``SNN_CONFIG_DEEP``, with the bytes its
    launch moves and the host time per wrapper call and per
@@ -192,18 +209,25 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS reads its workspace setting once, at its first use: fixed here so
+# that the training phase's resume check may run with deterministic
+# algorithms
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch import models  # noqa: E402
+from repro_torch import train as lmtrain  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import snn_mnist as cfgs  # noqa: E402
 from repro_torch.core import snn, train_snn  # noqa: E402
 from repro_torch.core.prng import seed_state  # noqa: E402
 from repro_torch.data import digits  # noqa: E402
 from repro_torch.kernels import (_build, fused_snn, lif_step, ops,  # noqa: E402
                                  poisson_encode, spike_matmul)
+from repro_torch.launch import train as lm_launch  # noqa: E402
 from repro_torch.serve import (ClusterCoordinator,  # noqa: E402
                                 CoordinatorCrash, FaultEvent, FaultInjector,
                                 FaultPlan, FaultToleranceConfig,
@@ -2526,6 +2550,285 @@ def phase_lm(dev, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4c. the LM training path
+# ---------------------------------------------------------------------------
+
+# qwen3-4b's training traffic: 8 sequences of 1,024 tokens a step in 2
+# microbatches of 4 (what the JAX package's launch/specs.py:71
+# num_microbatches gives at one data shard), AdamW, lr 1e-3, token stream
+# seed 0, 10 steps, no checkpoint (a full state is 65 GB of disk)
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO = 8, 1024, 2
+LM_TRAIN_STEPS, LM_TRAIN_LR = 10, 1e-3
+LM_TRAIN_TIMED = (3, 10)      # the steps whose CUDA-event times are kept
+LM_TRAIN_PROFILED = 2         # steps traced by torch.profiler after them
+LM_RESUME_STEPS, LM_RESUME_CRASH = 6, 4
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores (data sheet)
+# Card against CPU after one step of each reduced arch: loss, grad norm and
+# the updated parameters' max |Δ| over the CPU's max |p|, as phase_lm's
+# bound (bf16-rounded attention operands can flip in one package).
+LM_TRAIN_REL_MAX = 1e-2
+
+
+def _lm_train_inputs(cfg, rng, b, s) -> dict:
+    """Seeded numpy tokens and next-token labels, plus the vlm patches /
+    whisper frames the stub frontends provide."""
+    toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.frontend == "vision":
+        p = min(cfg.num_patches, s // 2)
+        out["patches"] = rng.normal(0, 0.5, (b, p, cfg.d_model)) \
+            .astype(np.float32)
+        out["tokens"] = out["tokens"][:, :s - p]
+    if cfg.is_encdec:
+        out["frames"] = rng.normal(0, 0.5, (b, cfg.encoder_seq, cfg.d_model)) \
+            .astype(np.float32)
+    return out
+
+
+def _lm_train_reduced(dev) -> dict:
+    """(a) One train step of every arch at ``get_reduced`` on the card and
+    on the CPU from the same parameters (drawn on the card, copied), with
+    the arch's optimizer (Adafactor for five)."""
+    out = {}
+    s = lmtrain.TrainSettings(learning_rate=LM_TRAIN_LR, warmup_steps=0)
+    for arch in [a for a in lm_configs.list_archs() if a != "snn-mnist"]:
+        cfg = lm_configs.get_reduced(arch)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        card = lmtrain.init_state(gen, cfg, s, device=dev)
+        host_model = copy.deepcopy(card.params).to("cpu")
+        host = lmtrain.init_state(None, cfg, s, lambda g: host_model,
+                                  device="cpu")
+        nb = _lm_train_inputs(cfg, np.random.default_rng(SEED), LM_B, LM_S)
+        step = lmtrain.make_train_step(cfg, s)
+        card, cm = step(card, nb)
+        host, hm = step(host, nb)
+        cp = dict(card.params.named_parameters())
+        hp = dict(host.params.named_parameters())
+        scale = max(float(p.detach().abs().max()) for p in hp.values())
+        err = {"loss": abs(float(cm["loss"]) / float(hm["loss"]) - 1),
+               "grad_norm": abs(float(cm["grad_norm"])
+                                / float(hm["grad_norm"]) - 1),
+               "params": max(float((cp[n].detach().cpu() - p.detach())
+                                   .abs().max()) for n, p in hp.items())
+               / scale}
+        out[arch] = dict(err, optimizer=cfg.optimizer)
+        log(f"[lm-train] {cfg.name} ({cfg.optimizer}): one step card vs "
+            f"CPU, rel |Δ| loss {err['loss']:.3e}, grad norm "
+            f"{err['grad_norm']:.3e}, updated params max "
+            f"{err['params']:.3e} (bound {LM_TRAIN_REL_MAX})")
+        if max(err.values()) > LM_TRAIN_REL_MAX or not all(
+                torch.isfinite(p).all() for p in cp.values()):
+            raise AssertionError(f"{arch} reduced train step: {err}")
+    return out
+
+
+def _lm_train_resume(dev) -> dict:
+    """(b) Reduced qwen3-4b: 6 steps straight against a run that crashes
+    after step 4 (``fail_at_step``), restores its step-4 checkpoint and
+    replays 2 steps; every parameter and optimizer state equal bit for bit.
+    Deterministic algorithms on (the card's atomics would otherwise be
+    free to reorder sums)."""
+    cfg = lm_configs.get_reduced(LM_ARCH)
+    s = lmtrain.TrainSettings(learning_rate=LM_TRAIN_LR)
+    step = lmtrain.make_train_step(cfg, s)
+
+    def fresh():
+        return lmtrain.init_state(
+            torch.Generator(device=dev).manual_seed(SEED), cfg, s,
+            device=dev)
+
+    def batches():
+        return lm_launch.make_batches(cfg, LM_B, 2 * LM_S)
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            mgr = CheckpointManager(tmp)
+            loop = lmtrain.TrainLoop(step, fresh(), ckpt_manager=mgr,
+                                     ckpt_every=2)
+            try:
+                loop.run(batches(), 2 * LM_RESUME_STEPS,
+                         fail_at_step=LM_RESUME_CRASH)
+            except RuntimeError as e:         # the injected failure
+                if "injected failure" not in str(e):
+                    raise
+            else:
+                raise AssertionError("fail_at_step raised nothing")
+            mgr.wait()
+            ref, gen = fresh(), batches()
+            for _ in range(LM_RESUME_STEPS):
+                ref, _ = step(ref, next(gen))
+            restored, at = mgr.restore(fresh(), device=dev)
+            gen = batches()
+            for _ in range(at):
+                next(gen)           # the data pipeline skips replayed steps
+            final = lmtrain.TrainLoop(step, restored).run(
+                gen, LM_RESUME_STEPS - at)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    rp, fp = dict(ref.params.named_parameters()), \
+        dict(final.params.named_parameters())
+    trees = [(f"{k}.{n}", t, getattr(final.opt_state, k)[n])
+             for k in ref.opt_state._fields[1:]
+             for n, t in getattr(ref.opt_state, k).items()]
+    differ = [n for n in rp if not torch.equal(rp[n], fp[n])] + \
+        [n for n, a, b in trees if not torch.equal(a, b)]
+    log(f"[lm-train] resume: {LM_RESUME_STEPS} steps straight vs a crash "
+        f"after step {LM_RESUME_CRASH}, restore of step {at} and "
+        f"{LM_RESUME_STEPS - at} replayed: {len(rp)} parameters and "
+        f"{len(trees)} optimizer leaves, {len(differ)} differ (bit for bit, "
+        f"deterministic algorithms)")
+    if differ or at != LM_RESUME_CRASH or final.step != LM_RESUME_STEPS \
+            or final.opt_state.step != ref.opt_state.step:
+        raise AssertionError(f"resume: step {at}, differ {differ[:5]}")
+    return {"restored_step": at, "leaves": len(rp) + len(trees)}
+
+
+def _lm_train_bound(model, cfg, tokens) -> dict:
+    """The step's least time on the card: the larger of (i) its matmul
+    work, 8·N·T (forward, backward and the remat forward over N matmul
+    parameters, the tied head included, and T tokens) plus causal
+    attention's 8·B·H·S²·hd per layer, at the bf16 tensor cores' rate, and
+    (ii) the AdamW update's traffic (read p, g, mu, nu; write p, mu, nu:
+    28 bytes a parameter) at the HBM rate.  They run in sequence in this
+    step, so their sum is kept beside it."""
+    named = dict(model.named_parameters())
+    n_mm = sum(p.numel() for n, p in named.items()
+               if p.dim() >= 2 and n != "embed")
+    if cfg.tie_embeddings:
+        n_mm += named["embed"].numel()
+    attn = 8 * LM_TRAIN_BATCH * cfg.num_heads * LM_TRAIN_SEQ ** 2 \
+        * cfg.head_dim * cfg.num_layers
+    flops = 8 * n_mm * tokens + attn
+    opt_bytes = 28 * sum(p.numel() for p in named.values())
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    return {"matmul_params": n_mm, "flops": flops, "attention_flops": attn,
+            "ops_ms": ops_ms, "optimizer_bytes": opt_bytes,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "serial_ms": ops_ms + bytes_ms}
+
+
+def phase_lm_train(dev, smi) -> dict:
+    """(a) One train step of the ten reduced archs, card against CPU;
+    (b) resume after an injected failure, bit for bit on the card;
+    (c) qwen3-4b at its published config and full depth trained through
+    ``launch.train.train(..., reduced=False)``.  Launches none of K1-K6.
+    Every gate raises."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    reduced = _lm_train_reduced(dev)
+    resume = _lm_train_resume(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = lm_configs.get_config(LM_ARCH)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    ends = []
+
+    def hook(rec):             # the loop calls it after synchronising
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, hist = lm_launch.train(
+        LM_ARCH, steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
+        seq=LM_TRAIN_SEQ, reduced=False, lr=LM_TRAIN_LR,
+        microbatches=LM_TRAIN_MICRO, metrics_hook=hook, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model = state.params
+    n_params = sum(p.numel() for p in model.parameters())
+    a, b = LM_TRAIN_TIMED
+    step_ms = [ends[k - 2].elapsed_time(ends[k - 1])
+               for k in range(a, b + 1)]
+    med = float(np.median(step_ms))
+    losses = [r["loss"] for r in hist]
+    if len(hist) != LM_TRAIN_STEPS or not np.all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"qwen3-4b training losses {losses}")
+
+    # two more steps under torch.profiler, with train()'s settings
+    settings = lmtrain.TrainSettings(
+        learning_rate=LM_TRAIN_LR, warmup_steps=max(LM_TRAIN_STEPS // 10, 1),
+        total_steps=LM_TRAIN_STEPS, num_microbatches=LM_TRAIN_MICRO)
+    step = lmtrain.make_train_step(cfg, settings)
+    more = lm_launch.make_batches(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                  seed=SEED + 1)
+    box = [state]
+
+    def two_steps():
+        for _ in range(LM_TRAIN_PROFILED):
+            box[0], m = step(box[0], next(more))
+        return float(m["loss"])
+
+    _, prof_ms, events = _cuda_events(two_steps)
+    events.sort(key=lambda o: -o[1])
+    busy, top = sum(ms for _, ms, _ in events), events[:8]
+    gemm_ms = sum(ms for k, ms, _ in events if re.search(
+        r"gemm|nvjet|cutlass|xmma", k, re.I))
+    bound = _lm_train_bound(model, cfg, tokens)
+    launched = counts()
+    if any(launched.values()):
+        raise AssertionError(f"the LM training path launched {launched}")
+    log(f"[lm-train] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}q/{cfg.num_kv_heads}kv heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}), {n_params:,} parameters, {cfg.optimizer}; "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens a step in "
+        f"{LM_TRAIN_MICRO} microbatches, lr {LM_TRAIN_LR}, "
+        f"{LM_TRAIN_STEPS} steps in {train_s:.2f} s (host clock, lm_init "
+        f"included); loss step 1 {losses[0]:.4f}, step "
+        f"{LM_TRAIN_STEPS} {losses[-1]:.4f}")
+    log(f"[lm-train] step time (CUDA events between steps' ends, steps "
+        f"{a}-{b}): median {med:.3f} ms, range {min(step_ms):.3f}-"
+        f"{max(step_ms):.3f} ms; {tokens / med * 1e3:,.1f} tokens/s; "
+        f"peak memory {peak_gb:.2f} GB; {smi}")
+    log(f"[lm-train] bound {bound['bound_ms']:.3f} ms a step "
+        f"({bound['bound_by']}: {bound['flops'] / 1e12:.2f} TFLOP at "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16 = "
+        f"{bound['ops_ms']:.3f} ms, {bound['matmul_params']:,} matmul "
+        f"parameters, attention {bound['attention_flops'] / 1e12:.2f} "
+        f"TFLOP of it; AdamW traffic {bound['optimizer_bytes'] / 1e9:.2f}"
+        f" GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+        f"{bound['bytes_ms']:.3f} ms; serial sum {bound['serial_ms']:.3f}"
+        f" ms): the median step is {bound['bound_ms'] / med * 100:.2f}% "
+        f"of it; {smi}")
+    log(f"[lm-train] {LM_TRAIN_PROFILED} more steps under torch.profiler: "
+        f"device busy {busy:.3f} ms of {prof_ms:.3f} ms = "
+        f"{busy / prof_ms * 100:.2f}%, the GEMMs {gemm_ms:.3f} ms of it "
+        f"({gemm_ms / busy * 100:.2f}%); most device time (ms, calls): "
+        + "; ".join(f"{k[:60]} {ms:.3f} ({n})" for k, ms, n in top[:5]))
+    out = {"card": smi, "reduced": reduced, "resume": resume,
+           "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "padded_vocab": cfg.padded_vocab,
+           "params": n_params, "optimizer": cfg.optimizer,
+           "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+           "microbatches": LM_TRAIN_MICRO, "steps": LM_TRAIN_STEPS,
+           "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+           "tokens_per_s": tokens / med * 1e3,
+           "wall_s": [r["wall_s"] for r in hist], "train_s": train_s,
+           "peak_memory_gb": peak_gb, "device_busy_ms": busy,
+           "profiled_wall_ms": prof_ms, "device_busy_share": busy / prof_ms,
+           "gemm_device_ms": gemm_ms,
+           "top_device_ops": [{"name": k, "ms": ms, "calls": n}
+                              for k, ms, n in top],
+           "bound": bound, "bound_share": bound["bound_ms"] / med}
+    del state, box, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"lm_train": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 5. times
 # ---------------------------------------------------------------------------
 
@@ -2919,6 +3222,7 @@ def main() -> int:
     tune = phase_tune(imgs, params, k1_want, dev)
     train = phase_train(dev, smi)
     phase_lm(dev, smi)
+    phase_lm_train(dev, smi)
     times = phase_times(imgs, params, wide_params, dev)
     staged["K6"] = times.pop("K6_path")
     # the per-launch time a kernel's row reports: K3 at its most frequent

@@ -1,2 +1,3 @@
-"""Launchers of the port: ``python -m repro_torch.launch.serve`` and the
-local device mesh they run over."""
+"""Launchers of the port: ``python -m repro_torch.launch.serve`` and
+``python -m repro_torch.launch.train``, and the local device mesh they run
+over."""

@@ -13,7 +13,10 @@ blocks of :func:`block_size` layers, a compile-size device with no torch
 counterpart, so caches here are a list with one entry per layer.
 
 Modes: "train" (no cache), "prefill" (returns cache), "decode" (one token,
-consumes/returns cache).
+consumes/returns cache).  With ``cfg.remat``, a train-mode forward that
+records gradients recomputes each layer in the backward
+(``torch.utils.checkpoint``), as the JAX package's ``jax.checkpoint`` of
+each block does.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..distributed.sharding import shard
@@ -30,8 +34,8 @@ from . import ffn as ffn_mod
 from . import mamba as mamba_mod
 from .layers import dense_init, embed_init, layernorm, rmsnorm, softcap
 
-__all__ = ["LayerSpec", "layer_plan", "block_size", "lm_init", "lm_apply",
-           "init_cache", "Transformer"]
+__all__ = ["LayerSpec", "layer_plan", "block_size", "stack_position",
+           "lm_init", "lm_apply", "init_cache", "Transformer"]
 
 
 @dataclass(frozen=True)
@@ -72,6 +76,29 @@ def block_size(plan: list[LayerSpec]) -> int:
         if n % p == 0 and all(plan[i] == plan[i % p] for i in range(n)):
             return p
     return n
+
+
+def stack_position(cfg, name: str) -> tuple[str, int, int] | None:
+    """Where the JAX package keeps the port's parameter ``name``: the
+    dotted path of its stacked leaf, this layer's index on the stacking
+    axis and that axis' length; None for a leaf it does not stack.
+
+    Decoder layer ``b·bs + j`` is index ``b`` of ``blocks.p{j}`` (``bs``
+    the plan's block size), encoder layer ``i`` index ``i`` of
+    ``encoder.layers``."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        i, bs = int(parts[1]), block_size(layer_plan(cfg))
+        return (".".join([f"blocks.p{i % bs}", *parts[2:]]), i // bs,
+                cfg.num_layers // bs)
+    if parts[:2] == ["encoder", "layers"]:
+        return (".".join(["encoder.layers", *parts[3:]]), int(parts[2]),
+                cfg.encoder_layers)
+    return None
+
+
+def _remat(cfg, mode: str) -> bool:
+    return cfg.remat and mode == "train" and torch.is_grad_enabled()
 
 
 class Norm(nn.Module):
@@ -225,11 +252,18 @@ class Encoder(nn.Module):
         self.final_norm = Norm(cfg, dev)
 
 
+def _encoder_layer(lp: EncoderLayer, x: torch.Tensor, cfg) -> torch.Tensor:
+    x = x + attn_mod.encoder_attention(lp.attn, lp.ln1(x), cfg=cfg)
+    return x + ffn_mod.ffn_apply(lp.mlp, lp.ln2(x), cfg)
+
+
 def _encode(params: Encoder, frames: torch.Tensor, cfg) -> torch.Tensor:
     x = frames.to(cfg.dtype)
     for lp in params.layers:
-        x = x + attn_mod.encoder_attention(lp.attn, lp.ln1(x), cfg=cfg)
-        x = x + ffn_mod.ffn_apply(lp.mlp, lp.ln2(x), cfg)
+        if _remat(cfg, "train"):
+            x = checkpoint(_encoder_layer, lp, x, cfg, use_reentrant=False)
+        else:
+            x = _encoder_layer(lp, x, cfg)
     return params.final_norm(x)
 
 
@@ -331,10 +365,13 @@ def lm_apply(model: Transformer, batch: dict, cfg, *, mode: str = "train",
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     rz = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = []
+    remat = _remat(cfg, mode)
     for i, layer in enumerate(model.layers):
-        x, nc, aux = layer(x, cfg=cfg, mode=mode, positions=positions,
-                           cache=cache[i] if cache is not None else None,
-                           cur_len=cur_len, enc_out=enc_out)
+        kw = dict(cfg=cfg, mode=mode, positions=positions,
+                  cache=cache[i] if cache is not None else None,
+                  cur_len=cur_len, enc_out=enc_out)
+        x, nc, aux = checkpoint(layer, x, use_reentrant=False, **kw) \
+            if remat else layer(x, **kw)
         new_cache.append(nc)
         if aux is not None:
             lb = lb + aux["lb_loss"]

@@ -1,5 +1,5 @@
 """Optimizers as plain functions over trees of tensors (port of
-``repro.optim.optimizer``'s SGD / AdamW half).
+``repro.optim.optimizer``: SGD, AdamW and Adafactor).
 
 The API mirrors the reference's:  ``opt = adamw(...); state =
 opt.init(params); updates, state = opt.update(grads, state, params);
@@ -24,8 +24,9 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["Optimizer", "sgd", "adamw", "apply_updates",
+__all__ = ["Optimizer", "sgd", "adamw", "adafactor", "apply_updates",
            "clip_by_global_norm", "global_norm", "tree_map", "tree_leaves",
+           "tree_items", "factored",
            "cosine_schedule", "linear_warmup_cosine", "constant_schedule"]
 
 Tree = Any
@@ -52,11 +53,28 @@ def tree_leaves(tree: Tree) -> list:
     return [tree]
 
 
+def tree_items(tree: Tree, prefix: str = "") -> list[tuple[str, Any]]:
+    """``(dotted name, leaf)`` pairs in :func:`tree_leaves` order: dict
+    keys and list indices joined by dots (a flat dict keyed by
+    ``named_parameters()`` names keeps its names)."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in tree_items(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_items(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Tree], Any]
     update: Callable[..., tuple[Tree, Any]]  # (grads, state, params) ->
                                              # (updates, state)
+    # True where every state and update element depends only on the same
+    # element of the gradient and parameter: a leaf may then be updated in
+    # slices (the train step's streamed update bounds its temporaries so)
+    elementwise: bool = True
 
 
 def _sqrt32(x: torch.Tensor) -> torch.Tensor:
@@ -75,7 +93,10 @@ def clip_by_global_norm(grads: Tree, max_norm: float
                         ) -> tuple[Tree, torch.Tensor]:
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads), norm
+    # as the reference promotes: a bf16 gradient times the float32 scale
+    # is float32
+    return tree_map(lambda g: g.to(torch.promote_types(
+        g.dtype, torch.float32)) * scale, grads), norm
 
 
 def apply_updates(params: Tree, updates: Tree) -> Tree:
@@ -172,3 +193,126 @@ def adamw(schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return tree_map(u, mu, nu, params), AdamWState(step, mu, nu)
 
     return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (Shazeer & Stern 2018): factored second moment
+# ---------------------------------------------------------------------------
+
+class AdafactorState(NamedTuple):
+    step: int
+    vr: Tree   # row second-moment (or full moment for unfactored leaves)
+    vc: Tree   # col second-moment (dummy for unfactored leaves)
+
+
+def factored(shape: tuple, min_dim_factored: int = 128) -> bool:
+    """The reference's factoring rule on a leaf's shape: the trailing dim
+    against everything before it, both at least ``min_dim_factored``."""
+    if len(shape) < 2 or shape[-1] < min_dim_factored:
+        return False
+    return math.prod(shape[:-1]) >= min_dim_factored
+
+
+def adafactor(schedule, decay: float = 0.8, eps: float = 1e-30,
+              clip_threshold: float = 1.0, min_dim_factored: int = 128,
+              weight_decay: float = 0.0, *, stacks=None) -> Optimizer:
+    """Adafactor, term for term as the reference.
+
+    The JAX package stacks layer parameters on a leading axis and decides
+    factored-ness on the stacked leaf; the port's layers are separate
+    tensors.  ``stacks(name)`` gives, for a leaf's dotted name, ``(key,
+    count)``: the stacked leaf it belongs to there and that leaf's
+    leading length (None: a leaf kept alone, the default for every leaf).
+    Factored-ness is decided on ``(count, *shape)``.  A factored leaf keeps
+    its moments per layer (``vr`` of ``shape[:-1]``, ``vc`` of
+    ``shape[:-2] + shape[-1:]``); an unfactored stacked leaf's dummy
+    ``vc`` is a scalar per layer (``(count,)`` stacked).
+
+    The update's RMS clip is taken over every leaf of one key in one
+    ``update`` call: the whole stack when the tree is updated at once (the
+    reference with ``stream_optimizer=False``), one layer when the train
+    step streams the update a layer at a time (its default).
+    """
+    stack_of = stacks or (lambda name: None)
+
+    def _is_factored(name, p):
+        st = stack_of(name)
+        shape = tuple(p.shape) if st is None else (st[1], *p.shape)
+        if factored(shape, min_dim_factored) and st is not None \
+                and p.dim() < 2:
+            # the reference's column moment of a stacked vector would span
+            # the stacking axis, coupling the layers
+            raise ValueError(f"{name}: a factored stacked vector")
+        return factored(shape, min_dim_factored)
+
+    def init(params):
+        vr, vc = [], []
+        for name, p in tree_items(params):
+            if _is_factored(name, p):
+                vr.append(torch.zeros(p.shape[:-1], dtype=torch.float32,
+                                      device=p.device))
+                vc.append(torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                      dtype=torch.float32, device=p.device))
+            else:
+                vr.append(torch.zeros_like(p, dtype=torch.float32))
+                dummy = () if stack_of(name) is not None else \
+                    (tuple(p.shape[:1]) or (1,))
+                vc.append(torch.zeros(dummy, dtype=torch.float32,
+                                      device=p.device))
+        ivr, ivc = iter(vr), iter(vc)
+        return AdafactorState(0, tree_map(lambda _: next(ivr), params),
+                              tree_map(lambda _: next(ivc), params))
+
+    def update(grads, state, params):
+        step = state.step + 1
+        lr = schedule(state.step)
+        # beta2 ramps toward 1 (Shazeer-Stern schedule), in float32
+        beta2 = _f32(1) - _f32(step) ** _f32(-decay)
+        b2, omb = float(beta2), float(_f32(1) - beta2)
+
+        outs = []
+        for (name, p), g, vr, vc in zip(tree_items(params),
+                                        tree_leaves(grads),
+                                        tree_leaves(state.vr),
+                                        tree_leaves(state.vc)):
+            g = g.to(torch.float32)
+            g2 = torch.square(g) + eps
+            # factored-ness is read from the state's shape, which init
+            # decided on the stacked shape
+            if vr.dim() < p.dim():
+                new_vr = b2 * vr + omb * torch.mean(g2, dim=-1)
+                new_vc = b2 * vc + omb * torch.mean(g2, dim=-2)
+                # rank-1 reconstruction of the preconditioner
+                r = new_vr / torch.clamp(
+                    torch.mean(new_vr, dim=-1, keepdim=True), min=eps)
+                u = g / (_sqrt32(r)[..., None]
+                         * _sqrt32(new_vc)[..., None, :] + eps)
+            else:
+                new_vr = b2 * vr + omb * g2
+                new_vc = vc
+                u = g / (_sqrt32(new_vr) + eps)
+            st = stack_of(name)
+            outs.append((name if st is None else st[0], u, new_vr, new_vc,
+                         p))
+
+        # update clipping by RMS, over each key's leaves in this call
+        sq, n = {}, {}
+        for key, u, *_ in outs:
+            sq[key] = sq.get(key, 0) + torch.sum(torch.square(u))
+            n[key] = n.get(key, 0) + u.numel()
+        rms = {k: _sqrt32(sq[k] / n[k] + eps) for k in sq}
+
+        def finish(key, u, p):
+            u = u / torch.clamp(rms[key] / clip_threshold, min=1.0)
+            if weight_decay:
+                u = u + weight_decay * p.to(torch.float32)
+            return -lr * u
+
+        ups = iter([finish(k, u, p) for k, u, _, _, p in outs])
+        vrs = iter([o[2] for o in outs])
+        vcs = iter([o[3] for o in outs])
+        return (tree_map(lambda _: next(ups), params),
+                AdafactorState(step, tree_map(lambda _: next(vrs), params),
+                               tree_map(lambda _: next(vcs), params)))
+
+    return Optimizer(init, update, elementwise=False)

@@ -40,7 +40,11 @@ def test_importing_the_port_loads_no_jax():
             " repro_torch.kernels.spike_matmul, repro_torch.core.train_snn,"
             " repro_torch.core.conversion, repro_torch.data.digits,"
             " repro_torch.optim, repro_torch.models, repro_torch.configs,"
-            " repro_torch.serve.engine, repro_torch.launch.serve;"
+            " repro_torch.serve.engine, repro_torch.launch.serve,"
+            " repro_torch.train, repro_torch.checkpoint,"
+            " repro_torch.optim.compression,"
+            " repro_torch.distributed.partition, repro_torch.launch.train,"
+            " repro_torch.data.tokens;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
