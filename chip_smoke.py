@@ -166,7 +166,18 @@ result line):
    3-10), tokens/s, peak memory, the step's bound (matmul work at the
    bf16 rate against the AdamW update's bytes) and a ``torch.profiler``
    trace of 2 more steps (busy share, top device ops), and prints one
-   ``{"lm_train": {...}}`` line.
+   ``{"lm_train": {...}}`` line; its microbatch count comes from
+   ``launch.specs.num_microbatches`` at one data shard.
+   Then the dry-run tooling (``phase_dryrun``; it launches none of K1-K6
+   and allocates nothing on the card, which is checked around every
+   dry-run): the training step ``phase_lm_train`` ran, run again on
+   ``meta`` tensors under ``launch.op_cost``, must predict that phase's
+   measured peak memory within ``DRYRUN_PEAK_REL`` and the step's
+   products, reckoned from the model's shapes, within
+   ``DRYRUN_FLOPS_REL``; ``phase_lm``'s decode step likewise its peak; and
+   ``launch.dryrun.run_cell`` writes the record of qwen3-4b × decode_32k
+   on the single-pod production mesh.  It prints one ``{"dryrun": {...}}``
+   line with each prediction, measurement and ratio.
 5. times — each kernel and its plain version at the main path's shapes
    (K1 at ``SNN_CONFIG`` and at ``SNN_CONFIG_DEEP``, with the bytes its
    launch moves and the host time per wrapper call and per
@@ -227,7 +238,13 @@ from repro_torch.core.prng import seed_state  # noqa: E402
 from repro_torch.data import digits  # noqa: E402
 from repro_torch.kernels import (_build, fused_snn, lif_step, ops,  # noqa: E402
                                  poisson_encode, spike_matmul)
+from repro_torch.distributed.sharding import (make_rules,  # noqa: E402
+                                              use_rules)
+from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
+from repro_torch.launch import specs as launch_specs  # noqa: E402
 from repro_torch.launch import train as lm_launch  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.op_cost import op_cost  # noqa: E402
 from repro_torch.serve import (ClusterCoordinator,  # noqa: E402
                                 CoordinatorCrash, FaultEvent, FaultInjector,
                                 FaultPlan, FaultToleranceConfig,
@@ -2553,11 +2570,13 @@ def phase_lm(dev, smi) -> dict:
 # 4c. the LM training path
 # ---------------------------------------------------------------------------
 
-# qwen3-4b's training traffic: 8 sequences of 1,024 tokens a step in 2
-# microbatches of 4 (what the JAX package's launch/specs.py:71
-# num_microbatches gives at one data shard), AdamW, lr 1e-3, token stream
-# seed 0, 10 steps, no checkpoint (a full state is 65 GB of disk)
-LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO = 8, 1024, 2
+# qwen3-4b's training traffic: 8 sequences of 1,024 tokens a step in the
+# microbatches launch.specs.num_microbatches gives at one data shard (2 of
+# 4), AdamW, lr 1e-3, token stream seed 0, 10 steps, no checkpoint (a full
+# state is 65 GB of disk)
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 1024
+LM_TRAIN_SHAPE = lm_configs.ShapeConfig("lm_train", LM_TRAIN_SEQ,
+                                        LM_TRAIN_BATCH, "train")
 LM_TRAIN_STEPS, LM_TRAIN_LR = 10, 1e-3
 LM_TRAIN_TIMED = (3, 10)      # the steps whose CUDA-event times are kept
 LM_TRAIN_PROFILED = 2         # steps traced by torch.profiler after them
@@ -2567,6 +2586,13 @@ BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores (data sheet)
 # the updated parameters' max |Δ| over the CPU's max |p|, as phase_lm's
 # bound (bf16-rounded attention operands can flip in one package).
 LM_TRAIN_REL_MAX = 1e-2
+
+
+def _lm_train_settings(micro: int):
+    """``launch.train.train``'s settings for phase_lm_train's run."""
+    return lmtrain.TrainSettings(
+        learning_rate=LM_TRAIN_LR, warmup_steps=max(LM_TRAIN_STEPS // 10, 1),
+        total_steps=LM_TRAIN_STEPS, num_microbatches=micro)
 
 
 def _lm_train_inputs(cfg, rng, b, s) -> dict:
@@ -2692,7 +2718,8 @@ def _lm_train_bound(model, cfg, tokens) -> dict:
     attention's 8·B·H·S²·hd per layer, at the bf16 tensor cores' rate, and
     (ii) the AdamW update's traffic (read p, g, mu, nu; write p, mu, nu:
     28 bytes a parameter) at the HBM rate.  They run in sequence in this
-    step, so their sum is kept beside it."""
+    step, so their sum is kept beside it, and so are the products the step
+    itself runs (``step_flops``), which phase_dryrun's count must meet."""
     named = dict(model.named_parameters())
     n_mm = sum(p.numel() for n, p in named.items()
                if p.dim() >= 2 and n != "embed")
@@ -2701,10 +2728,24 @@ def _lm_train_bound(model, cfg, tokens) -> dict:
     attn = 8 * LM_TRAIN_BATCH * cfg.num_heads * LM_TRAIN_SEQ ** 2 \
         * cfg.head_dim * cfg.num_layers
     flops = 8 * n_mm * tokens + attn
+    # The products the step runs differ from 8·N·T in three named terms:
+    # the head (outside the layers torch.utils.checkpoint wraps) is not
+    # recomputed; the recomputation stops at the last tensor the backward
+    # needs, so no layer's w2 product (its output) is rerun; and both
+    # attention products run over the whole S×S square, the causal mask
+    # applied to the scores, twice the causal count above.
+    head = n_mm - sum(p.numel() for n, p in named.items()
+                      if p.dim() >= 2 and n.startswith("layers."))
+    w2 = sum(p.numel() for n, p in named.items() if n.endswith("mlp.w2"))
+    terms = {"head_not_recomputed": -2 * head * tokens,
+             "w2_not_recomputed": -2 * w2 * tokens,
+             "attention_full_square": attn}
     opt_bytes = 28 * sum(p.numel() for p in named.values())
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
     bytes_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
     return {"matmul_params": n_mm, "flops": flops, "attention_flops": attn,
+            "step_flops": flops + sum(terms.values()),
+            "step_flops_terms": terms,
             "ops_ms": ops_ms, "optimizer_bytes": opt_bytes,
             "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -2727,6 +2768,7 @@ def phase_lm_train(dev, smi) -> dict:
 
     cfg = lm_configs.get_config(LM_ARCH)
     tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    micro = launch_specs.num_microbatches(cfg, LM_TRAIN_SHAPE, 1)
     ends = []
 
     def hook(rec):             # the loop calls it after synchronising
@@ -2740,7 +2782,7 @@ def phase_lm_train(dev, smi) -> dict:
     state, hist = lm_launch.train(
         LM_ARCH, steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
         seq=LM_TRAIN_SEQ, reduced=False, lr=LM_TRAIN_LR,
-        microbatches=LM_TRAIN_MICRO, metrics_hook=hook, device=dev)
+        microbatches=micro, metrics_hook=hook, device=dev)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2756,10 +2798,7 @@ def phase_lm_train(dev, smi) -> dict:
         raise AssertionError(f"qwen3-4b training losses {losses}")
 
     # two more steps under torch.profiler, with train()'s settings
-    settings = lmtrain.TrainSettings(
-        learning_rate=LM_TRAIN_LR, warmup_steps=max(LM_TRAIN_STEPS // 10, 1),
-        total_steps=LM_TRAIN_STEPS, num_microbatches=LM_TRAIN_MICRO)
-    step = lmtrain.make_train_step(cfg, settings)
+    step = lmtrain.make_train_step(cfg, _lm_train_settings(micro))
     more = lm_launch.make_batches(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
                                   seed=SEED + 1)
     box = [state]
@@ -2783,7 +2822,7 @@ def phase_lm_train(dev, smi) -> dict:
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
         f"{cfg.padded_vocab}), {n_params:,} parameters, {cfg.optimizer}; "
         f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens a step in "
-        f"{LM_TRAIN_MICRO} microbatches, lr {LM_TRAIN_LR}, "
+        f"{micro} microbatches, lr {LM_TRAIN_LR}, "
         f"{LM_TRAIN_STEPS} steps in {train_s:.2f} s (host clock, lm_init "
         f"included); loss step 1 {losses[0]:.4f}, step "
         f"{LM_TRAIN_STEPS} {losses[-1]:.4f}")
@@ -2811,7 +2850,7 @@ def phase_lm_train(dev, smi) -> dict:
            "d_model": cfg.d_model, "padded_vocab": cfg.padded_vocab,
            "params": n_params, "optimizer": cfg.optimizer,
            "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
-           "microbatches": LM_TRAIN_MICRO, "steps": LM_TRAIN_STEPS,
+           "microbatches": micro, "steps": LM_TRAIN_STEPS,
            "losses": losses, "step_ms": step_ms, "step_ms_median": med,
            "tokens_per_s": tokens / med * 1e3,
            "wall_s": [r["wall_s"] for r in hist], "train_s": train_s,
@@ -2825,6 +2864,124 @@ def phase_lm_train(dev, smi) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     print(json.dumps({"lm_train": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 4d. the dry-run tooling against the card
+# ---------------------------------------------------------------------------
+
+# The dry-run's peak against the card's max_memory_allocated: the meta run
+# counts every live storage exactly, but not the caching allocator's
+# rounding to 512-byte blocks, the temporaries a CUDA kernel allocates
+# inside one op, or the bytes already allocated before the measured run
+DRYRUN_PEAK_REL = 5e-2
+# Its flops against the step's products reckoned from the model's shapes
+DRYRUN_FLOPS_REL = 2e-2
+
+
+def _dry(what, fn, *args):
+    """``fn(*args)``, a dry-run on ``meta`` tensors, and its host seconds;
+    raises unless the card's allocated bytes are the same after it as
+    before."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sec = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if after != before:
+        raise AssertionError(f"the {what} dry-run allocated "
+                             f"{after - before} bytes on the card")
+    return out, sec
+
+
+def _ratio(what, got, want, rel, against="measured") -> dict:
+    r = got / want
+    log(f"[dryrun] {what}: predicted {got:,.0f}, {against} {want:,.0f}, "
+        f"ratio {r:.4f} (bound |1 - ratio| <= {rel})")
+    if abs(r - 1) > rel:
+        raise AssertionError(f"{what}: dry-run {got} against {want}")
+    return {"predicted": got, against: want, "ratio": r}
+
+
+def phase_dryrun(smi, lm, lm_train) -> dict:
+    """The dry-run tooling (``launch.specs``, ``launch.op_cost``,
+    ``launch.dryrun``) held against what phase_lm and phase_lm_train
+    measured: the training step they ran (qwen3-4b, 36 x 2560, AdamW, 8 x
+    1,024 tokens in launch.specs' microbatches, the launcher's settings)
+    on ``meta`` tensors, its peak within DRYRUN_PEAK_REL of the measured
+    max_memory_allocated and its flops within DRYRUN_FLOPS_REL of the
+    step's products reckoned in ``_lm_train_bound``; phase_lm's decode
+    step (float32 weights, 8 lanes, a max_len cache), its peak within
+    DRYRUN_PEAK_REL of that phase's peak; and one production cell through
+    ``launch.dryrun.run_cell``.  No dry-run allocates on the card.
+    Launches none of K1-K6."""
+    reset_counts()
+    cfg = lm_configs.get_config(LM_ARCH)
+    micro = launch_specs.num_microbatches(cfg, LM_TRAIN_SHAPE, 1)
+    if micro != lm_train["microbatches"]:
+        raise AssertionError(f"{micro} microbatches, trained with "
+                             f"{lm_train['microbatches']}")
+    settings = _lm_train_settings(micro)
+
+    def train_step():
+        # launch.train's rules over a one-device mesh: names checked only
+        rules = make_rules(make_local_mesh(devices=["meta"]), fsdp=True)
+        with use_rules(rules):
+            state = lmtrain.init_state(
+                None, cfg, settings,
+                lambda g: launch_specs.abstract_params(cfg), device="meta")
+            return op_cost(lmtrain.make_train_step(cfg, settings), state,
+                           launch_specs.train_inputs(cfg, LM_TRAIN_SHAPE))
+
+    (train, _), train_s = _dry("train", train_step)
+    bound = lm_train["bound"]
+    out = {"card": smi, "arch": cfg.name, "train_s": train_s,
+           "train_peak": _ratio(
+               "train step peak bytes", train.peak_bytes,
+               lm_train["peak_memory_gb"] * 1e9, DRYRUN_PEAK_REL),
+           "train_flops": _ratio(
+               "train step flops", train.flops, bound["step_flops"],
+               DRYRUN_FLOPS_REL, against="reckoned"),
+           "train_flops_over_bound_flops": train.flops / bound["flops"],
+           "train_bytes": train.bytes}
+    log(f"[dryrun] train step: {train.flops / 1e12:.3f} TFLOP, "
+        f"{train.flops / bound['flops']:.4f} of the bound's "
+        f"{bound['flops'] / 1e12:.3f} (8·N·T + causal attention) by its "
+        f"named terms (TFLOP): " + ", ".join(
+            f"{k} {v / 1e12:+.3f}" for k, v in
+            bound["step_flops_terms"].items())
+        + f"; {train.bytes / 1e12:.3f} TB of eager op traffic; "
+        f"{train_s:.2f} s on the host; {smi}")
+
+    dec_shape = lm_configs.ShapeConfig("lm_decode", LM_MAX_LEN, LM_REQUESTS,
+                                       "decode")
+    (dec, _), dec_s = _dry(
+        "decode", op_cost, make_decode_step(cfg),
+        launch_specs.abstract_params(cfg),
+        launch_specs.decode_state_spec(cfg, dec_shape))
+    out["decode_s"] = dec_s
+    out["decode_peak"] = _ratio("decode step peak bytes", dec.peak_bytes,
+                                lm["peak_memory_gb"] * 1e9, DRYRUN_PEAK_REL)
+    out["decode_flops"] = dec.flops
+
+    rec, cell_s = _dry("cell", lm_dryrun.run_cell, LM_ARCH, "decode_32k",
+                       False)
+    out["cell"] = {"tag": f"{LM_ARCH}.decode_32k.single", "s": cell_s,
+                   "memory": rec["memory"],
+                   "flops_per_device": rec["cost"]["flops_per_device"]}
+    log(f"[dryrun] decode step {dec.flops / 1e9:.3f} GFLOP, {dec_s:.2f} s; "
+        f"launch.dryrun cell {LM_ARCH} x decode_32k on the single-pod "
+        f"(16, 16) mesh: peak {rec['memory']['peak_bytes'] / 2**30:.2f} "
+        f"GiB a device, {rec['cost']['flops_per_device']:.4g} flops a "
+        f"device, {cell_s:.2f} s; the card's allocated bytes unchanged "
+        f"by every dry-run")
+    launched = counts()
+    if any(launched.values()):
+        raise AssertionError(f"the dry-run launched {launched}")
+    print(json.dumps({"dryrun": out}), flush=True)
     return out
 
 
@@ -3221,8 +3378,9 @@ def main() -> int:
     cluster = phase_cluster(imgs, params, k1_want)
     tune = phase_tune(imgs, params, k1_want, dev)
     train = phase_train(dev, smi)
-    phase_lm(dev, smi)
-    phase_lm_train(dev, smi)
+    lm = phase_lm(dev, smi)
+    lm_train = phase_lm_train(dev, smi)
+    phase_dryrun(smi, lm, lm_train)
     times = phase_times(imgs, params, wide_params, dev)
     staged["K6"] = times.pop("K6_path")
     # the per-launch time a kernel's row reports: K3 at its most frequent

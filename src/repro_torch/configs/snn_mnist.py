@@ -71,7 +71,7 @@ class SNNStreamMeshConfig:
     # value, otherwise 8 lanes and 4-step chunks
     lanes_per_device: int | None = None  # slots per data shard
     chunk_steps: int | None = None     # window steps per chunk
-    overlap: bool = False              # speculative chunk k+1 dispatch
+    overlap: bool = True               # speculative chunk k+1 dispatch
     # telemetry controller (serve.telemetry): None reads the
     # REPRO_ADAPTIVE_DISPATCH env default, frozen unless it is set
     adaptive: AdaptiveDispatchConfig | None = None

@@ -52,6 +52,7 @@ it.  A miss serves the static defaults (8 lanes, 4-step chunks).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -252,6 +253,19 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().copy()
 
 
+def _cuda_leaves(x):
+    """The CUDA tensors of a nested tuple / list / dict / lane state."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type == "cuda":
+            yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _cuda_leaves(v)
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _cuda_leaves(v)
+
+
 def _map(fn, st: LaneState) -> LaneState:
     """Apply ``fn`` to every array leaf of a lane state."""
     return LaneState(*[tuple(fn(a) for a in f) if isinstance(f, tuple)
@@ -402,6 +416,7 @@ class SNNStreamEngine:
         self._retired_total = 0
         self.dispatches = 0       # chunk executions (kernel launches on a
                                   # fused backend)
+        self._active_host = None  # pinned (B,) active mask (CUDA readback)
 
     def _unsupported(self, cfg: SNNConfig, streamed: bool) -> str | None:
         """Why a stack kernel cannot hold one device's lanes and weight
@@ -596,12 +611,30 @@ class SNNStreamEngine:
         return _map(lambda a: torch.from_numpy(np.ascontiguousarray(a))
                     .to(self.device), st)
 
+    def _read_active(self) -> np.ndarray:
+        """The tile's (B,) active mask on the host.  On CUDA it is copied
+        into pinned memory behind the work already queued on the main
+        stream and waited for by an event, so work queued on another
+        stream (a speculative chunk) is not waited for."""
+        active = self.lanes.active
+        if active.device.type != "cuda":
+            return active.cpu().numpy()
+        if self._active_host is None or \
+                self._active_host.shape != active.shape:
+            self._active_host = torch.empty(active.shape, dtype=active.dtype,
+                                            pin_memory=True)
+        self._active_host.copy_(active, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(active.device))
+        ev.synchronize()
+        return self._active_host.numpy().copy()
+
     def _needs_compaction(self) -> bool:
         """Only the (B,) active mask crosses to the host; the full tile
         round trip happens only when a lane retired or work can be
         admitted."""
         occupied = np.array([r is not None for r in self.lane_req])
-        active = self.lanes.active.cpu().numpy()
+        active = self._read_active()
         waiting = bool(self.queue or self._adoptions)
         return bool((occupied & ~active).any() or (
             waiting and not (occupied & active).all()))
@@ -1045,16 +1078,19 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
         their data shard's slot block, never across blocks.
       * **Round-robin admission**: queued requests fill freed slots
         cycling across the data shards' blocks.
-      * **Speculative dispatch** (``overlap=True``; off by default): after
+      * **Speculative dispatch** (``overlap=True``, the default): after
         committing chunk *k* the engine enqueues chunk *k+1* on its output
         before the host reads chunk *k*'s retirements back.  If that
         readback leads to a compaction, or the controller's chunk length
         moved, the speculation is discarded and the chunk runs again from
         the compacted tile; the chunk is a pure function of the tile, so
         using it never changes results.  ``stats["spec_used"]`` /
-        ``stats["spec_wasted"]`` count the outcomes.  On one CUDA stream
-        the readback waits for the speculative chunk, so it overlaps
-        nothing, and a chunk that retires any lane wastes it.
+        ``stats["spec_wasted"]`` count the outcomes.  On CUDA chunk *k+1*
+        runs on a side stream of each device, after an event that marks
+        chunk *k* committed on the main stream, so the readback of chunk
+        *k* (on the main stream) does not wait for it; a used speculation
+        is joined by the main stream waiting for the side stream, and a
+        discarded one's outputs are kept until its event has passed.
     """
 
     def __init__(self, params_q: dict, cfg: SNNConfig, *,
@@ -1064,7 +1100,7 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
                  batch_size: int | None = None,
                  chunk_steps: int | None = None,
                  patience: int = 2, seed: int = 0,
-                 backend: str | None = None, overlap: bool = False,
+                 backend: str | None = None, overlap: bool = True,
                  adaptive: AdaptiveDispatchConfig | None = None,
                  engine_id: int = 0,
                  injector: FaultInjector | None = None,
@@ -1124,6 +1160,9 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
         self._spec: tuple | None = None
         self._spec_src: LaneState | None = None
         self._spec_steps: int | None = None
+        self._side: dict = {}          # device -> side stream (CUDA only)
+        self._spec_done: dict | None = None
+        self._spec_dropped: list = []
         super().__init__(params_q, cfg, batch_size=batch_size,
                          chunk_steps=chunk_steps, patience=patience,
                          seed=seed, backend=backend,
@@ -1200,14 +1239,16 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
             # the tile is the very one the speculation ran from and the
             # controller still wants its chunk length: it IS this chunk
             src = self._spec_src
-            nxt, tel = self._spec
+            nxt, tel = self._join_speculation()
             self.stats["spec_used"] += 1
         else:
             if self._spec is not None:
                 self.stats["spec_wasted"] += 1
+                self._drop_speculation()
             src = self.lanes
             nxt, tel = self._dispatch_chunk(src)
         self._spec = self._spec_src = self._spec_steps = None
+        self._spec_done = None
         self.lanes = nxt
         self.stats["chunks"] += 1
         if tel is not None:
@@ -1219,5 +1260,58 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
                 self.queue or any(r is not None for r in self.lane_req)):
             self._spec_src = nxt
             self._spec_steps = self.controller.chunk_steps
-            self._spec = self._dispatch_versions(nxt)
+            self._spec = self._speculate(nxt)
         return done
+
+    # ---- speculation on side streams (CUDA) -----------------------------
+    def _side_stream(self, dev: torch.device):
+        if dev not in self._side:
+            self._side[dev] = torch.cuda.Stream(device=dev)
+        return self._side[dev]
+
+    def _speculate(self, src: LaneState):
+        """Dispatch chunk k+1 from ``src`` (chunk k's output).  On CUDA it
+        runs on each device's side stream after chunk k is committed on
+        the main stream; everything it reads is marked as used there."""
+        if self.device.type != "cuda":
+            return self._dispatch_versions(src)
+        reads = list(_cuda_leaves(src)) + [
+            t for v in self.bank.versions
+            for t in _cuda_leaves(self.bank.weights(v))]
+        main = self.device if self.device.index is not None else \
+            torch.device("cuda", torch.cuda.current_device())
+        devices = {t.device for t in reads} | {main}
+        sides = {d: self._side_stream(d) for d in devices}
+        for d, side in sides.items():
+            side.wait_event(torch.cuda.current_stream(d).record_event())
+        for t in reads:
+            t.record_stream(sides[t.device])
+        with contextlib.ExitStack() as stack:
+            for side in sides.values():
+                stack.enter_context(torch.cuda.stream(side))
+            spec = self._dispatch_versions(src)
+        self._spec_done = {d: side.record_event()
+                           for d, side in sides.items()}
+        return spec
+
+    def _join_speculation(self):
+        """The speculative chunk's outputs, made safe to use on the main
+        streams: each waits for its side stream, and every output is
+        marked as used there."""
+        spec = self._spec
+        if self._spec_done is None:
+            return spec
+        for d, side in self._side.items():
+            torch.cuda.current_stream(d).wait_stream(side)
+        for t in _cuda_leaves(spec):
+            t.record_stream(torch.cuda.current_stream(t.device))
+        return spec
+
+    def _drop_speculation(self) -> None:
+        """Discard the speculative chunk; on CUDA its outputs are released
+        only once its side-stream events have passed."""
+        if self._spec_done is not None:
+            self._spec_dropped.append((self._spec_done, self._spec))
+        self._spec_dropped = [
+            (evs, out) for evs, out in self._spec_dropped
+            if not all(e.query() for e in evs.values())]

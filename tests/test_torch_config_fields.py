@@ -3,6 +3,9 @@
 (the training fields ``qat``, ``surrogate_slope`` and ``train_threshold``
 default alike too).
 
+The speculative-dispatch default (``overlap``) of the mesh config and the
+sharded engine equals the JAX package's.
+
 The reference backend's ``snn_apply_int`` of both packages on the same
 seeded numpy inputs, in all four (``fuse_encoder``, ``emit_trace``)
 settings, on one layer (where the fused-encoder scan runs and
@@ -12,6 +15,7 @@ integer-equal, and None exactly where the JAX result is None.
 """
 
 import dataclasses
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,9 +25,11 @@ import torch
 from repro.configs import snn_mnist as jcfgs
 from repro.core import prng as jprng
 from repro.core import snn as jsnn
+from repro.serve import snn_engine as jeng
 from repro_torch.configs import snn_mnist as tcfgs
 from repro_torch.convert import params_from_jax
 from repro_torch.core import snn as tsnn
+from repro_torch.serve import snn_engine as teng
 
 _KEYS = ("pred", "spike_counts", "v_trace", "first_spike_t", "v_final",
          "active_adds", "prng_state", "input_spikes", "v_peak")
@@ -55,6 +61,19 @@ def test_config_fields_default_as_in_jax():
     for f in ("weight_bits", "fuse_encoder", "emit_trace", "qat",
               "surrogate_slope", "train_threshold"):
         assert getattr(t, f) == getattr(j, f), f
+
+
+def test_overlap_defaults_as_in_jax():
+    """Speculation is on by default in both packages: the mesh config's
+    field and the sharded engine's argument."""
+    assert tcfgs.SNNStreamMeshConfig().overlap == \
+        jcfgs.SNNStreamMeshConfig().overlap is True
+
+    def default(cls):
+        return inspect.signature(cls).parameters["overlap"].default
+
+    assert default(teng.ShardedSNNStreamEngine) == \
+        default(jeng.ShardedSNNStreamEngine) is True
 
 
 @pytest.mark.parametrize("readout", ["count", "first_spike"])

@@ -44,7 +44,9 @@ def test_importing_the_port_loads_no_jax():
             " repro_torch.train, repro_torch.checkpoint,"
             " repro_torch.optim.compression,"
             " repro_torch.distributed.partition, repro_torch.launch.train,"
-            " repro_torch.data.tokens;"
+            " repro_torch.data.tokens, repro_torch.launch.specs,"
+            " repro_torch.launch.mesh, repro_torch.launch.op_cost,"
+            " repro_torch.launch.dryrun, repro_torch.launch.recost;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

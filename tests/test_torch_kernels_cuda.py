@@ -500,3 +500,39 @@ def test_model_sharded_engine_equals_single_on_card(card):
         assert (g.pred, g.steps, g.adds, g.early_exit) == \
             (r.pred, r.steps, r.adds, r.early_exit)
         np.testing.assert_array_equal(g.spike_counts, r.spike_counts)
+
+
+def test_speculation_on_a_side_stream_changes_nothing_on_card(card):
+    """784→64→10 on a 1×2 mesh of the card with speculation on (the
+    default) and off: chunk k+1 runs on the engine's side stream, some
+    speculations are used and some wasted, and the results are equal."""
+    from repro_torch.configs.snn_mnist import (SNNStreamMeshConfig,
+                                               make_stream_engine)
+    rng = np.random.default_rng(9)
+    cfg = dataclasses.replace(cfgs.SNN_CONFIG_DEEP, layer_sizes=(784, 64, 10))
+    p = {"layers": [{"w_q": np.clip(np.round(rng.normal(0, 170 / np.sqrt(i),
+                                                        (i, o))), -256, 255)
+                     .astype(np.int16)} for i, o in ((784, 64), (64, 10))]}
+    imgs = rng.integers(0, 256, (96, 784), dtype=np.uint8)
+    runs = {}
+    for overlap in (True, False):
+        knobs = SNNStreamMeshConfig(num_devices=1, model_devices=2,
+                                    lanes_per_device=16, chunk_steps=2,
+                                    overlap=overlap)
+        eng = make_stream_engine(p, cfg, knobs, devices=[card] * 2,
+                                 patience=2, seed=3)
+        for im in imgs:
+            eng.submit(im)
+        runs[overlap] = eng.run()
+        if overlap:
+            assert eng.stats["spec_used"] > 0 and \
+                eng.stats["spec_wasted"] > 0, eng.stats
+            assert [d.type for d in eng._side] == ["cuda"]
+        else:
+            assert eng.stats["spec_used"] == eng.stats["spec_wasted"] == 0
+    assert sorted(runs[True]) == sorted(runs[False]) == list(range(96))
+    for rid, r in runs[False].items():
+        g = runs[True][rid]
+        assert (g.pred, g.steps, g.adds, g.early_exit) == \
+            (r.pred, r.steps, r.adds, r.early_exit)
+        np.testing.assert_array_equal(g.spike_counts, r.spike_counts)
