@@ -168,15 +168,38 @@ result line):
    trace of 2 more steps (busy share, top device ops), and prints one
    ``{"lm_train": {...}}`` line; its microbatch count comes from
    ``launch.specs.num_microbatches`` at one data shard.
+   Then the placed LM path (``phase_lm_partition``; it launches none of
+   K1-K6): a one-rank ``nccl`` process group and a 1×1 mesh with its
+   process mesh, the parameters, prompts, cache and train state placed
+   as DTensors by the production rules (``distributed.partition.place``).
+   qwen3-4b at 36 × 2560 serves ``phase_lm``'s traffic through
+   ``generate``, placed and unplaced from the same seed: the same tokens
+   and active counts, every decode step's logits within
+   ``LM_PART_REL_MAX`` of the unplaced ones; then one train step at full
+   width with ``LM_PART_LAYERS`` layers, placed and unplaced from the same
+   seed and batch, at the full learning rate (no warmup): loss, grad
+   norm and both AdamW moments leaf by leaf within ``LM_TRAIN_REL_MAX``
+   of the unplaced step's, each parameter's move within it of AdamW's
+   first step from the placed moments (so a missing or wrong update on
+   the local shards fails); the parameters' distance from the unplaced
+   ones is printed in learning rates, not gated (AdamW's first step
+   turns gradient noise that flips a sign into up to 2 lr).  It prints one ``{"lm_partition": {...}}`` line
+   with the placed decode and train ms a step, peak memory and the c10d
+   calls by kind of a ``torch.profiler`` trace.  No fallback: a process
+   group or a placement that fails raises.  One card is one rank (NCCL
+   refuses two ranks on one card), so nothing here is a multi-rank figure.
    Then the dry-run tooling (``phase_dryrun``; it launches none of K1-K6
    and allocates nothing on the card, which is checked around every
    dry-run): the training step ``phase_lm_train`` ran, run again on
-   ``meta`` tensors under ``launch.op_cost``, must predict that phase's
+   ``meta`` tensors placed on a 1×1 mesh under a one-rank ``fake``
+   process group, as rank 0 of the placed program, under
+   ``launch.op_cost``, must predict that phase's
    measured peak memory within ``DRYRUN_PEAK_REL`` and the step's
    products, reckoned from the model's shapes, within
    ``DRYRUN_FLOPS_REL``; ``phase_lm``'s decode step likewise its peak; and
    ``launch.dryrun.run_cell`` writes the record of qwen3-4b × decode_32k
-   on the single-pod production mesh.  It prints one ``{"dryrun": {...}}``
+   on the single-pod production mesh (rank 0 of 256 under a ``fake``
+   group).  It prints one ``{"dryrun": {...}}``
    line with each prediction, measurement and ratio.
 5. times — each kernel and its plain version at the main path's shapes
    (K1 at ``SNN_CONFIG`` and at ``SNN_CONFIG_DEEP``, with the bytes its
@@ -208,6 +231,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import inspect
 import io
 import json
 import re
@@ -238,13 +262,16 @@ from repro_torch.core.prng import seed_state  # noqa: E402
 from repro_torch.data import digits  # noqa: E402
 from repro_torch.kernels import (_build, fused_snn, lif_step, ops,  # noqa: E402
                                  poisson_encode, spike_matmul)
-from repro_torch.distributed.sharding import (make_rules,  # noqa: E402
-                                              use_rules)
+from repro_torch.distributed.partition import (  # noqa: E402
+    batch_specs, cache_specs, param_specs, place, to_shardings,
+    train_state_specs)
+from repro_torch.distributed.sharding import (make_device_mesh,  # noqa: E402
+                                              make_rules, use_rules)
 from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
 from repro_torch.launch import specs as launch_specs  # noqa: E402
 from repro_torch.launch import train as lm_launch  # noqa: E402
-from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.op_cost import op_cost  # noqa: E402
+from repro_torch.optim import optimizer as lm_optim  # noqa: E402
 from repro_torch.serve import (ClusterCoordinator,  # noqa: E402
                                 CoordinatorCrash, FaultEvent, FaultInjector,
                                 FaultPlan, FaultToleranceConfig,
@@ -2868,7 +2895,287 @@ def phase_lm_train(dev, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 4d. the dry-run tooling against the card
+# 4d. the placed LM path: a one-rank nccl group, a 1×1 process mesh
+# ---------------------------------------------------------------------------
+
+# The train step's depth at full width: 12 layers peak at 43.5 GB (the
+# dry-run, launch.op_cost on meta), leaving room under 60 GB for the
+# placed copy's bookkeeping (the 36-layer step peaks at 79.6 of 80 GB)
+LM_PART_LAYERS = 12
+LM_PART_TRAIN_STEPS = 4        # placed steps timed after the checked one
+# placed against unplaced: phase_lm's bf16 bound on the logits
+LM_PART_REL_MAX = 1e-2
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _c10d_calls(run) -> tuple:
+    """``run()`` under ``torch.profiler``: its result and the collectives
+    of the trace: the functional c10d calls by kind (DTensor's and the
+    regions' own; their waits left out) and the NCCL kernels launched."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    calls: dict = {}
+    for e in prof.key_averages():
+        name = e.key
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if "nccl" in name.lower():
+                calls["nccl_kernels"] = calls.get("nccl_kernels", 0) + \
+                    e.count
+        elif name.startswith("_c10d_functional::") and not any(
+                w in name for w in ("wait", "wrap")):
+            kind = name.split("::", 1)[1]
+            calls[kind] = calls.get(kind, 0) + e.count
+    return out, calls
+
+
+def phase_lm_partition(dev, smi) -> dict:
+    """qwen3-4b placed on a 1×1 mesh over a one-rank ``nccl`` group:
+    ``generate`` at 36 × 2560 and a full-width train step of
+    ``LM_PART_LAYERS`` layers, each against the unplaced run of the same
+    seeds.  Launches none of K1-K6.  Every gate raises."""
+    import torch.distributed as dist
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    dev = torch.device(dev.type, torch.cuda.current_device()
+                       if dev.index is None else dev.index)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        out = _lm_partition(dev, smi)
+    finally:
+        dist.destroy_process_group()
+    launched = counts()
+    if any(launched.values()):
+        raise AssertionError(f"the placed LM path launched {launched}")
+    print(json.dumps({"lm_partition": out}), flush=True)
+    return out
+
+
+def _lm_partition(dev, smi) -> dict:
+    mesh = make_device_mesh((1, 1), ("data", "model"), devices=[dev])
+    if mesh.torch_mesh is None:
+        raise AssertionError("no process mesh over the one-rank group")
+    cfg = lm_configs.get_config(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = models.lm_init(cfg, generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    kw = dict(steps=LM_GEN, max_len=LM_MAX_LEN)
+
+    def gate():
+        return stability_gate(LM_REQUESTS, LM_PATIENCE, device=dev)
+
+    toks, active = generate(model, {"tokens": prompt}, cfg, **kw,
+                            early_exit_fn=gate())
+    plain_ms = float(np.mean(_lm_loop(model, cfg, {"tokens": prompt}, None,
+                                      keep=False)["step_ms"]))
+    plain = _lm_loop(model, cfg, {"tokens": prompt}, None)
+    plain_logits = [lg.float() for lg in plain["logits"]]
+    plain_toks = torch.stack([st.last_token for st in plain["states"][1:]],
+                             1)
+    del plain
+    rules = make_rules(mesh, fsdp=False)
+    with use_rules(rules):
+        model = place(model, to_shardings(mesh, rules, param_specs(
+            cfg, model), model), mesh)
+        batch = {"tokens": prompt}
+        batch = place(batch, to_shardings(mesh, rules, batch_specs(batch),
+                                          batch), mesh)
+        generate(model, batch, cfg, steps=2, max_len=LM_MAX_LEN,
+                 early_exit_fn=gate())                      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        p_toks, p_active = generate(model, batch, cfg, **kw,
+                                    early_exit_fn=gate())
+        torch.cuda.synchronize()
+        serve_peak = torch.cuda.max_memory_allocated() / 1e9
+        run = _lm_loop(model, cfg, batch, None)
+        timed = _lm_loop(model, cfg, batch, None, keep=False)
+        _, serve_calls = _c10d_calls(lambda: generate(
+            model, batch, cfg, **kw, early_exit_fn=gate()))
+    run_toks = torch.stack([st.last_token.full_tensor()
+                            for st in run["states"][1:]], 1)
+    err = max(_rel_max(lg.full_tensor().float(), want)
+              for lg, want in zip(run["logits"], plain_logits))
+    same = torch.equal(p_toks, toks) and torch.equal(p_active, active) \
+        and torch.equal(run_toks, plain_toks)
+    step_ms, steps_ms = float(np.mean(timed["step_ms"])), timed["step_ms"]
+    log(f"[lm-partition] {cfg.name} placed on a 1x1 mesh over a one-rank "
+        f"nccl group ({LM_REQUESTS} requests x prompt {LM_PROMPT}, "
+        f"{LM_GEN} generated): tokens and active counts "
+        f"{'equal' if same else 'DIFFER'} to the unplaced run; decode "
+        f"logits rel max |Δ| {err:.3e} (bound {LM_PART_REL_MAX}); decode "
+        f"{step_ms:.3f} ms a step placed, {plain_ms:.3f} unplaced (CUDA "
+        f"events, mean of {LM_GEN} each, the same call); peak "
+        f"{serve_peak:.2f} GB; collectives of one generate {serve_calls}; "
+        f"{smi}")
+    if not same or err > LM_PART_REL_MAX or not all(
+            torch.isfinite(lg.full_tensor()).all() for lg in run["logits"]):
+        raise AssertionError(f"placed generate: same={same}, err={err}")
+    del model, batch, run, timed, plain_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = _lm_partition_train(dev, mesh)
+    return {"card": smi, "arch": cfg.name, "mesh": [1, 1],
+            "backend": "nccl", "requests": LM_REQUESTS,
+            "prompt": LM_PROMPT, "gen": LM_GEN,
+            "decode_ms_per_step": step_ms,
+            "decode_step_ms": steps_ms,
+            "unplaced_decode_ms_per_step": plain_ms,
+            "decode_logits_rel_max": err, "serve_peak_gb": serve_peak,
+            "serve_c10d_calls": serve_calls, **train}
+
+
+def _adamw_first_move(s, mu, nu, p) -> torch.Tensor:
+    """The move AdamW's first step (``optim.optimizer.adamw`` at its
+    defaults, ``s``'s weight decay and step-0 learning rate) makes on
+    ``p``, given the moments it left: ``mu / (1 - b1)`` is the clipped
+    gradient and ``nu / (1 - b2)`` its square."""
+    d = inspect.signature(lm_optim.adamw).parameters
+    b1, b2, eps = (d[k].default for k in ("b1", "b2", "eps"))
+    lr = lm_optim.linear_warmup_cosine(s.learning_rate, s.warmup_steps,
+                                       s.total_steps)(0)
+    return -lr * ((mu / (1 - b1)) / (torch.sqrt(nu / (1 - b2)) + eps)
+                  + s.weight_decay * p)
+
+
+def _lm_partition_train(dev, mesh) -> dict:
+    cfg = dataclasses.replace(lm_configs.get_config(LM_ARCH),
+                              num_layers=LM_PART_LAYERS)
+    micro = launch_specs.num_microbatches(cfg, LM_TRAIN_SHAPE, 1)
+    # no warmup: the checked first step runs at the full learning rate
+    s = dataclasses.replace(_lm_train_settings(micro), warmup_steps=0)
+    nb = _lm_train_inputs(cfg, np.random.default_rng(SEED), LM_TRAIN_BATCH,
+                          LM_TRAIN_SEQ)
+    step = lmtrain.make_train_step(cfg, s)
+
+    def state():
+        return lmtrain.init_state(
+            torch.Generator(device=dev).manual_seed(SEED), cfg, s,
+            device=dev)
+
+    def timed(st):
+        """LM_PART_TRAIN_STEPS more steps: the state and their ms."""
+        more = lm_launch.make_batches(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                      seed=SEED + 1)
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(LM_PART_TRAIN_STEPS + 1)]
+        ev[0].record()
+        for k in range(LM_PART_TRAIN_STEPS):
+            st, m = step(st, next(more))
+            ev[k + 1].record()
+        torch.cuda.synchronize()
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"train loss {float(m['loss'])}")
+        return st, [ev[k].elapsed_time(ev[k + 1])
+                    for k in range(LM_PART_TRAIN_STEPS)]
+
+    def host(tree: dict) -> dict:
+        return {n: t.detach().to("cpu", torch.float32, copy=True)
+                for n, t in tree.items()}
+
+    ref = state()
+    before = host(dict(ref.params.named_parameters()))
+    ref, rm = step(ref, nb)
+    want = host(dict(ref.params.named_parameters()))
+    want_mu, want_nu = host(ref.opt_state.mu), host(ref.opt_state.nu)
+    rm = {k: float(rm[k]) for k in ("loss", "grad_norm")}
+    ref, plain_ms = timed(ref)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rules = make_rules(mesh, fsdp=True)
+    with use_rules(rules):
+        st = state()
+        st = place(st, to_shardings(mesh, rules, train_state_specs(
+            cfg, cfg.optimizer, st), st), mesh)
+        st, pm = step(st, nb)
+        err = {"loss": abs(float(pm["loss"]) / rm["loss"] - 1),
+               "grad_norm": abs(float(pm["grad_norm"]) / rm["grad_norm"]
+                                - 1), "moments": 0.0, "update": 0.0}
+        moved, off, worst = 0.0, 0.0, {}
+        for n, p in st.params.named_parameters():
+            p0 = before.pop(n).to(dev)
+            mu = st.opt_state.mu[n].full_tensor().float()
+            nu = st.opt_state.nu[n].full_tensor().float()
+            # the gradient leaf by leaf: both moments against the
+            # unplaced step's (√ν, on the gradient's scale)
+            e = max(_rel_max(mu, want_mu.pop(n).to(dev)),
+                    _rel_max(nu.sqrt(), want_nu.pop(n).to(dev).sqrt()))
+            if e > err["moments"]:
+                err["moments"], worst["moments"] = e, n
+            # the update on local shards: the move each parameter made
+            # against AdamW's first step from the placed moments
+            move = p.full_tensor().detach().float() - p0
+            e = _rel_max(move, _adamw_first_move(s, mu, nu, p0))
+            if e > err["update"]:
+                err["update"], worst["update"] = e, n
+            moved = max(moved, float(move.abs().max()))
+            off = max(off, float((p.full_tensor().detach().float()
+                                  - want.pop(n).to(dev)).abs().max()))
+            del p0, mu, nu, move
+        del want, want_mu, want_nu, before
+        lr = lm_optim.linear_warmup_cosine(s.learning_rate, s.warmup_steps,
+                                           s.total_steps)(0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st, ms = timed(st)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        box = [st]
+        more = lm_launch.make_batches(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                      seed=SEED + 2)
+
+        def one():
+            box[0], mm = step(box[0], next(more))
+            return float(mm["loss"])
+
+        _, calls = _c10d_calls(one)
+    log(f"[lm-partition] train step at full width, {cfg.num_layers} "
+        f"layers, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens in {micro} "
+        f"microbatches at lr {lr:g}: placed against unplaced rel |Δ| loss "
+        f"{err['loss']:.3e}, grad norm {err['grad_norm']:.3e}, AdamW "
+        f"moments {err['moments']:.3e} (worst {worst.get('moments')}); "
+        f"each parameter's move (max {moved:.3e}) against AdamW's first "
+        f"step from its moments {err['update']:.3e} (worst "
+        f"{worst.get('update')}; bound {LM_TRAIN_REL_MAX}); parameters "
+        f"against unplaced max {off / lr:.3f} lr, not gated (AdamW's "
+        f"first step moves by lr·g/(|g|+eps): gradient noise that flips a "
+        f"sign moves up to 2 lr apart); "
+        f"{LM_PART_TRAIN_STEPS} steps each: placed {np.median(ms):.3f} ms "
+        f"median ({min(ms):.3f}-{max(ms):.3f}), unplaced "
+        f"{np.median(plain_ms):.3f} ({min(plain_ms):.3f}-"
+        f"{max(plain_ms):.3f}) (CUDA events, the same call); placed peak "
+        f"{peak:.2f} GB; collectives of one step {calls}")
+    if max(err.values()) > LM_TRAIN_REL_MAX or not moved > 0:
+        raise AssertionError(f"placed train step: {err}, moved {moved}")
+    del st, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_layers": cfg.num_layers, "train_microbatches": micro,
+            "train_vs_unplaced": err, "train_max_move": moved,
+            "train_params_vs_unplaced_in_lr": off / lr,
+            "train_ms_per_step": float(
+                np.median(ms)), "train_step_ms": ms,
+            "unplaced_train_ms_per_step": float(np.median(plain_ms)),
+            "train_peak_gb": peak, "train_c10d_calls": calls}
+
+
+# ---------------------------------------------------------------------------
+# 4e. the dry-run tooling against the card
 # ---------------------------------------------------------------------------
 
 # The dry-run's peak against the card's max_memory_allocated: the meta run
@@ -2911,12 +3218,14 @@ def phase_dryrun(smi, lm, lm_train) -> dict:
     ``launch.dryrun``) held against what phase_lm and phase_lm_train
     measured: the training step they ran (qwen3-4b, 36 x 2560, AdamW, 8 x
     1,024 tokens in launch.specs' microbatches, the launcher's settings)
-    on ``meta`` tensors, its peak within DRYRUN_PEAK_REL of the measured
+    on ``meta`` tensors placed on a 1×1 mesh under a one-rank ``fake``
+    group (rank 0 of the placed program), its peak within DRYRUN_PEAK_REL
+    of the measured
     max_memory_allocated and its flops within DRYRUN_FLOPS_REL of the
     step's products reckoned in ``_lm_train_bound``; phase_lm's decode
-    step (float32 weights, 8 lanes, a max_len cache), its peak within
-    DRYRUN_PEAK_REL of that phase's peak; and one production cell through
-    ``launch.dryrun.run_cell``.  No dry-run allocates on the card.
+    step (float32 weights, 8 lanes, a max_len cache), placed likewise, its
+    peak within DRYRUN_PEAK_REL of that phase's peak; and one production
+    cell through ``launch.dryrun.run_cell``.  No dry-run allocates on the card.
     Launches none of K1-K6."""
     reset_counts()
     cfg = lm_configs.get_config(LM_ARCH)
@@ -2926,15 +3235,28 @@ def phase_dryrun(smi, lm, lm_train) -> dict:
                              f"{lm_train['microbatches']}")
     settings = _lm_train_settings(micro)
 
+    def placed_cost(fn, fsdp, tree, specs_of):
+        """``op_cost`` of ``fn`` on ``tree`` placed on a 1×1 mesh under a
+        one-rank ``fake`` group: rank 0 of the placed program, as the
+        production cells count it."""
+        with lm_dryrun.fake_group(1):
+            mesh = make_device_mesh((1, 1), ("data", "model"),
+                                    devices=["meta"])
+            rules = make_rules(mesh, fsdp=fsdp)
+            with use_rules(rules):
+                placed = [place(t, to_shardings(mesh, rules, sp(t), t), mesh)
+                          for t, sp in zip(tree, specs_of)]
+                return op_cost(fn, *placed)
+
     def train_step():
-        # launch.train's rules over a one-device mesh: names checked only
-        rules = make_rules(make_local_mesh(devices=["meta"]), fsdp=True)
-        with use_rules(rules):
-            state = lmtrain.init_state(
-                None, cfg, settings,
-                lambda g: launch_specs.abstract_params(cfg), device="meta")
-            return op_cost(lmtrain.make_train_step(cfg, settings), state,
-                           launch_specs.train_inputs(cfg, LM_TRAIN_SHAPE))
+        state = lmtrain.init_state(
+            None, cfg, settings,
+            lambda g: launch_specs.abstract_params(cfg), device="meta")
+        return placed_cost(
+            lmtrain.make_train_step(cfg, settings), True,
+            (state, launch_specs.train_inputs(cfg, LM_TRAIN_SHAPE)),
+            (lambda t: train_state_specs(cfg, cfg.optimizer, t),
+             batch_specs))
 
     (train, _), train_s = _dry("train", train_step)
     bound = lm_train["bound"]
@@ -2958,10 +3280,14 @@ def phase_dryrun(smi, lm, lm_train) -> dict:
 
     dec_shape = lm_configs.ShapeConfig("lm_decode", LM_MAX_LEN, LM_REQUESTS,
                                        "decode")
+    vec = ("batch",)
     (dec, _), dec_s = _dry(
-        "decode", op_cost, make_decode_step(cfg),
-        launch_specs.abstract_params(cfg),
-        launch_specs.decode_state_spec(cfg, dec_shape))
+        "decode", placed_cost, make_decode_step(cfg), False,
+        (launch_specs.abstract_params(cfg),
+         launch_specs.decode_state_spec(cfg, dec_shape)),
+        (lambda t: param_specs(cfg, t), lambda t: t._replace(
+            cache=cache_specs(cfg, t.cache, decode=True), cur_len=vec,
+            last_token=vec, done=vec)))
     out["decode_s"] = dec_s
     out["decode_peak"] = _ratio("decode step peak bytes", dec.peak_bytes,
                                 lm["peak_memory_gb"] * 1e9, DRYRUN_PEAK_REL)
@@ -3380,6 +3706,7 @@ def main() -> int:
     train = phase_train(dev, smi)
     lm = phase_lm(dev, smi)
     lm_train = phase_lm_train(dev, smi)
+    phase_lm_partition(dev, smi)
     phase_dryrun(smi, lm, lm_train)
     times = phase_times(imgs, params, wide_params, dev)
     staged["K6"] = times.pop("K6_path")

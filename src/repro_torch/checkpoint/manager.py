@@ -18,8 +18,12 @@ Layout of one checkpoint (``<dir>/step_<N>/``):
     crash mid-save leaves the previous checkpoint intact.
   * **Elastic restore**: shards record their logical index ranges, and a
     leaf is assembled from whichever files cover it, so a checkpoint
-    written by several shards (the JAX package on a mesh) restores here
-    whole.  The port writes one shard per leaf.
+    written by several shards (the JAX package on a mesh, or the port's
+    ranks) restores whole in one process; ``shardings=(mesh, specs)``
+    then places it on another partition.  One process writes one shard
+    per leaf; a placed state (DTensors over a process mesh) is written by
+    every rank, each its own shards with their logical index ranges
+    (replicated shards once), and rank 0 commits the manifest.
   * **Async**: ``save`` snapshots tensors to host memory synchronously and
     does file IO on one worker thread; ``wait()`` joins.  Integrity is
     checked on restore via crc32.
@@ -36,8 +40,10 @@ from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
+from ..distributed.sharding import is_placed
 
 __all__ = ["CheckpointManager", "save_pytree", "restore_pytree",
            "latest_step"]
@@ -97,8 +103,101 @@ def _jax_layout(tree):
     return tree
 
 
+class _Shard:
+    """One rank's piece of a placed leaf: its local data, its logical
+    index ranges and shard number, and whether this rank writes it (the
+    first rank of each group that holds a replica)."""
+
+    def __init__(self, ts: list, stacked: bool):
+        from torch.distributed.tensor import Shard
+
+        t = ts[0]
+        mesh, pl = t.device_mesh, t.placements
+        local = [x.to_local().detach().cpu().numpy() for x in ts]
+        self.data = np.stack(local) if stacked else local[0].copy()
+        glob = list(t.shape)
+        idx, num, write = [], 0, True
+        for d, n in enumerate(glob):
+            lin, ways = 0, 1
+            for i, p in enumerate(pl):
+                if isinstance(p, Shard) and p.dim == d:
+                    lin = lin * mesh.size(i) + mesh.get_local_rank(i)
+                    ways *= mesh.size(i)
+            size = n // ways
+            idx.append([lin * size, (lin + 1) * size])
+            num = num * ways + lin
+        for i, p in enumerate(pl):
+            if not isinstance(p, Shard) and mesh.get_local_rank(i) != 0:
+                write = False
+        if stacked:
+            glob, idx = [len(ts)] + glob, [[0, len(ts)]] + idx
+        self.shape, self.index, self.num, self.write = glob, idx, num, write
+
+    @classmethod
+    def whole(cls, a: np.ndarray, write: bool) -> "_Shard":
+        """An unsharded leaf (the step counter), written by ``write``."""
+        leaf = cls.__new__(cls)
+        leaf.data, leaf.shape, leaf.num, leaf.write = a, list(a.shape), 0, \
+            write
+        leaf.index = [[0, n] for n in a.shape]
+        return leaf
+
+
+def _save_placed(state, directory: str) -> None:
+    """Every rank writes its shards of a placed ``TrainState``; rank 0
+    gathers their index ranges and checksums, writes the manifest and
+    commits."""
+    from ..convert import _train_state_tree
+
+    rank = dist.get_rank()
+    tmp = directory + ".tmp"
+    if rank == 0:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
+    dist.barrier()
+    tree = _train_state_tree(state, state.params.cfg, _Shard)
+    meta, order = {}, []
+    for path, leaf in _items(tree):
+        lid = _leaf_id(path)
+        order.append(lid)
+        if not isinstance(leaf, _Shard):        # the step: rank 0 writes
+            leaf = _Shard.whole(np.asarray(leaf), rank == 0)
+        entry = {"shape": list(leaf.shape), "dtype": str(leaf.data.dtype),
+                 "shards": []}
+        if leaf.write:
+            fname = f"{lid}.s{leaf.num}.npy"
+            np.save(os.path.join(tmp, fname), leaf.data)
+            with open(os.path.join(tmp, fname), "rb") as f:
+                crc = zlib.crc32(f.read())
+            entry["shards"].append({"file": fname, "index": leaf.index,
+                                    "crc32": crc})
+        meta[lid] = entry
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, meta)
+    if rank == 0:
+        leaves = {lid: dict(every[0][lid], shards=[
+            sh for m in every for sh in m[lid]["shards"]]) for lid in order}
+        manifest = {"leaves": leaves, "treedef": repr(order)}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(directory):
+            shutil.rmtree(directory)
+        os.rename(tmp, directory)
+    dist.barrier()
+
+
+def _placed_state(tree) -> bool:
+    return _is_train_state(tree) and is_placed(tree.params.embed)
+
+
 def save_pytree(tree, directory: str) -> None:
-    """Synchronous save with atomic rename."""
+    """Synchronous save with atomic rename (every rank calls it for a
+    placed ``TrainState``)."""
+    if _placed_state(tree):
+        return _save_placed(tree, directory)
     tree = _jax_layout(tree)
     tmp = directory + ".tmp"
     if os.path.exists(tmp):
@@ -152,11 +251,13 @@ def restore_pytree(tree_like, directory: str, shardings=None, *,
     ``device`` (None = the CUDA card).  A port ``train.TrainState`` is
     read from the JAX package's layout into a new ``TrainState``.
 
-    ``shardings`` is accepted for the reference's signature and has no
-    meaning on one card: every leaf is assembled whole from its shards'
-    logical ranges and placed on ``device``.
+    Every leaf is assembled whole from its shards' logical ranges, however
+    many ranks wrote them.  ``shardings=(mesh, specs)`` (a
+    ``distributed.sharding.DeviceMesh`` with its process mesh and the
+    mesh-axis tuples of ``distributed.partition.to_shardings``) then
+    places the result as DTensors on that partition; anything else (the
+    reference's shardings) is accepted and means nothing in one process.
     """
-    del shardings
     with open(os.path.join(directory, "manifest.json")) as f:
         leaves = json.load(f)["leaves"]
     dev = resolve_device(device)
@@ -167,10 +268,17 @@ def restore_pytree(tree_like, directory: str, shardings=None, *,
                                  lambda ts, stacked: 0)
         host = _rebuild(like, iter([_load_leaf(directory, leaves[_leaf_id(p)])
                                     for p, _ in _items(like)]))
-        return train_state_from_jax(host, tree_like.params.cfg, device=dev)
-    out = [torch.from_numpy(_load_leaf(directory, leaves[_leaf_id(p)]))
-           .to(dev) for p, _ in _items(tree_like)]
-    return _rebuild(tree_like, iter(out))
+        out = train_state_from_jax(host, tree_like.params.cfg, device=dev)
+    else:
+        out = _rebuild(tree_like, iter([
+            torch.from_numpy(_load_leaf(directory, leaves[_leaf_id(p)]))
+            .to(dev) for p, _ in _items(tree_like)]))
+    if isinstance(shardings, tuple) and len(shardings) == 2 and \
+            hasattr(shardings[0], "torch_mesh"):
+        from ..distributed.partition import place
+        mesh, specs = shardings
+        out = place(out, specs, mesh)
+    return out
 
 
 def latest_step(root: str) -> int | None:
@@ -198,6 +306,14 @@ class CheckpointManager:
         return os.path.join(self.root, f"step_{step}")
 
     def save(self, step: int, tree) -> Future:
+        if _placed_state(tree):
+            # every rank takes part in the commit: synchronous
+            fut: Future = Future()
+            save_pytree(tree, self._dir(step))
+            if dist.get_rank() == 0:
+                self._gc()
+            fut.set_result(None)
+            return fut
         tree = _jax_layout(tree)
         host_tree = _rebuild(tree, iter([_host(x) for _, x in _items(tree)]))
 

@@ -19,22 +19,26 @@ Logical axes used (resolved to mesh axes by ``ShardingRules``):
   batch   → data axes; kv_seq → "model" (decode-time flash-decoding split)
 
 :func:`to_shardings` resolves logical axes to mesh axes, as the
-reference's does, and places nothing: on one card there is nothing to
-place (``distributed.sharding.shard`` likewise only checks names).
+reference's does.  :func:`place` puts a tree (parameters, a train state,
+a cache, a batch) on a process mesh under them, as DTensors: what the
+reference's ``in_shardings`` do.  Without a process group nothing is
+placed and the one-process path runs (``distributed.sharding.shard`` then
+only checks names).
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import torch
 from torch import nn
 
 from ..optim.optimizer import (AdafactorState, AdamWState, SGDState,
                                factored)
-from .sharding import DeviceMesh, ShardingRules
+from .sharding import DeviceMesh, ShardingRules, placements
 
 __all__ = ["param_logical_axes", "param_specs", "cache_specs", "batch_specs",
-           "opt_state_specs", "to_shardings", "train_state_specs"]
+           "opt_state_specs", "to_shardings", "train_state_specs", "place"]
 
 Tree = Any
 
@@ -223,3 +227,59 @@ def to_shardings(mesh: DeviceMesh, rules: ShardingRules, spec_tree: Tree,
                           for i, v in enumerate(spec))
 
     return walk(spec_tree, shape_tree)
+
+
+def _place_tensor(t: torch.Tensor, entries, tmesh):
+    """One tensor as a DTensor under mesh-axis ``entries``: the local
+    shard of ``distribute_tensor`` for data (every rank holds the same
+    global tensor, so nothing is sent), ``DTensor.from_local`` of an empty
+    shard on ``meta`` (no global tensor is ever allocated)."""
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    pl = placements(tuple(entries) if entries else (None,) * t.dim(),
+                    tmesh.mesh_dim_names)
+    if t.device.type != "meta":
+        return distribute_tensor(t.detach(), tmesh, pl, src_data_rank=None)
+    local = list(t.shape)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            local[p.dim] //= tmesh.size(i)
+    return DTensor.from_local(torch.empty(local, dtype=t.dtype,
+                                          device="meta"),
+                              tmesh, pl, run_check=False)
+
+
+def place(tree: Tree, spec_tree: Tree, mesh: DeviceMesh) -> Tree:
+    """``tree`` (tensors, ``nn.Module``s, dicts, lists, named tuples;
+    ints and None pass) with every tensor a DTensor on ``mesh``'s process
+    mesh under the mesh-axis tuples of ``spec_tree`` (:func:`to_shardings`'
+    output).  A module's parameters are replaced in place (it is returned);
+    nothing else is modified.  Raises where ``mesh`` has no process mesh:
+    there is no unplaced fallback."""
+    tmesh = mesh.torch_mesh
+    if tmesh is None:
+        raise RuntimeError(
+            f"mesh {mesh.shape} has no process mesh: start a process group "
+            f"of {mesh.size} ranks before building it")
+
+    def walk(t, spec):
+        if t is None or isinstance(t, (int, float, bool)):
+            return t
+        if isinstance(t, torch.Tensor):
+            return _place_tensor(t, spec, tmesh)
+        if isinstance(t, nn.Module):
+            for name, p in list(t.named_parameters()):
+                mod, _, leaf = name.rpartition(".")
+                owner = t.get_submodule(mod) if mod else t
+                setattr(owner, leaf, nn.Parameter(
+                    _place_tensor(p, spec[name], tmesh),
+                    requires_grad=p.requires_grad))
+            return t
+        if isinstance(t, dict):
+            return {k: walk(v, spec[k]) for k, v in t.items()}
+        if hasattr(t, "_fields"):
+            return type(t)(*(walk(getattr(t, f), getattr(spec, f))
+                             for f in t._fields))
+        return type(t)(walk(v, spec[i]) for i, v in enumerate(t))
+
+    return walk(tree, spec_tree)

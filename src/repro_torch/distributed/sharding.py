@@ -7,16 +7,25 @@ output columns over the model axis.  The grid may name one device more
 than once: on one card, ``make_2d_device_mesh(1, 4, devices=["cuda:0"] *
 4)`` runs four model shards and their spike exchange on that card; where
 the grid names several cards, the shards sit on them and the exchange is
-a peer copy.  Nothing here starts a process group: every shard is driven
-from the calling process.
+a peer copy.  The SNN engines drive every shard from the calling
+process.
 
 The LM substrate annotates its activations with *logical* axis names
 ("batch", "heads", "kv_seq", ...).  :class:`ShardingRules` maps each name
 to mesh axes, as in the JAX package, and :func:`use_rules` installs a table
-for the code below it.  On one device there is nothing to place, so
-:func:`shard` only checks the names it is given against the active table
-and returns its tensor unchanged; placing LM tensors over a mesh of several
-cards is later work (the model axis across processes).
+for the code below it.  The LM runs over a mesh one process per rank: when
+a ``torch.distributed`` process group is up and the mesh has one device
+per rank, :func:`make_device_mesh` also builds the matching
+``torch.distributed`` ``DeviceMesh`` (``DeviceMesh.torch_mesh``), tensors
+are placed on it as DTensors (``partition.place``), and :func:`shard`
+redistributes a DTensor to the placements the rules give (GSPMD's
+sharding constraint).  A plain tensor, or no process group, keeps the
+one-process behaviour: the names are checked and the tensor returned.
+
+:func:`run_local` is the port's ``shard_map``: a region that runs on local
+shards (``torch.distributed.tensor.experimental.local_map``) with its
+collectives written out (:func:`all_reduce`, :func:`all_gather`), where
+DTensor has no rule or its rule would gather what GSPMD keeps sharded.
 """
 
 from __future__ import annotations
@@ -28,10 +37,14 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = ["DeviceMesh", "make_device_mesh", "make_2d_device_mesh",
            "ShardingRules", "make_rules", "use_rules", "current_rules",
-           "logical_spec", "shard", "DEFAULT_RULES", "FSDP_RULES"]
+           "logical_spec", "shard", "DEFAULT_RULES", "FSDP_RULES",
+           "placements", "is_placed", "run_local", "all_reduce",
+           "all_gather", "mesh_rank", "mesh_ways", "logical_placements",
+           "model_sharded", "partial_over_model", "partial_where_replicated"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -44,6 +57,9 @@ class DeviceMesh:
 
     axis_names: tuple[str, ...]
     devices: np.ndarray
+    # the torch.distributed DeviceMesh of the same shape and axis names,
+    # one rank per device (None without a process group of that size)
+    torch_mesh: object = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -85,7 +101,21 @@ def make_device_mesh(shape: tuple, axis_names: tuple, *,
                          f"{len(pool)} are given")
     grid = np.empty(need, dtype=object)
     grid[:] = pool[:need]
-    return DeviceMesh(axis_names, grid.reshape(shape))
+    return DeviceMesh(axis_names, grid.reshape(shape),
+                      _process_mesh(shape, axis_names, pool[0]))
+
+
+def _process_mesh(shape: tuple, axis_names: tuple, device: torch.device):
+    """``init_device_mesh`` over the running process group when it has
+    exactly one rank per mesh device; else None (one process drives
+    the whole grid)."""
+    if not (dist.is_available() and dist.is_initialized()) or \
+            dist.get_world_size() != math.prod(shape):
+        return None
+    from torch.distributed.device_mesh import init_device_mesh
+
+    kind = "cuda" if device.type == "cuda" else "cpu"
+    return init_device_mesh(kind, shape, mesh_dim_names=axis_names)
 
 
 def make_2d_device_mesh(data_devices: int | None = None,
@@ -133,6 +163,10 @@ class ShardingRules:
 
     rules: dict = field(default_factory=dict)
     axis_sizes: dict = field(default_factory=dict)  # mesh axis → size
+    # mesh axes over which placed regions leave weight gradients
+    # unreduced: the train step reduces over them itself (int8
+    # error-feedback compression over "pod")
+    deferred: tuple = ()
 
     def spec(self, *logical_axes: str | None) -> tuple:
         """The mesh axes of each logical axis (a ``PartitionSpec``'s
@@ -163,7 +197,7 @@ class ShardingRules:
     def with_overrides(self, **kw) -> "ShardingRules":
         new = dict(self.rules)
         new.update(kw)
-        return ShardingRules(new, self.axis_sizes)
+        return ShardingRules(new, self.axis_sizes, self.deferred)
 
 
 def make_rules(mesh: DeviceMesh | None, *, fsdp: bool = True,
@@ -224,19 +258,37 @@ def logical_spec(*logical_axes) -> tuple:
     return rules.spec(*logical_axes)
 
 
-def shard(x: torch.Tensor, *logical_axes) -> torch.Tensor:
-    """Check a tensor's logical axis names against the active rules and
-    return it unchanged.
+def is_placed(x) -> bool:
+    """Whether ``x`` is a DTensor (placed over a process mesh)."""
+    from torch.distributed.tensor import DTensor
 
-    The JAX package turns the names into a sharding constraint.  On one
-    device no placement exists, and placing over a mesh of several cards
-    waits for the model axis across processes, so here the names are only
-    checked: one a table does not know raises, as does a list of names
-    that does not match the tensor's rank.
-    """
-    rules = current_rules()
-    if rules is None or not rules.rules:
-        return x
+    return isinstance(x, DTensor)
+
+
+def placements(entries: tuple, mesh_dim_names: tuple) -> tuple:
+    """DTensor placements (one per mesh dim) of a mesh-axis tuple (one
+    entry per tensor dim, each None, an axis name or a tuple of them: a
+    ``to_shardings`` leaf): a mesh axis named for tensor dim *i* is
+    ``Shard(i)`` on that mesh dim, every other mesh dim ``Replicate()``.
+    A tuple entry shards its dim over its axes major to minor, which is
+    DTensor's order when the axes follow the mesh's."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate()] * len(mesh_dim_names)
+    last = -1
+    for d, e in enumerate(entries):
+        for a in (() if e is None else e if isinstance(e, tuple) else (e,)):
+            i = mesh_dim_names.index(a)
+            if isinstance(e, tuple) and i < last:
+                raise ValueError(f"axes {e} do not follow the mesh order "
+                                 f"{mesh_dim_names}")
+            last = i
+            out[i] = Shard(d)
+        last = -1
+    return tuple(out)
+
+
+def _check(x, logical_axes, rules) -> None:
     if len(logical_axes) != x.dim():
         raise ValueError(f"{len(logical_axes)} logical axes {logical_axes} "
                          f"for a tensor of rank {x.dim()}")
@@ -245,4 +297,166 @@ def shard(x: torch.Tensor, *logical_axes) -> torch.Tensor:
     if unknown:
         raise KeyError(f"logical axes {unknown} are not in the active "
                        f"sharding rules")
-    return x
+
+
+def shard(x: torch.Tensor, *logical_axes) -> torch.Tensor:
+    """The JAX package's sharding constraint.
+
+    A DTensor is redistributed to the placements the active rules give
+    its shape (``rules.spec_for_shape``: axes that do not divide their dim
+    are dropped); a ``Partial`` left by a region is reduced on the way.
+    A plain tensor is returned unchanged.  Either way the names are
+    checked: one a table does not know raises, as does a list of names
+    that does not match the tensor's rank.
+    """
+    rules = current_rules()
+    if rules is None or not rules.rules:
+        return x
+    _check(x, logical_axes, rules)
+    if not is_placed(x):
+        return x
+    mesh = x.device_mesh
+    want = placements(rules.spec_for_shape(tuple(x.shape), *logical_axes),
+                      mesh.mesh_dim_names)
+    return x if tuple(x.placements) == want else \
+        x.redistribute(mesh, want)
+
+
+def mesh_rank(mesh, name: str) -> int:
+    """This process's coordinate on the torch mesh dim ``name`` (0 where
+    the mesh has no such dim)."""
+    names = mesh.mesh_dim_names or ()
+    return mesh.get_local_rank(name) if name in names else 0
+
+
+def mesh_ways(mesh, name: str) -> int:
+    """The width of the torch mesh dim ``name`` (1 where it has none)."""
+    names = mesh.mesh_dim_names or ()
+    return mesh.size(names.index(name)) if name in names else 1
+
+
+def logical_placements(mesh, shape, *logical_axes) -> tuple:
+    """The placements the active rules give a tensor of ``shape`` with
+    these logical axes on the torch mesh ``mesh``."""
+    if len(shape) != len(logical_axes):
+        raise ValueError(f"{len(logical_axes)} logical axes {logical_axes} "
+                         f"for a shape of rank {len(shape)}")
+    rules = current_rules()
+    return placements(rules.spec_for_shape(tuple(shape), *logical_axes),
+                      mesh.mesh_dim_names)
+
+
+def model_sharded(pl: tuple, mesh) -> bool:
+    """Whether placements ``pl`` shard a dim over the "model" mesh dim."""
+    from torch.distributed.tensor import Shard
+
+    names = mesh.mesh_dim_names or ()
+    return "model" in names and isinstance(pl[names.index("model")], Shard)
+
+
+def partial_over_model(pl: tuple, mesh, partial: bool = True) -> tuple:
+    """``pl`` with the "model" mesh dim a partial sum (when ``partial``):
+    a region's output that each model shard computed a part of."""
+    from torch.distributed.tensor import Partial
+
+    names = mesh.mesh_dim_names or ()
+    if not partial or "model" not in names:
+        return tuple(pl)
+    i = names.index("model")
+    return tuple(pl[:i]) + (Partial(),) + tuple(pl[i + 1:])
+
+
+def partial_where_replicated(pl: tuple, mesh, *,
+                             summed: tuple = ()) -> tuple:
+    """Gradient placements of a region input placed as ``pl``: a partial
+    sum on every mesh dim it is replicated on, except the dims in
+    ``summed`` (the region sums over them itself) and the active rules'
+    ``deferred`` ones (the caller reduces over them), which stay
+    replicated."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    rules = current_rules()
+    keep = set(summed) | set(rules.deferred if rules is not None else ())
+    names = mesh.mesh_dim_names or ()
+    return tuple(Partial() if isinstance(p, Replicate) and n not in keep
+                 else p for n, p in zip(names, pl))
+
+
+
+def run_local(fn, mesh, ins, out_placements):
+    """Run ``fn`` on the local shards of ``ins`` (the port's
+    ``shard_map``, through ``local_map``).
+
+    ``ins`` is a sequence of ``(value, placements)`` or ``(value,
+    placements, grad_placements)``: each DTensor is first redistributed
+    to its placements, plain values (placements None) pass as they are.
+    By default the gradient of a local input is a partial sum over every
+    mesh dim it was replicated on (each rank computes a disjoint part of
+    the region's outputs), so it is reduced on the way back: the FSDP
+    gather's reduce-scatter, the model axis' all-reduce
+    (:func:`partial_where_replicated`).
+    ``out_placements`` as ``local_map`` takes them.
+    """
+    from torch.distributed.tensor import Placement
+    from torch.distributed.tensor.experimental import local_map
+
+    # local_map reads a list as one output's placements, a tuple as one
+    # entry per output
+    if all(isinstance(p, Placement) for p in out_placements):
+        out_placements = list(out_placements)
+    else:
+        out_placements = tuple(None if p is None else list(p)
+                               for p in out_placements)
+    vals = [i[0] for i in ins]
+    in_pl = tuple(None if i[1] is None else tuple(i[1]) for i in ins)
+    grad_pl = tuple(
+        tuple(i[2]) if len(i) > 2 else None if p is None else
+        partial_where_replicated(p, mesh) for i, p in zip(ins, in_pl))
+    return local_map(fn, out_placements=out_placements, in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*vals)
+
+
+def _group(mesh, name: str):
+    return (mesh, mesh.mesh_dim_names.index(name))
+
+
+class _AllReduce(torch.autograd.Function):
+    """All-reduce over one mesh dim.  Backward: the same all-reduce when
+    each rank uses the result on its own shard (``grad="sum"``), the
+    identity when every rank uses it alike (``grad="same"``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, name, op, grad):
+        import torch.distributed._functional_collectives as fc
+
+        ctx.mesh, ctx.name, ctx.grad = mesh, name, grad
+        return fc.wait_tensor(fc.all_reduce(x, op, _group(mesh, name)))
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as fc
+
+        if ctx.grad == "sum":
+            g = fc.wait_tensor(fc.all_reduce(g.contiguous(), "sum",
+                                             _group(ctx.mesh, ctx.name)))
+        return g, None, None, None, None
+
+
+def all_reduce(x: torch.Tensor, mesh, name: str, op: str = "sum", *,
+               grad: str = "same") -> torch.Tensor:
+    """All-reduce a local tensor over the torch mesh dim ``name``
+    (``op``: "sum" | "max"); ``grad`` as :class:`_AllReduce`."""
+    if op != "sum" and torch.is_grad_enabled() and x.requires_grad:
+        x = x.detach()             # a max is a constant of the backward
+    return _AllReduce.apply(x.contiguous(), mesh, name, op, grad)
+
+
+def all_gather(x: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
+    """All-gather a local tensor over the torch mesh dim ``name`` along
+    tensor dim ``dim`` (no gradient)."""
+    import torch.distributed._functional_collectives as fc
+
+    gather = getattr(fc, "all_gather_single", fc.all_gather_tensor)
+    return fc.wait_tensor(gather(x.detach().contiguous(), dim,
+                                 _group(mesh, name)))

@@ -22,7 +22,8 @@ the log it accumulates, with ``hlo_cost``'s conventions:
                        accumulator credit of ``hlo_cost._io_bytes``),
   * collective bytes — per kind, for every c10d op that reaches the
                        dispatcher, max(result, operand) bytes with a 2×
-                       ring multiplier for all-reduce,
+                       ring multiplier for all-reduce (the JAX dry-run's
+                       ``collective_bytes``), and the count of each kind,
   * peak_bytes       — the most bytes of device storage live at once:
                        each storage counted once however many views read
                        it, from when an op first returns or reads it until
@@ -30,6 +31,13 @@ the log it accumulates, with ``hlo_cost``'s conventions:
                        (every ``data_ptr()`` is 0 on ``meta``); host
                        (CPU) storages are not device memory and are left
                        out.
+
+On a placed program (DTensors over a process mesh, one rank's view) the
+counter lets DTensor handle its own ops (it returns ``NotImplemented`` for
+them) and counts what DTensor runs beneath: the local ops at shard shapes
+and the ``_c10d_functional`` collectives, so every figure is the rank's
+own.  The global-shape ops DTensor's sharding propagation runs on fake
+tensors to derive output metadata are not counted.  The step's input storages are the DTensors' local shards.
 
 There is nothing like ``hlo_cost._trip_count`` here: an eager loop runs
 every iteration (microbatches, layers and query chunks alike), so every
@@ -69,7 +77,8 @@ _MATMUL = {"mm": 0, "bmm": 0, "mv": 0, "dot": 0, "vdot": 0,
 # allocation and metadata ops: no traffic
 _FREE = {"empty", "empty_like", "empty_strided", "new_empty",
          "new_empty_strided", "detach", "alias", "lift_fresh",
-         "record_stream", "wait_tensor", "_local_scalar_dense"}
+         "record_stream", "wait_tensor", "_local_scalar_dense",
+         "_wrap_tensor_autograd"}
 # c10d ops: kind, and the positions of the arguments they write
 _C10D = {
     "allreduce_": ("all-reduce", (0,)),
@@ -106,6 +115,8 @@ class OpCost:
     bytes: float = 0.0
     collectives: dict = field(
         default_factory=lambda: dict.fromkeys(COLLECTIVES, 0.0))
+    collective_counts: dict = field(
+        default_factory=lambda: dict.fromkeys(COLLECTIVES, 0))
     peak_bytes: float = 0.0
 
     @property
@@ -135,15 +146,22 @@ def _walk(tree):
             yield from _walk(v)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; any other tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
 def _leaves(tree):
     """Every tensor reachable from a step's inputs, a module's parameters
-    and buffers included."""
+    and buffers included (a DTensor's local shard)."""
     for x in _walk(tree):
         if isinstance(x, nn.Module):
-            yield from x.parameters()
-            yield from x.buffers()
+            yield from map(_local, x.parameters())
+            yield from map(_local, x.buffers())
         else:
-            yield x
+            yield _local(x)
 
 
 def _dtype(t: torch.Tensor) -> str:
@@ -258,8 +276,17 @@ class OpCounter(TorchDispatchMode):
             self._modules.__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented       # counted as the local ops it runs
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None:
+            # DTensor's sharding propagation runs the op at the global
+            # shape on fake tensors: metadata only, no rank runs it
+            return out
         name = func.overloadpacket.__name__
         ns = func.namespace
         if ns in _COLL_NS:
@@ -327,6 +354,8 @@ def cost_log(log) -> OpCost:
         out.bytes += by
         if kind is not None:
             out.collectives[kind] = out.collectives.get(kind, 0.0) + cb
+            out.collective_counts[kind] = \
+                out.collective_counts.get(kind, 0) + 1
         out.peak_bytes = max(out.peak_bytes, float(entry[4]))
     return out
 

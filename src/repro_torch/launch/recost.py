@@ -36,7 +36,7 @@ def main(argv=None):
             oc = cost_log(json.load(f))
         with open(jpath) as f:
             rec = json.load(f)
-        cost_fields(rec, oc, rec["model_ways"])
+        cost_fields(rec, oc)
         with open(jpath, "w") as f:
             json.dump(rec, f, indent=1)
         n += 1

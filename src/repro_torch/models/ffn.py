@@ -22,7 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import shard
+from ..distributed.sharding import (is_placed, logical_placements,
+                                    model_sharded, partial_over_model,
+                                    run_local, shard)
 from .layers import activation_fn, dense_init
 
 __all__ = ["ffn_params", "ffn_apply", "moe_params", "moe_apply", "is_gated",
@@ -53,6 +55,12 @@ def ffn_params(cfg, d_ff: int | None = None, *,
 
 
 def ffn_apply(params: MLP, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The dense MLP.  On a placed ``x`` it runs on local shards, as
+    Megatron's column/row-parallel pair: w1/w3 columns and w2 rows on the
+    model axis (the output a partial sum), every weight gathered over the
+    data axis right before use."""
+    if is_placed(x):
+        return _placed_ffn(params, x, cfg)
     dt = x.dtype
     act = activation_fn(cfg.activation)
     h = act(x @ params.w1.to(dt))
@@ -60,6 +68,26 @@ def ffn_apply(params: MLP, x: torch.Tensor, cfg) -> torch.Tensor:
         h = h * (x @ params.w3.to(dt))
     h = shard(h, "batch", None, "mlp")
     return h @ params.w2.to(dt)
+
+
+def _placed_ffn(params: MLP, x, cfg):
+    mesh = x.device_mesh
+    lp = lambda t, *ax: logical_placements(mesh, t.shape, *ax)  # noqa: E731
+    x_pl = lp(x, "batch", None, "embed")
+    w1_pl, w2_pl = lp(params.w1, None, "mlp"), lp(params.w2, "mlp", None)
+    gated = params.w3 is not None
+
+    def body(xl, w1, w2, w3):
+        dt = xl.dtype
+        h = activation_fn(cfg.activation)(xl @ w1.to(dt))
+        if w3 is not None:
+            h = h * (xl @ w3.to(dt))
+        return h @ w2.to(dt)
+
+    return run_local(body, mesh, [(x, x_pl), (params.w1, w1_pl),
+                                  (params.w2, w2_pl),
+                                  (params.w3, w1_pl if gated else None)],
+                     partial_over_model(x_pl, mesh, model_sharded(w2_pl, mesh)))
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +132,9 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg, *, group_size: int = 1024):
     Returns (y, aux) where aux = {"lb_loss": load-balance loss (Switch),
     "router_z": router z-loss} — added to the training objective.
     """
+    if is_placed(x):
+        raise NotImplementedError(
+            "MoE expert parallelism is not placed over a mesh yet")
     dt = x.dtype
     b, s, d = x.shape
     e, k = cfg.moe_num_experts, cfg.moe_top_k

@@ -8,17 +8,29 @@ input-drive, here with an input-dependent decay.
 
 Projections are separate matrices per component (z, x, B, C, dt).
 Shapes: d_inner = expand·d_model, H = d_inner/head_dim heads, N = ssm_state.
+
+On a DTensor input (a placed model) the mixer runs on local shards: its
+channels (``mlp``) and heads on the model axis, where both divide, with
+the shared B/C projections computed on every model shard.  The depthwise
+conv and the scan are local per channel and head, so nothing is gathered;
+the gated norm over d_inner all-reduces its sum of squares, and the output
+projection leaves a partial sum.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import shard
+from ..distributed.sharding import (all_reduce, is_placed,
+                                    logical_placements, mesh_ways,
+                                    model_sharded, partial_over_model,
+                                    partial_where_replicated, run_local,
+                                    shard)
 from .layers import dense_init, rmsnorm
 
 __all__ = ["mamba_params", "mamba_apply", "mamba_decode_step", "MambaCache",
@@ -104,7 +116,9 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     ext = torch.cat([tail, x], dim=1)                  # (B, S+W-1, C)
     s = x.shape[1]
     y = sum(ext[:, i:i + s, :] * w[i][None, None, :] for i in range(bw))
-    return F.silu(y), ext[:, -(bw - 1):, :] if bw > 1 else tail
+    # the tail is copied out: a view would keep all of ``ext`` alive in
+    # the cache (W-1 rows holding B·(S+W-1)·C elements)
+    return F.silu(y), ext[:, -(bw - 1):, :].clone() if bw > 1 else tail
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -178,26 +192,33 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return y[:, :S_in], h
 
 
-def _project(params: Mamba2, u: torch.Tensor, dt):
+def _project(params: Mamba2, u: torch.Tensor, dt, bc_proj=None):
+    """The five input projections; ``bc_proj(u, w)`` computes the shared
+    B/C ones where given (a placed shard's ``replicated_proj``)."""
     z = u @ params.wz.to(dt)
     x = u @ params.wx.to(dt)
-    b = u @ params.wb.to(dt)
-    c = u @ params.wc.to(dt)
+    proj = bc_proj or (lambda v, w: v @ w.to(dt))
+    b = proj(u, params.wb)
+    c = proj(u, params.wc)
     delta = u @ params.wdt.to(dt)
     return z, x, b, c, delta
 
 
 def mamba_apply(params: Mamba2, u: torch.Tensor, cfg, *,
-                cache: MambaCache | None = None, want_cache: bool = False):
+                cache: MambaCache | None = None, want_cache: bool = False,
+                norm_fn=rmsnorm, bc_proj=None):
     """Full-sequence mixer (train / prefill). u: (B, S, D) normed input.
 
     Returns (y (B,S,D), new_cache | None).
     """
+    if is_placed(u):
+        return _placed_mamba(params, u, cfg, cache=cache,
+                             want_cache=want_cache, decode=False)
     dt = u.dtype
     B, S, _ = u.shape
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
 
-    z, x, b, c, delta = _project(params, u, dt)
+    z, x, b, c, delta = _project(params, u, dt, bc_proj)
     x = shard(x, "batch", None, "mlp")
     x, tail_x = _causal_conv(x, params.conv_x.to(dt),
                              cache.conv_x if cache is not None else None)
@@ -219,7 +240,7 @@ def mamba_apply(params: Mamba2, u: torch.Tensor, cfg, *,
                              cache.ssm if cache is not None else None)
     y = y + params.D[None, None, :, None] * xh_raw      # skip connection
     y = y.reshape(B, S, cfg.d_inner).to(dt)
-    y = rmsnorm(y * F.silu(z), params.norm)
+    y = norm_fn(y * F.silu(z), params.norm)
     out = y @ params.out.to(dt)
 
     new_cache = None
@@ -230,13 +251,16 @@ def mamba_apply(params: Mamba2, u: torch.Tensor, cfg, *,
 
 
 def mamba_decode_step(params: Mamba2, u: torch.Tensor, cfg,
-                      cache: MambaCache):
+                      cache: MambaCache, *, norm_fn=rmsnorm, bc_proj=None):
     """One-token decode. u: (B, 1, D). Returns (y (B,1,D), new_cache)."""
+    if is_placed(u):
+        return _placed_mamba(params, u, cfg, cache=cache, want_cache=True,
+                             decode=True)
     dt = u.dtype
     B = u.shape[0]
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
 
-    z, x, b, c, delta = _project(params, u, dt)
+    z, x, b, c, delta = _project(params, u, dt, bc_proj)
 
     def conv_step(xt, tail, wconv):
         ext = torch.cat([tail, xt], dim=1)                    # (B, W, C)
@@ -260,7 +284,96 @@ def mamba_decode_step(params: Mamba2, u: torch.Tensor, cfg,
     y = torch.einsum("bhpn,bn->bhp", h_new, cf) \
         + params.D[None, :, None] * xh
     y = y.reshape(B, 1, cfg.d_inner).to(dt)
-    y = rmsnorm(y * F.silu(z), params.norm)
+    y = norm_fn(y * F.silu(z), params.norm)
     out = y @ params.out.to(dt)
     return out, MambaCache(ssm=h_new, conv_x=tail_x, conv_b=tail_b,
                            conv_c=tail_c)
+
+
+def _placed_mamba(params: Mamba2, u, cfg, *, cache, want_cache: bool,
+                  decode: bool):
+    """The mixer on a placed ``u``: see the module docstring.  Runs the
+    one-process functions on each shard's channels and heads."""
+    from .attention import replicated_proj
+
+    mesh = u.device_mesh
+    tp = mesh_ways(mesh, "model")
+    split = cfg.d_inner % tp == 0 and cfg.ssm_heads % tp == 0 and tp > 1
+    ch, hd = ("mlp", "heads") if split else (None, None)
+    lp = lambda t, *ax: logical_placements(  # noqa: E731
+        mesh, getattr(t, "shape", t), *ax)
+    u_pl = lp(u, "batch", None, "embed")
+    pr = params
+    bc_pl = lp(pr.wb, None, None)
+    bc_in = (bc_pl, partial_where_replicated(bc_pl, mesh, summed=("model",))) \
+        if split else (bc_pl,)
+    ins = [(u, u_pl), (pr.wz, lp(pr.wz, None, ch)),
+           (pr.wx, lp(pr.wx, None, ch)), (pr.wb, *bc_in),
+           (pr.wc, *bc_in), (pr.wdt, lp(pr.wdt, None, hd)),
+           (pr.conv_x, lp(pr.conv_x, None, ch)),
+           (pr.conv_b, lp(pr.conv_b, None, None)),
+           (pr.conv_c, lp(pr.conv_c, None, None)),
+           (pr.A_log, lp(pr.A_log, hd)), (pr.D, lp(pr.D, hd)),
+           (pr.dt_bias, lp(pr.dt_bias, hd)), (pr.norm, lp(pr.norm, ch)),
+           (pr.out, lp(pr.out, ch, None))]
+    c_axes = MambaCache(ssm=("batch", hd, None, None),
+                        conv_x=("batch", None, ch),
+                        conv_b=("batch", None, None),
+                        conv_c=("batch", None, None))
+    if cache is not None:
+        ins += [(getattr(cache, f), lp(getattr(cache, f), *getattr(c_axes, f)))
+                for f in MambaCache._fields]
+    else:
+        ins += [(None, None)] * 4
+    sharded = model_sharded(ins[1][1], mesh)
+    out_pl = partial_over_model(u_pl, mesh, sharded)
+
+    def gated_norm(y, scale):
+        if not sharded:
+            return rmsnorm(y, scale)
+        y32 = y.to(torch.float32)
+        var = all_reduce(torch.sum(torch.square(y32), dim=-1, keepdim=True),
+                         mesh, "model", grad="sum") / cfg.d_inner
+        out = y32 * torch.rsqrt(var + 1e-6)
+        return (out * (1.0 + scale.to(torch.float32))).to(y.dtype)
+
+    def body(ul, wz, wx, wb, wc, wdt, cx, cb, cc, a_log, d_skip, dt_bias,
+             norm, w_out, ssm, tx, tb, tc):
+        loc = SimpleNamespace(wz=wz, wx=wx, wb=wb, wc=wc, wdt=wdt,
+                              conv_x=cx, conv_b=cb, conv_c=cc, A_log=a_log,
+                              D=d_skip, dt_bias=dt_bias, norm=norm, out=w_out)
+        lcfg = _LocalCfg(cfg, heads=a_log.shape[0])
+        bc = (lambda x, w: replicated_proj(x, w, mesh)) if split else None
+        c = None if ssm is None else MambaCache(ssm, tx, tb, tc)
+        y, nc = (mamba_decode_step(loc, ul, lcfg, c, norm_fn=gated_norm,
+                                   bc_proj=bc)
+                 if decode else
+                 mamba_apply(loc, ul, lcfg, cache=c, want_cache=want_cache,
+                             norm_fn=gated_norm, bc_proj=bc))
+        return (y,) + (tuple(nc) if nc is not None else (None,) * 4)
+
+    c_pl = [lp(t, *getattr(c_axes, f)) for f, t in zip(
+        MambaCache._fields, _cache_shapes(u.shape[0], cfg, u.dtype))]
+    out = run_local(body, mesh, ins,
+                    (out_pl, *(c_pl if want_cache else [None] * 4)))
+    return out[0], (MambaCache(*out[1:]) if want_cache else None)
+
+
+class _LocalCfg:
+    """``cfg`` seen from one shard: its heads and channels."""
+
+    def __init__(self, cfg, *, heads: int):
+        self._cfg = cfg
+        self.ssm_heads = heads
+        self.d_inner = heads * cfg.ssm_head_dim
+
+    def __getattr__(self, name):
+        return getattr(self._cfg, name)
+
+
+def _cache_shapes(batch: int, cfg, dtype) -> MambaCache:
+    h, p, n, w = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv
+    return MambaCache(ssm=torch.Size((batch, h, p, n)),
+                      conv_x=torch.Size((batch, w - 1, cfg.d_inner)),
+                      conv_b=torch.Size((batch, w - 1, n)),
+                      conv_c=torch.Size((batch, w - 1, n)))

@@ -17,6 +17,13 @@ consumes/returns cache).  With ``cfg.remat``, a train-mode forward that
 records gradients recomputes each layer in the backward
 (``torch.utils.checkpoint``), as the JAX package's ``jax.checkpoint`` of
 each block does.
+
+A model placed over a process mesh (``distributed.partition.place``: its
+parameters DTensors) runs the same loop on DTensors: the annotations
+redistribute the residual stream, and each block, the vocab-sharded
+embedding and the head run on local shards (their modules say how).  The
+placed path covers the dense and Mamba-2 families; MoE, the hybrid stack
+and the whisper / llava front ends raise.
 """
 
 from __future__ import annotations
@@ -28,7 +35,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..distributed.sharding import shard
+from ..distributed.sharding import (current_rules, is_placed,
+                                    logical_placements, mesh_rank,
+                                    model_sharded, partial_over_model,
+                                    run_local, shard, use_rules)
 from . import attention as attn_mod
 from . import ffn as ffn_mod
 from . import mamba as mamba_mod
@@ -99,6 +109,20 @@ def stack_position(cfg, name: str) -> tuple[str, int, int] | None:
 
 def _remat(cfg, mode: str) -> bool:
     return cfg.remat and mode == "train" and torch.is_grad_enabled()
+
+
+def _under_rules(fn):
+    """``fn`` run under the rules active now: a remat recomputation runs
+    in the backward, which the autograd engine runs on a device thread of
+    its own, where the (thread-local) rules are not installed."""
+    rules = current_rules()
+    if rules is None:
+        return fn
+
+    def run(*args, **kw):
+        with use_rules(rules):
+            return fn(*args, **kw)
+    return run
 
 
 class Norm(nn.Module):
@@ -261,7 +285,8 @@ def _encode(params: Encoder, frames: torch.Tensor, cfg) -> torch.Tensor:
     x = frames.to(cfg.dtype)
     for lp in params.layers:
         if _remat(cfg, "train"):
-            x = checkpoint(_encoder_layer, lp, x, cfg, use_reentrant=False)
+            x = checkpoint(_under_rules(_encoder_layer), lp, x, cfg,
+                           use_reentrant=False)
         else:
             x = _encoder_layer(lp, x, cfg)
     return params.final_norm(x)
@@ -336,11 +361,16 @@ def lm_apply(model: Transformer, batch: dict, cfg, *, mode: str = "train",
     dt = cfg.dtype
     tokens = batch["tokens"]
     B = tokens.shape[0]
-    emb = shard(model.embed, "vocab", "embed")
-    # gather, then cast: the same values as casting the table first
-    x = emb[tokens.long()].to(dt)
-    if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    placed = is_placed(model.embed)
+    if placed:
+        _check_placeable(cfg, batch)
+        x = _placed_embed(model.embed, tokens, cfg)
+    else:
+        emb = shard(model.embed, "vocab", "embed")
+        # gather, then cast: the same values as casting the table first
+        x = emb[tokens.long()].to(dt)
+        if cfg.embed_scale:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
 
     if batch.get("patches") is not None:
         x = torch.cat([batch["patches"].to(dt), x], dim=1)
@@ -370,18 +400,77 @@ def lm_apply(model: Transformer, batch: dict, cfg, *, mode: str = "train",
         kw = dict(cfg=cfg, mode=mode, positions=positions,
                   cache=cache[i] if cache is not None else None,
                   cur_len=cur_len, enc_out=enc_out)
-        x, nc, aux = checkpoint(layer, x, use_reentrant=False, **kw) \
-            if remat else layer(x, **kw)
+        x, nc, aux = checkpoint(_under_rules(layer), x, use_reentrant=False,
+                                **kw) if remat else layer(x, **kw)
         new_cache.append(nc)
         if aux is not None:
             lb = lb + aux["lb_loss"]
             rz = rz + aux["router_z"]
 
     x = model.final_norm(x)
-    head = model.embed.T if cfg.tie_embeddings else model.lm_head
-    logits = x @ head.to(dt)
+    if placed:
+        logits = _placed_head(model, x, cfg)
+    else:
+        head = model.embed.T if cfg.tie_embeddings else model.lm_head
+        logits = x @ head.to(dt)
     if cfg.final_softcap:
         logits = softcap(logits.to(torch.float32), cfg.final_softcap)
     logits = shard(logits, "batch", None, "vocab")
     return (logits, new_cache if any(new_cache) else None,
             {"lb_loss": lb, "router_z": rz})
+
+
+def _check_placeable(cfg, batch: dict) -> None:
+    if cfg.moe_num_experts or cfg.is_encdec or cfg.max_position or \
+            cfg.family == "hybrid" or batch.get("patches") is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the placed path covers the dense and Mamba-2 "
+            f"families (MoE, the hybrid stack, whisper and llava come "
+            f"later)")
+
+
+def _placed_embed(embed, tokens, cfg):
+    """The vocab-sharded lookup on local shards: each model shard looks
+    up the tokens in its vocab slice and zeroes the rest, leaving a
+    partial sum over the model axis (GSPMD's masked gather)."""
+    mesh = embed.device_mesh
+    e_pl = logical_placements(mesh, embed.shape, "vocab", None)
+    t_pl = logical_placements(mesh, tokens.shape, "batch", None)
+    x_pl = logical_placements(mesh, (*tokens.shape, cfg.d_model),
+                              "batch", None, "embed")
+    sharded = model_sharded(e_pl, mesh)
+    r = mesh_rank(mesh, "model")
+    dt = cfg.dtype
+
+    def body(table, tok):
+        v_loc = table.shape[0]
+        idx = tok.long() - (r * v_loc if sharded else 0)
+        mine = (idx >= 0) & (idx < v_loc)
+        x = table[idx.clamp(0, v_loc - 1)].to(dt)
+        if sharded:
+            x = torch.where(mine[..., None], x, torch.zeros((), dtype=dt,
+                                                            device=x.device))
+        if cfg.embed_scale:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+        return x
+
+    return run_local(body, mesh, [(embed, e_pl), (tokens, t_pl)],
+                     partial_over_model(x_pl, mesh, sharded))
+
+
+def _placed_head(model, x, cfg):
+    """logits = x · head on local shards: the hidden state gathered over
+    the sequence, each model shard's vocab columns (GSPMD's program)."""
+    mesh = x.device_mesh
+    x_pl = logical_placements(mesh, x.shape, "batch", None, "embed")
+    tied = cfg.tie_embeddings
+    w = model.embed if tied else model.lm_head
+    w_pl = logical_placements(mesh, w.shape, *(("vocab", None) if tied
+                                               else (None, "vocab")))
+    out_pl = logical_placements(mesh, (*x.shape[:2], cfg.padded_vocab),
+                                "batch", None, "vocab")
+
+    def body(xl, wl):
+        return xl @ (wl.T if tied else wl).to(xl.dtype)
+
+    return run_local(body, mesh, [(x, x_pl), (w, w_pl)], out_pl)

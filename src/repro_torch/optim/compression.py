@@ -62,22 +62,29 @@ def compress_decompress(g: torch.Tensor, err: torch.Tensor):
     return deq, g32 - deq
 
 
-def compressed_psum(grads: Tree, state: CompressionState, group=None):
+def compressed_psum(grads: Tree, state: CompressionState, group=None, *,
+                    max_groups: list | None = None):
     """int8 error-feedback mean over the process ``group`` (None: the
     default group).
 
     Quantises locally with the scale every member shares (the all-reduced
     max), sums the codes widened to int32, dequantises and divides by the
     group's size, and keeps the local quantisation residual.
+    ``max_groups`` (one tuple of process groups per leaf of ``grads``, in
+    ``tree_leaves`` order) also reduces each leaf's max over its groups:
+    a leaf sharded over them then shares one scale, the whole leaf's.
     """
     import torch.distributed as dist
 
     n = float(dist.get_world_size(group))
+    extra = iter(max_groups) if max_groups is not None else None
 
     def one(g, err):
         g32 = g.to(torch.float32) + err
         amax = torch.max(torch.abs(g32)).reshape(1)
         dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        for grp in (next(extra) if extra is not None else ()):
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=grp)
         scale = torch.clamp(amax[0], min=1e-12) / 127.0
         q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
         deq_local = q.to(torch.float32) * scale

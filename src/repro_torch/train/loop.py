@@ -11,7 +11,9 @@ the operational concerns:
     crash between steps resumes bit-identically from the last checkpoint.
 
 A step's wall time ends when the card has finished it: the loop
-synchronises the loss's device where the reference blocks on it.
+synchronises the loss's device where the reference blocks on it.  Under a
+process group every rank steps and checkpoints; only rank 0 calls the
+metrics hook (the logging).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["StragglerDetector", "TrainLoop"]
 
@@ -58,6 +61,11 @@ def _block_until_ready(x: torch.Tensor) -> None:
         torch.cuda.synchronize(x.device)
 
 
+def _logs() -> bool:
+    """Whether this process logs: rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 class TrainLoop:
     def __init__(self, train_step, state, *, ckpt_manager=None,
                  ckpt_every: int = 100, detector: StragglerDetector | None = None,
@@ -89,7 +97,7 @@ class TrainLoop:
             rec = {k: float(v) for k, v in metrics.items()}
             rec.update(step=step, wall_s=dt, straggler=slow)
             self.history.append(rec)
-            if self.metrics_hook:
+            if self.metrics_hook and _logs():
                 self.metrics_hook(rec)
 
             if self.ckpt is not None and step % self.ckpt_every == 0:

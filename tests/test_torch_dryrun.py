@@ -16,6 +16,18 @@ JAX package's, on the CPU.
 * ``python -m repro_torch.launch.dryrun`` writes records with the JAX
   dry-run's keys, touching no device, and ``launch.recost`` reproduces
   their cost fields exactly from the archived op logs.
+* The per-device figures of production cells (qwen3-4b train_4k and
+  decode_32k on 16×16, llama3-8b prefill_32k, mamba2-1.3b prefill_32k and
+  decode_32k), each counted as rank 0 of the placed program under a
+  ``fake`` process group, against JAX's dry-run of the same cell (same
+  subprocess): flops within ±5%; argument, output and alias bytes exact;
+  collective bytes non-zero where the model axis is wider than one; peak
+  within ±25% of JAX's peak less the f32 copies XLA:CPU makes of whole
+  bf16 arguments before the step (the host-device compile runs bf16 dots
+  in f32: every one of its ENTRY-level ``convert`` fusions of a parameter
+  to f32, e.g. the stacked K/V cache's 2 × 1.51 GB in qwen3-4b's
+  decode_32k, a copy the card's program does not make).  Each port cell
+  runs in its own process, all at once.
 """
 
 import dataclasses
@@ -141,7 +153,7 @@ def test_num_microbatches_match_jax(arch):
 # ---- production meshes and per-device argument bytes, against JAX ----------
 
 JAX_CODE = """
-import json, os, sys
+import json, os, re, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
 import jax, jax.numpy as jnp
 from repro import configs as jcfg
@@ -154,6 +166,7 @@ from repro.launch.specs import (abstract_params, decode_state_spec,
     num_microbatches, train_inputs)
 from repro.serve.engine import ServeState, make_decode_step
 from repro.train.step import TrainSettings, init_state, make_train_step
+
 
 out = {}
 for mp in (False, True):
@@ -197,21 +210,69 @@ for arch in json.loads(sys.argv[2]):
                 args = (p, st)
             ma = fn.lower(*args).compile().memory_analysis()
             out[f"{arch}.{kind}"] = ma.argument_size_in_bytes
+from repro.launch.dryrun import run_cell
+for arch, shape in json.loads(sys.argv[3]):
+    hlo = sys.argv[1] + f".{arch}.{shape}.hlo"
+    rec = run_cell(arch, shape, False, save_hlo=hlo)
+    text = open(hlo).read()
+    sig = next(l for l in text.splitlines() if l.startswith("ENTRY"))
+    rec["entry_outputs"] = len(re.findall(
+        r"(?:bf16|f32|s32|u32|pred|s8|u8)\\[", sig.split("->")[1]))
+    out[f"cell.{arch}.{shape}"] = rec
 with open(sys.argv[1], "w") as f:
     json.dump(out, f)
 """
 
 
+# production cells held against the JAX dry-run (F-aj)
+CELLS = [("qwen3-4b", "train_4k"), ("qwen3-4b", "decode_32k"),
+         ("llama3-8b", "prefill_32k"), ("mamba2-1.3b", "prefill_32k"),
+         ("mamba2-1.3b", "decode_32k")]
+FLOPS_BAND, PEAK_BAND = 0.05, 0.25
+
+PORT_CELL = """
+import json, sys, warnings
+warnings.filterwarnings("ignore")
+from repro_torch.launch.dryrun import run_cell
+rec = run_cell(sys.argv[2], sys.argv[3], False)
+with open(sys.argv[1], "w") as f:
+    json.dump(rec, f)
+"""
+
+
 @pytest.fixture(scope="module")
 def jax_meshes(tmp_path_factory):
-    out = tmp_path_factory.mktemp("dryrun") / "jax.json"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    proc = subprocess.run(
-        [sys.executable, "-c", textwrap.dedent(JAX_CODE), str(out),
-         json.dumps(ARG_ARCHS)], env=env, capture_output=True, text=True,
-        timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return json.loads(out.read_text())
+    tmp = tmp_path_factory.mktemp("dryrun")
+    out = tmp / "jax.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1")
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(PORT_CELL),
+         str(tmp / f"port.{cell[0]}.{cell[1]}.json"), *cell], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cell in CELLS}
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", textwrap.dedent(JAX_CODE), str(out),
+             json.dumps(ARG_ARCHS), json.dumps(CELLS)], env=env,
+            capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        for p in procs.values():
+            _, err = p.communicate(timeout=600)
+            assert p.returncode == 0, err[-3000:]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    got = json.loads(out.read_text())
+    for arch, shape in CELLS:
+        got[f"port.{arch}.{shape}"] = json.loads(
+            (tmp / f"port.{arch}.{shape}.json").read_text())
+        got[f"cell.{arch}.{shape}"]["f32_argument_copies"] = \
+            dryrun.f32_argument_copies(
+                (tmp / f"jax.json.{arch}.{shape}.hlo").read_text())
+    return got
 
 
 @pytest.mark.parametrize("multi_pod", [False, True])
@@ -237,6 +298,40 @@ def test_argument_bytes_match_jax(jax_meshes, arch, kind):
             cfg, tcfg.ShapeConfig("t", 32, 8, kind), mesh, rules)
     assert arg_b == jax_meshes[f"{arch}.{kind}"]
     assert extra["batch_per_data_shard"] == 4
+
+
+# ---- F-aj: rank 0 of the placed program against the JAX dry-run ------------
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_rank0_figures_match_jax_dryrun(jax_meshes, arch, shape):
+    port = jax_meshes[f"port.{arch}.{shape}"]
+    jax_rec = jax_meshes[f"cell.{arch}.{shape}"]
+    pm, jm = port["memory"], jax_rec["memory"]
+    for k in ("argument_bytes", "alias_bytes"):
+        assert pm[k] == jm[k], k
+    # XLA's output size adds its output tuple's index table (8 bytes a
+    # leaf); the train step's "step" metric is a device scalar there and
+    # a Python number here; prefill's fresh cur_len (int32) and done
+    # (bool), constants, come out replicated there and batch-sharded here
+    extra = {"train": 4, "decode": 0, "prefill": (4 + 1) * (
+        port["batch_per_data_shard"] * (port["data_ways"] - 1))}
+    assert jm["output_bytes"] - pm["output_bytes"] == \
+        8 * jax_rec["entry_outputs"] + extra[tcfg.SHAPES[shape].kind]
+    # each rank's argument bytes are its placed shards' (the train
+    # state's two step counters count as int32 scalars)
+    assert pm["argument_bytes"] == port["input_bytes_eager"] + (
+        8 if shape.startswith("train") else 0)
+    flops = port["cost"]["flops_per_device"] / \
+        jax_rec["cost"]["flops_per_device"]
+    assert abs(flops - 1) <= FLOPS_BAND, flops
+    peak = pm["peak_bytes"] / (jm["peak_bytes"]
+                               - jax_rec["f32_argument_copies"])
+    assert abs(peak - 1) <= PEAK_BAND, peak
+    assert port["model_ways"] == 16 and port["devices"] == 256
+    coll = port["collectives_per_device"]
+    assert coll["total"] > 0 and sum(coll["counts"].values()) > 0
+    assert coll["total"] == sum(coll[k] for k in JAX_KINDS - {"total"})
+    assert "split" not in port
 
 
 # ---- the CLI and re-costing --------------------------------------------------
@@ -266,9 +361,12 @@ def test_dryrun_cli_records_and_recost(tmp_path, capsys):
         assert JAX_KEYS <= set(rec) and set(rec["memory"]) == JAX_MEMORY
         assert JAX_COST <= set(rec["cost"])
         coll = rec["collectives_per_device"]
-        assert JAX_KINDS <= set(coll) and "note" in coll
-        assert all(coll[k] is None for k in JAX_KINDS)
-        assert rec["devices"] == devices and rec["split"] == "even"
+        assert JAX_KINDS <= set(coll) and set(coll["counts"]) == \
+            JAX_KINDS - {"total"}
+        # rank 0's own collectives: the decode's q gather and its
+        # flash-decoding all-reduces over the kv_seq-sharded cache
+        assert coll["total"] > 0 and coll["counts"]["all-reduce"] > 0
+        assert rec["devices"] == devices and "split" not in rec
         assert rec["model_ways"] == 16
         m = rec["memory"]
         assert m["peak_bytes"] == m["argument_bytes"] + m["output_bytes"] \
@@ -288,9 +386,32 @@ def test_dryrun_cli_records_and_recost(tmp_path, capsys):
     for p in again.glob("*.json"):
         rec = json.loads(p.read_text())
         rec["cost"]["flops_per_device"] = rec["cost"]["bytes_per_device"] = 0
-        rec["cost"]["peak_bytes_data_shard"] = 0
+        rec["cost"]["peak_bytes_eager"] = 0
+        rec["collectives_per_device"] = None
         p.write_text(json.dumps(rec))
     recost.main(["--out", str(again), "--log", str(logs)])
     assert "2 cells recosted" in capsys.readouterr().out
     for tag, rec in recs.items():
         assert json.loads((again / f"{tag}.json").read_text()) == rec
+
+
+def test_dryrun_cli_drops_stale_records_and_fails_on_unplaced_families(
+        tmp_path, capsys):
+    """A record of the even split is removed and its cell rerun; a family
+    the placed path does not cover yet (whisper) writes no record, is
+    listed, and the CLI exits 1."""
+    out = tmp_path / "dryrun"
+    out.mkdir()
+    stale = out / "whisper-small.decode_32k.single.json"
+    stale.write_text(json.dumps({"split": "even"}))
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "whisper-small", "--shape", "decode_32k",
+                     "--mesh", "single", "--out", str(out),
+                     "--log-dir", str(tmp_path / "oplog")])
+    text = capsys.readouterr().out
+    assert e.value.code == 1
+    assert "STALE whisper-small.decode_32k.single" in text
+    assert "LATER whisper-small.decode_32k.single" in text
+    assert "1 cells not run" in text
+    assert "all requested cells ran" not in text
+    assert not stale.exists()

@@ -4,7 +4,9 @@
 hand counts (2·R·K); views free; an in-place op's operand counted once;
 ``peak_bytes`` of a scripted allocate / free sequence on ``meta``; the
 collective bytes of ``all_reduce`` (2× the tensor) and ``all_gather``
-(the gathered result) on a one-rank ``gloo`` group.
+(the gathered result) on a one-rank ``gloo`` group; on a two-rank
+``fake`` group, rank 0 of a column-parallel linear over DTensors counts
+its local product and the all-gather of its output shard.
 
 (2) Against the JAX package's ``hlo_cost``: the flops of the port's train
 step (all ten reduced archs) and of prefill and decode (qwen3, dbrx,
@@ -171,6 +173,31 @@ def test_collective_bytes_on_a_gloo_group(gloo_group):
         "c10d.allreduce_", "c10d.allgather_", "c10d._allgather_base_"]
     top = top_costs(log)["by_collective"]
     assert top[0]["op"] == "c10d.allreduce_" and top[0]["mult"] == 1
+
+
+def test_rank0_of_a_column_parallel_linear_on_a_fake_group():
+    """y = x · w with w's columns split over two ranks, then gathered:
+    rank 0 counts the (8, 16) × (16, 3) shard product, not the whole
+    (16, 6) one, and the all-gather's result bytes."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.dryrun import fake_group
+
+    with fake_group(2):
+        mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("model",))
+        x = DTensor.from_local(_m(8, 16), mesh, [Replicate()])
+        w = DTensor.from_local(_m(16, 3), mesh, [Shard(1)])
+        cost, log = op_cost(
+            lambda a, b: (a @ b).redistribute(mesh, [Replicate()]), x, w)
+    assert cost.flops == 2 * 8 * 3 * 16
+    # all-gather: max(result, operand) = the (8, 6) float32 result
+    assert cost.collectives["all-gather"] == 8 * 6 * 4
+    assert cost.collective_counts["all-gather"] == 1
+    assert cost.collective_total == 8 * 6 * 4
+    assert not any(e[0].startswith("aten.") and e[2] and
+                   e[2][0][0] == [16, 6] for e in log)
+    assert log[0][4] == (8 * 16 + 16 * 3) * 4     # the local shards
 
 
 # ---- (2) against the JAX package's hlo_cost --------------------------------
