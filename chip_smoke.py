@@ -2905,6 +2905,14 @@ LM_PART_LAYERS = 12
 LM_PART_TRAIN_STEPS = 4        # placed steps timed after the checked one
 # placed against unplaced: phase_lm's bf16 bound on the logits
 LM_PART_REL_MAX = 1e-2
+# the other families placed at their published widths, cut in depth:
+# jamba's first 5 layers hold 4 Mamba-2 layers, the attention layer at 4,
+# MoE at 1 and 3 (7.2 G float32 parameters, 28.6 GB); llava's step at 2
+# layers (2.1 G, with 4 × (2,880 patches + 256 tokens) in 2 microbatches)
+LM_PART_JAMBA_LAYERS = 5
+LM_PART_LLAVA_LAYERS = 2
+LM_PART_LLAVA_BATCH, LM_PART_LLAVA_TEXT = 4, 256
+LM_PART_PEAK_GB = 70.0
 
 
 def _free_port() -> int:
@@ -2940,8 +2948,10 @@ def _c10d_calls(run) -> tuple:
 def phase_lm_partition(dev, smi) -> dict:
     """qwen3-4b placed on a 1×1 mesh over a one-rank ``nccl`` group:
     ``generate`` at 36 × 2560 and a full-width train step of
-    ``LM_PART_LAYERS`` layers, each against the unplaced run of the same
-    seeds.  Launches none of K1-K6.  Every gate raises."""
+    ``LM_PART_LAYERS`` layers; then jamba (5 layers) and whisper-small
+    serving and a llava Adafactor train step, all at their published
+    widths; each against the unplaced run of the same seeds.  Launches
+    none of K1-K6.  Every gate raises."""
     import torch.distributed as dist
 
     gc.collect()
@@ -3028,6 +3038,12 @@ def _lm_partition(dev, smi) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     train = _lm_partition_train(dev, mesh)
+    jamba = _lm_partition_serve(dev, mesh, dataclasses.replace(
+        lm_configs.get_config("jamba-v0.1-52b"),
+        num_layers=LM_PART_JAMBA_LAYERS))
+    whisper = _lm_partition_serve(dev, mesh,
+                                  lm_configs.get_config("whisper-small"))
+    llava = _lm_partition_adafactor(dev, mesh)
     return {"card": smi, "arch": cfg.name, "mesh": [1, 1],
             "backend": "nccl", "requests": LM_REQUESTS,
             "prompt": LM_PROMPT, "gen": LM_GEN,
@@ -3035,7 +3051,184 @@ def _lm_partition(dev, smi) -> dict:
             "decode_step_ms": steps_ms,
             "unplaced_decode_ms_per_step": plain_ms,
             "decode_logits_rel_max": err, "serve_peak_gb": serve_peak,
-            "serve_c10d_calls": serve_calls, **train}
+            "serve_c10d_calls": serve_calls, **train,
+            "jamba_decode_ms": jamba["decode_ms_per_step"],
+            "whisper_decode_ms": whisper["decode_ms_per_step"],
+            "llava_adafactor_step_ms": llava["step_ms"],
+            "families_peak_gb": {"jamba": jamba["peak_gb"],
+                                 "whisper": whisper["peak_gb"],
+                                 "llava": llava["peak_gb"]},
+            "families_c10d_calls": {"jamba": jamba["c10d_calls"],
+                                    "whisper": whisper["c10d_calls"],
+                                    "llava": llava["c10d_calls"]},
+            "jamba": jamba, "whisper": whisper, "llava": llava}
+
+
+def _lm_partition_serve(dev, mesh, cfg) -> dict:
+    """``generate`` and the decode loop of ``cfg`` (``LM_REQUESTS``
+    prompts of ``LM_PROMPT`` tokens, ``LM_GEN`` generated; whisper's 1,500
+    frames from the seeded stand-in for its audio front end), unplaced,
+    then with the same model placed on ``mesh``.  Raises unless the
+    tokens are equal, the logits within ``LM_PART_REL_MAX`` and the
+    placed ``generate``'s peak under ``LM_PART_PEAK_GB``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = models.lm_init(cfg, generator=gen, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (LM_REQUESTS, LM_PROMPT), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    if cfg.is_encdec:
+        batch["frames"] = (0.5 * torch.randn(
+            (LM_REQUESTS, cfg.encoder_seq, cfg.d_model), generator=gen,
+            device=dev)).to(torch.bfloat16)
+    kw = dict(steps=LM_GEN, max_len=LM_MAX_LEN)
+    toks, _ = generate(model, batch, cfg, **kw)
+    plain = _lm_loop(model, cfg, batch, None)
+    plain_logits = [lg.float() for lg in plain["logits"]]
+    plain_toks = torch.stack([st.last_token for st in plain["states"][1:]],
+                             1)
+    del plain
+    plain_ms = _lm_loop(model, cfg, batch, None, keep=False)["step_ms"]
+    rules = make_rules(mesh, fsdp=False)
+    with use_rules(rules):
+        model = place(model, to_shardings(mesh, rules, param_specs(
+            cfg, model), model), mesh)
+        batch = place(batch, to_shardings(mesh, rules, batch_specs(batch),
+                                          batch), mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        p_toks, _ = generate(model, batch, cfg, **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        run = _lm_loop(model, cfg, batch, None)
+        ms = _lm_loop(model, cfg, batch, None, keep=False)["step_ms"]
+        _, calls = _c10d_calls(lambda: generate(model, batch, cfg, **kw))
+    run_toks = torch.stack([st.last_token.full_tensor()
+                            for st in run["states"][1:]], 1)
+    logits = [lg.full_tensor().float() for lg in run["logits"]]
+    err = max(_rel_max(lg, want) for lg, want in zip(logits, plain_logits))
+    same = torch.equal(p_toks, toks) and torch.equal(run_toks, plain_toks)
+    finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
+    log(f"[lm-partition] {cfg.name} ({cfg.num_layers} layers at full "
+        f"width) placed on a 1x1 mesh ({LM_REQUESTS} requests x prompt "
+        f"{LM_PROMPT}, {LM_GEN} generated): tokens "
+        f"{'equal' if same else 'DIFFER'} to the unplaced run; decode "
+        f"logits rel max |Δ| {err:.3e} (bound {LM_PART_REL_MAX}); decode "
+        f"{np.mean(ms):.3f} ms a step placed, {np.mean(plain_ms):.3f} "
+        f"unplaced (CUDA events, mean of {LM_GEN}); peak {peak:.2f} GB "
+        f"(bound {LM_PART_PEAK_GB}); collectives of one generate {calls}")
+    del model, batch, run, logits, plain_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not same or err > LM_PART_REL_MAX or not finite or \
+            peak > LM_PART_PEAK_GB:
+        raise AssertionError(f"{cfg.name} placed generate: same={same}, "
+                             f"err={err}, finite={finite}, peak={peak}")
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "decode_ms_per_step": float(np.mean(ms)), "decode_step_ms": ms,
+            "unplaced_decode_ms_per_step": float(np.mean(plain_ms)),
+            "decode_logits_rel_max": err, "peak_gb": peak,
+            "c10d_calls": calls}
+
+
+def _lm_partition_adafactor(dev, mesh) -> dict:
+    """One Adafactor train step of llava-next-34b at full width and
+    ``LM_PART_LLAVA_LAYERS`` layers (``LM_PART_LLAVA_BATCH`` sequences of
+    2,880 patch embeddings and ``LM_PART_LLAVA_TEXT`` tokens, two
+    microbatches, no warmup: the checked step runs at the full learning
+    rate), unplaced, then placed on ``mesh`` from the same seed; the two
+    runs in turn, their parameters compared on the host.  Raises unless
+    the loss agrees within ``LM_TRAIN_REL_MAX`` and every parameter's
+    placed-minus-unplaced difference is within ``LM_TRAIN_REL_MAX`` of
+    that step's own update ``|p_after - p_before|``."""
+    cfg = dataclasses.replace(lm_configs.get_config("llava-next-34b"),
+                              num_layers=LM_PART_LLAVA_LAYERS)
+    s = lmtrain.TrainSettings(learning_rate=LM_TRAIN_LR, warmup_steps=0,
+                              total_steps=LM_TRAIN_STEPS, num_microbatches=2)
+    rng = np.random.default_rng(SEED)
+    b, p, t = LM_PART_LLAVA_BATCH, cfg.num_patches, LM_PART_LLAVA_TEXT
+    toks = rng.integers(0, cfg.vocab_size, (b, p + t + 1)).astype(np.int32)
+    nb = {"tokens": toks[:, p:p + t], "labels": toks[:, 1:],
+          "patches": rng.normal(0, 0.5, (b, p, cfg.d_model)).astype(
+              np.float32)}
+    step = lmtrain.make_train_step(cfg, s)
+
+    def state():
+        return lmtrain.init_state(
+            torch.Generator(device=dev).manual_seed(SEED), cfg, s,
+            device=dev)
+
+    def host(m) -> dict:
+        return {n: x.full_tensor() if hasattr(x, "full_tensor") else x
+                for n, x in m.named_parameters()}
+
+    def timed(st):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        st, m = step(st, nb)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return st, m, ev[0].elapsed_time(ev[1])
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ref = state()
+    before = {n: x.detach().to("cpu", copy=True)
+              for n, x in host(ref.params).items()}
+    ref, rm, _ = timed(ref)
+    want = {n: x.detach().to("cpu", copy=True)
+            for n, x in host(ref.params).items()}
+    ref, _, plain_ms = timed(ref)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    rules = make_rules(mesh, fsdp=True)
+    with use_rules(rules):
+        st = state()
+        st = place(st, to_shardings(mesh, rules, train_state_specs(
+            cfg, cfg.optimizer, st), st), mesh)
+        st, pm, _ = timed(st)
+        err, worst, moved = 0.0, None, 0.0
+        for n, x in host(st.params).items():
+            upd = float((want[n] - before[n]).abs().max())
+            diff = float((x.detach().cpu() - want[n]).abs().max())
+            off = diff / upd if upd > 0 else (0.0 if diff == 0 else np.inf)
+            moved = max(moved, upd)
+            if off > err:
+                err, worst = off, n
+        del want, before
+        loss_err = abs(float(pm["loss"]) / float(rm["loss"]) - 1)
+        st, _, ms = timed(st)
+        box = [st]
+
+        def one():
+            box[0], mm = step(box[0], nb)
+            return float(mm["loss"])
+
+        _, calls = _c10d_calls(one)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[lm-partition] {cfg.name} Adafactor train step at full width, "
+        f"{cfg.num_layers} layers, {b} x ({p} patches + {t} tokens) in 2 "
+        f"microbatches at lr {LM_TRAIN_LR:g}, placed against unplaced: "
+        f"loss rel |Δ| {loss_err:.3e}; parameters' difference over their "
+        f"own update, max {err:.3e} (worst {worst}; bound "
+        f"{LM_TRAIN_REL_MAX}; largest update {moved:.3e}); step {ms:.3f} ms "
+        f"placed, {plain_ms:.3f} unplaced (CUDA events); peak {peak:.2f} "
+        f"GB (bound {LM_PART_PEAK_GB}); collectives of one step {calls}")
+    del st, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    if loss_err > LM_TRAIN_REL_MAX or err > LM_TRAIN_REL_MAX or \
+            not moved > 0 or peak > LM_PART_PEAK_GB:
+        raise AssertionError(f"llava placed Adafactor step: loss {loss_err}"
+                             f", params {err} ({worst}), moved {moved}, "
+                             f"peak {peak}")
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "loss_rel": loss_err, "params_over_update": err,
+            "max_update": moved, "step_ms": ms, "unplaced_step_ms": plain_ms,
+            "peak_gb": peak, "c10d_calls": calls}
 
 
 def _adamw_first_move(s, mu, nu, p) -> torch.Tensor:

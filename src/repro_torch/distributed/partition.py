@@ -21,9 +21,12 @@ Logical axes used (resolved to mesh axes by ``ShardingRules``):
 :func:`to_shardings` resolves logical axes to mesh axes, as the
 reference's does.  :func:`place` puts a tree (parameters, a train state,
 a cache, a batch) on a process mesh under them, as DTensors: what the
-reference's ``in_shardings`` do.  Without a process group nothing is
-placed and the one-process path runs (``distributed.sharding.shard`` then
-only checks names).
+reference's ``in_shardings`` do.  Every family's trees are placed so: MoE
+weights by expert, a hybrid stack's mixed attention and Mamba caches,
+whisper's cross caches and frames, llava's patches, and Adafactor's row
+and column moments on the dims of the parameter they keep.  Without a
+process group nothing is placed and the one-process path runs
+(``distributed.sharding.shard`` then only checks names).
 """
 
 from __future__ import annotations

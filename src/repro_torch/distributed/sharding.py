@@ -26,6 +26,8 @@ one-process behaviour: the names are checked and the tensor returned.
 shards (``torch.distributed.tensor.experimental.local_map``) with its
 collectives written out (:func:`all_reduce`, :func:`all_gather`), where
 DTensor has no rule or its rule would gather what GSPMD keeps sharded.
+Every LM family runs so; the MoE is expert-parallel through the same
+regions (all-reduces, no all-to-all, which ``gloo`` and ``fake`` lack).
 """
 
 from __future__ import annotations

@@ -33,7 +33,7 @@ Nothing touches a device: no allocation, no CUDA context.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun              # everything
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k --mesh single
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --compare-to results/dryrun --jax-hlo results/hlo
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --compare-to results/dryrun --jax-dumps results/xla
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ from .specs import (abstract_params, decode_state_spec, num_microbatches,
                     prefill_inputs, train_inputs)
 
 __all__ = ["build_cell", "run_cell", "shard_bytes", "fake_group", "compare",
-           "f32_argument_copies", "main"]
+           "f32_copies_at_peak", "main"]
 
 
 @contextlib.contextmanager
@@ -283,34 +283,155 @@ def _run_cell(arch, shape_name, multi_pod, *, save_log, log_dir,
     return cost_fields(rec, oc)
 
 
-def f32_argument_copies(hlo_text: str) -> int:
-    """Bytes of the f32 copies of whole arguments in a compiled XLA
-    program's text: its ENTRY computation's ``convert`` fusions of a
-    parameter to f32.  XLA:CPU, which compiles the JAX dry-run on host
-    devices, runs bf16 dots in f32 and hoists such copies of bf16 weights
-    and caches out of the step; a program on the card makes none."""
-    lines = hlo_text.splitlines()
-    at = next(i for i, line in enumerate(lines) if line.startswith("ENTRY"))
-    total = 0
+_INSTR = re.compile(r"\s*(?:ROOT )?%(\S+) = (\w+)\[[\d,]*\]\S* "
+                    r"([\w-]+)\((.*)")
+# ops that move or reshape values without computing new ones
+_MOVES = {"bitcast", "copy", "transpose", "reshape", "slice", "dynamic-slice",
+          "concatenate", "all-gather", "collective-permute", "broadcast"}
+
+
+def _hlo_instructions(hlo_text: str) -> tuple[dict, dict, dict]:
+    """Every instruction of a compiled XLA program's text as ``name ->
+    (dtype, opcode, operand names, called computation or parameter
+    index)``, each computation's instructions in order (its root last),
+    and each instruction's users."""
+    instrs, comps, users, comp = {}, {}, {}, None
+    for line in hlo_text.splitlines():
+        if line.startswith(("%", "ENTRY")) and line.rstrip().endswith("{"):
+            comp = line.split()[1 if line.startswith("ENTRY") else 0]
+            comps[comp.lstrip("%")] = []
+            continue
+        m = _INSTR.match(line)
+        if m is None or comp is None:
+            continue
+        name, dtype, op, rest = m.groups()
+        args = re.findall(r"%([\w.-]+)", rest.split(")", 1)[0])
+        called = re.search(r"calls=%([\w.-]+)", rest)
+        extra = called.group(1) if called else (
+            int(rest.split(")", 1)[0]) if op == "parameter" else None)
+        instrs[name] = (dtype, op, args, extra)
+        comps[comp.lstrip("%")].append(name)
+        for a in args:
+            users.setdefault(a, []).append(name)
+    return instrs, comps, users
+
+
+def _rounded_where_used(name: str, instrs: dict, comps: dict,
+                        users: dict) -> bool:
+    """Whether every use of ``name`` first rounds it to bf16: XLA:CPU ran
+    a bf16 op of the program in f32 (its float normalization) and keeps
+    the result in f32 until then."""
+    uses = users.get(name, [])
+    for u in uses:
+        dtype, op, args, called = instrs[u]
+        if op == "convert" and dtype == "bf16":
+            continue
+        if op != "fusion" or not comps.get(called):
+            return False
+        params = {instrs[n][3]: n for n in comps[called]
+                  if instrs[n][1] == "parameter"}
+        for i, a in enumerate(args):
+            inner = users.get(params.get(i), []) if a == name else [None]
+            if not inner or any(v is not None and not (
+                    instrs[v][1] == "convert" and instrs[v][0] == "bf16")
+                    for v in inner):
+                return False
+    return bool(uses)
+
+
+def _bf16_held_as_f32(name: str, instrs: dict, comps: dict, users: dict,
+                      seen: set | None = None) -> str | None:
+    """How an f32 value holds a bf16 value of the program, if it does:
+    "copy" (a convert of a bf16 value: an f32 copy the program does not
+    make) or "rounded" (XLA:CPU's float normalization keeps a bf16 value
+    in f32: between a convert to bf16 and back, a move of such a value,
+    or an op's f32 result that every use rounds to bf16); None
+    otherwise."""
+    seen = set() if seen is None else seen
+    if name in seen or name not in instrs:
+        return None
+    seen.add(name)
+    dtype, op, args, called = instrs[name]
+    if dtype != "f32" or op == "parameter":
+        return None
+    if op == "convert" and args and args[0] in instrs:
+        src = instrs[args[0]]
+        if src[0] == "bf16":
+            # f32 of a bf16 rounding is the program's bf16 value, of a
+            # bf16 buffer a copy of it
+            return "rounded" if src[1] == "convert" else "copy"
+    elif op == "fusion" and comps.get(called):
+        kind = _bf16_held_as_f32(comps[called][-1], instrs, comps, users,
+                                 seen)
+        if kind is not None:
+            return kind
+    elif op in _MOVES and args:
+        kinds = [_bf16_held_as_f32(a, instrs, comps, users, seen) for a in
+                 (args if op == "concatenate" else args[:1])]
+        if all(kinds):
+            return "rounded"
+    return "rounded" if _rounded_where_used(name, instrs, comps, users) \
+        else None
+
+
+def f32_copies_at_peak(hlo_text: str, assignment_text: str) -> int:
+    """Bytes a bf16 program would not hold at the peak of a compiled XLA
+    program: XLA:CPU, which compiles the JAX dry-run on host devices,
+    runs bf16 ops in f32, so it keeps bf16 values in f32 (its float
+    normalization's convert to bf16 and back) and makes f32 copies of bf16
+    ones.  Of the buffers its buffer assignment (``--xla_dump_to``'s
+    ``*buffer-assignment.txt``) lists live at the peak, a bf16 value held
+    in f32 counts half (it is bf16 there), an f32 copy of a bf16 buffer
+    whole where that buffer is live at the peak too (a card's or a TPU's
+    dot reads it itself), else half (the program would hold the bf16
+    buffer in its place)."""
+    instrs, comps, users = _hlo_instructions(hlo_text)
+    lines = assignment_text.splitlines()
+    at = next(i for i, line in enumerate(lines)
+              if re.match(r"\s*Live ranges at \d+ \(peak\):", line))
+    live = {}
     for line in lines[at + 1:]:
-        if line.startswith("}"):
+        m = re.match(r"\s+(\S+?)\{([\d,]*)\}: (\d+) bytes", line)
+        if m is None:
             break
-        m = re.match(r"\s*%\S*convert\S* = f32\[([0-9,]*)\]\S* "
-                     r"fusion\(%param\.\d+\)", line)
-        if m:
-            n = 4
-            for d in m.group(1).split(","):
-                n *= int(d) if d else 1
+        if not m.group(2):            # a tuple element is not classified
+            live[m.group(1)] = int(m.group(3))
+    total = 0
+    for name, n in live.items():
+        kind = _bf16_held_as_f32(name, instrs, comps, users)
+        if kind == "copy" and instrs[name][2][0] in live:
             total += n
+        elif kind is not None:
+            total += n // 2
     return total
 
 
-def compare(port_dir: str, jax_dir: str, hlo_dir: str | None = None) -> list:
+def _jax_dump(dump_dir: str, cell: str) -> tuple[str, str] | None:
+    """The HLO text and buffer assignment of a cell's step in an XLA dump
+    (``--xla_dump_to=<dump_dir>/<cell> --xla_dump_hlo_as_text``): the
+    largest program of the step's name, not the small ones around it."""
+    d = os.path.join(dump_dir, cell)
+    if not os.path.isdir(d):
+        return None
+    found = [os.path.join(d, n) for n in os.listdir(d)
+             if n.endswith("buffer-assignment.txt")
+             and re.search(r"jit_(train_step|prefill|decode_step)", n)]
+    if not found:
+        return None
+    ba = max(found, key=os.path.getsize)
+    with open(ba.replace("-buffer-assignment.txt", ".txt")) as f:
+        hlo = f.read()
+    with open(ba) as f:
+        return hlo, f.read()
+
+
+def compare(port_dir: str, jax_dir: str, dump_dir: str | None = None) -> list:
     """Port/JAX ratios of every cell both directories hold (the port's
     records and ``repro.launch.dryrun``'s, read as JSON): flops, peak,
     temporaries and argument bytes a device, and the collective totals.
-    With ``hlo_dir`` (the JAX dry-run's archived ``<cell>.hlo.gz``), also
-    the peak against JAX's peak less :func:`f32_argument_copies`."""
+    With ``dump_dir`` (XLA's dump of JAX's run of each cell, one
+    sub-directory a cell), also the peak against JAX's peak less
+    :func:`f32_copies_at_peak`."""
     rows = []
     for name in sorted(os.listdir(port_dir)):
         jpath = os.path.join(jax_dir, name)
@@ -338,14 +459,13 @@ def compare(port_dir: str, jax_dir: str, hlo_dir: str | None = None) -> list:
             "port_collective_gb": t["collectives_per_device"]["total"] / 1e9,
             "jax_collective_gb": (j["collectives_per_device"] or {}).get(
                 "total", 0) / 1e9})
-        hpath = hlo_dir and os.path.join(hlo_dir, name[:-5] + ".hlo.gz")
-        if hpath and os.path.exists(hpath):
-            with gzip.open(hpath, "rt") as f:
-                copies = f32_argument_copies(f.read())
+        dump = dump_dir and _jax_dump(dump_dir, name[:-5])
+        if dump:
+            copies = f32_copies_at_peak(*dump)
             rows[-1].update(
-                jax_f32_copies_gb=copies / 1e9,
-                peak_less_copies=ratio(t["memory"]["peak_bytes"],
-                                       j["memory"]["peak_bytes"] - copies))
+                jax_f32_at_peak_gb=copies / 1e9,
+                peak_less_f32=ratio(t["memory"]["peak_bytes"],
+                                    j["memory"]["peak_bytes"] - copies))
     return rows
 
 
@@ -365,13 +485,14 @@ def main(argv=None):
     ap.add_argument("--compare-to", default=None,
                     help="print the port/JAX ratios against this directory "
                          "of the JAX dry-run's records and exit")
-    ap.add_argument("--jax-hlo", default=None,
-                    help="with --compare-to: the JAX dry-run's archived HLO "
-                         "(its --hlo-dir), for the peak less XLA:CPU's f32 "
-                         "argument copies")
+    ap.add_argument("--jax-dumps", default=None,
+                    help="with --compare-to: XLA's dump of the JAX dry-run "
+                         "of each cell (a sub-directory a cell, named as "
+                         "its record), for the peak less what XLA:CPU "
+                         "holds in f32 of bf16 values at its peak")
     args = ap.parse_args(argv)
     if args.compare_to:
-        for r in compare(args.out, args.compare_to, args.jax_hlo):
+        for r in compare(args.out, args.compare_to, args.jax_dumps):
             print(json.dumps(r))
         return
 
@@ -410,7 +531,8 @@ def main(argv=None):
                           f"{rec['cost']['flops_per_device']:.3g} flops/dev, "
                           f"run {rec['run_s']}s", flush=True)
                 except NotImplementedError as e:
-                    # a family the placed path does not cover yet
+                    # a cell the placed path refuses: a guard, since every
+                    # family is placed
                     later.append(tag)
                     print(f"LATER {tag}: {e}", flush=True)
                 except Exception as e:  # noqa: BLE001 — report & continue
@@ -421,8 +543,8 @@ def main(argv=None):
         for t, e in failures:
             print(" ", t, e[:200])
     if later:
-        print(f"\n{len(later)} cells not run, their families not placed "
-              f"yet: {' '.join(later)}")
+        print(f"\n{len(later)} cells not run, the placed path refused "
+              f"them: {' '.join(later)}")
     if failures or later:
         sys.exit(1)
     print("\nall requested cells ran")

@@ -23,7 +23,10 @@ axis (the output a partial sum), the replicated kv heads computed on every
 model shard, the weights gathered over the data axis right before use.
 Decode over a ``kv_seq``-sharded cache is the flash-decoding split: each
 shard scores its slice of the cache against every query head, and the
-softmax's max and sum and the weighted values are all-reduced.
+softmax's max and sum and the weighted values are all-reduced.  Cross-
+attention (the whisper decoder) runs the same way with its keys and
+values from the encoder's output, cached at prefill and read at decode,
+and the encoder's bidirectional block with its heads on the model axis.
 """
 
 from __future__ import annotations
@@ -222,12 +225,11 @@ def attention(params: Attention, x: torch.Tensor, *, cfg, mode: str,
     dt = x.dtype
     cross = is_cross or kv_source is not None
     if is_placed(x):
-        if cross:
-            raise NotImplementedError(
-                "cross-attention (whisper) is not placed over a mesh yet")
         return _placed_attention(params, x, cfg=cfg, mode=mode, cache=cache,
                                  cur_len=cur_len, layer_window=layer_window,
-                                 rope_enabled=rope_enabled, q_chunk=q_chunk)
+                                 rope_enabled=rope_enabled and not cross,
+                                 q_chunk=q_chunk, kv_source=kv_source,
+                                 cross=cross)
 
     q = _proj(x, params.wq)
     if cross and mode == "decode":
@@ -335,10 +337,17 @@ def replicated_proj(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
 
 def _placed_attention(params: Attention, x, *, cfg, mode: str, cache,
                       cur_len, layer_window, rope_enabled: bool,
-                      q_chunk: int):
+                      q_chunk: int, kv_source=None, cross: bool = False,
+                      causal: bool = True):
     """The block on a placed ``x`` (B, Sq, D): see the module docstring.
     Returns (out (B, Sq, D) DTensor, new_cache | None); the prefill cache
-    comes back with its sequence on ``kv_seq``."""
+    comes back with its sequence on ``kv_seq``.
+
+    ``cross``: keys and values come from the placed ``kv_source`` (the
+    encoder's output, batch on the data axes) at prefill and from the
+    cache, read only, at decode; nothing is masked.  ``causal=False``: the
+    whisper encoder's bidirectional block."""
+    causal = causal and not cross
     mesh = x.device_mesh
     hp, kvp = cfg.padded_num_heads, _kv_heads(cfg)
     n_rep = hp // kvp
@@ -370,8 +379,8 @@ def _placed_attention(params: Attention, x, *, cfg, mode: str, cache,
         return replicated_proj(xl, w.reshape(d, h * k), mesh).reshape(
             *xl.shape[:-1], h, k)
 
-    def project(xl, wq, wk, wv, qn, kn, pos):
-        q, k, v = _proj(xl, wq), kv_proj(xl, wk), kv_proj(xl, wv)
+    def project(xl, src, wq, wk, wv, qn, kn, pos):
+        q, k, v = _proj(xl, wq), kv_proj(src, wk), kv_proj(src, wv)
         if qn is not None:
             q, k = rmsnorm(q, qn), rmsnorm(k, kn)
         if rope_enabled:
@@ -387,29 +396,34 @@ def _placed_attention(params: Attention, x, *, cfg, mode: str, cache,
         idx = (q0 + torch.arange(h_loc, device=t.device)) // n_rep - kv0
         return t.index_select(2, idx)
 
+    # the kv weights' gradient comes back summed over the model axis
+    # (replicated_proj); over the data axes it is partial
+    wk_in = (wk_pl,) if kv_loc < kvp else (
+        wk_pl, partial_where_replicated(wk_pl, mesh, summed=("model",)))
     if mode != "decode":
-        def body(xl, wq, wk, wv, wo, qn, kn):
+        src = kv_source if cross else x
+
+        def body(xl, sl, wq, wk, wv, wo, qn, kn):
             b, sq, _ = xl.shape
             pos = torch.arange(sq, dtype=torch.int32,
                                device=xl.device)[None].expand(b, sq)
-            q, k, v = project(xl, wq, wk, wv, qn, kn, pos)
+            q, k, v = project(xl, xl if sl is None else sl, wq, wk, wv, qn,
+                              kn, pos)
             o = _chunked_scores_attend(
                 q, kv_for_local_heads(k), kv_for_local_heads(v),
-                q_positions=pos, causal=True, window=layer_window,
+                q_positions=pos, causal=causal, window=layer_window,
                 cap=cfg.attn_softcap, kv_valid_len=None, q_chunk=q_chunk)
             return _out(o, wo), k, v
 
         kv_pl = logical_placements(
-            mesh, (*x.shape[:2], *params.wk.shape[1:]), "batch", None,
+            mesh, (*src.shape[:2], *params.wk.shape[1:]), "batch", None,
             kv_ax, None)
-        # the kv weights' gradient comes back summed over the model axis
-        # (replicated_proj); over the data axes it is partial
-        wk_in = (wk_pl,) if kv_loc < kvp else (
-            wk_pl, partial_where_replicated(wk_pl, mesh, summed=("model",)))
         out, k, v = run_local(
-            body, mesh, [(x, x_pl), (params.wq, wq_pl),
-                         (params.wk, *wk_in), (params.wv, *wk_in),
-                         (params.wo, wo_pl), *norms],
+            body, mesh, [(x, x_pl),
+                         (kv_source, lp(kv_source, "batch", None, "embed"))
+                         if cross else (None, None),
+                         (params.wq, wq_pl), (params.wk, *wk_in),
+                         (params.wv, *wk_in), (params.wo, wo_pl), *norms],
             (out_pl, kv_pl, kv_pl))
         new_cache = None
         if mode == "prefill":
@@ -423,32 +437,47 @@ def _placed_attention(params: Attention, x, *, cfg, mode: str, cache,
     c_pl = lp(cache.k, "batch", "kv_seq", None, None)
     seq_sh = model_sharded(c_pl, mesh)
     vec_pl = lp(cur_len, "batch")
+    s_glob = cache.k.shape[1]
 
     def body(xl, wq, wk, wv, wo, qn, kn, ck, cv, cur):
         b = xl.shape[0]
-        q, k_new, v_new = project(xl, wq, wk, wv, qn, kn, cur[:, None])
+        s_loc = ck.shape[1]
+        if cross:                   # the cache holds the encoder's K/V
+            q = _proj(xl, wq)
+        else:
+            q, k_new, v_new = project(xl, xl, wq, wk, wv, qn, kn,
+                                      cur[:, None])
+            if kv_loc < kvp:               # the cache holds every kv head
+                k_new = all_gather(k_new, mesh, "model", 2)
+                v_new = all_gather(v_new, mesh, "model", 2)
+            # this step's K/V at cur_len, written by the shard that holds it
+            slot = cur.long() - (r * s_loc if seq_sh else 0)
+            mine = (slot >= 0) & (slot < s_loc)
+            slot = slot.clamp(0, s_loc - 1)
+            bidx = torch.arange(b, device=xl.device)
+            keep = mine[:, None, None]
+            ck = ck.index_put((bidx, slot), torch.where(
+                keep, k_new[:, 0].to(ck.dtype), ck[bidx, slot]))
+            cv = cv.index_put((bidx, slot), torch.where(
+                keep, v_new[:, 0].to(cv.dtype), cv[bidx, slot]))
+        valid = torch.full_like(cur, s_glob) if cross else cur + 1
+        kf, vf = ck.to(q.dtype), cv.to(q.dtype)
+        if not seq_sh and heads_sh and h_loc % n_rep == 0:
+            # the whole cache here: the shard's own heads against their
+            # kv heads
+            k0, nk = q0 // n_rep, h_loc // n_rep
+            o = _gqa_decode_attend(
+                q, kf[:, :, k0:k0 + nk], vf[:, :, k0:k0 + nk], n_rep=n_rep,
+                q_positions=cur[:, None], window=layer_window,
+                cap=cfg.attn_softcap, kv_valid_len=valid, causal=causal)
+            return _out(o, wo), ck, cv
         if heads_sh:
             q = all_gather(q, mesh, "model", 2)
-        if kv_loc < kvp:                   # the cache holds every kv head
-            k_new = all_gather(k_new, mesh, "model", 2)
-            v_new = all_gather(v_new, mesh, "model", 2)
-        # this step's K/V at cur_len, written by the shard that holds it
-        s_loc = ck.shape[1]
-        slot = cur.long() - (r * s_loc if seq_sh else 0)
-        mine = (slot >= 0) & (slot < s_loc)
-        slot = slot.clamp(0, s_loc - 1)
-        bidx = torch.arange(b, device=xl.device)
-        keep = mine[:, None, None]
-        ck = ck.index_put((bidx, slot), torch.where(
-            keep, k_new[:, 0].to(ck.dtype), ck[bidx, slot]))
-        cv = cv.index_put((bidx, slot), torch.where(
-            keep, v_new[:, 0].to(cv.dtype), cv[bidx, slot]))
-        kf, vf = ck.to(q.dtype), cv.to(q.dtype)
         if not seq_sh:
             o = _gqa_decode_attend(
                 q, kf, vf, n_rep=n_rep, q_positions=cur[:, None],
                 window=layer_window, cap=cfg.attn_softcap,
-                kv_valid_len=cur + 1)
+                kv_valid_len=valid, causal=causal)
         else:
             kvh = kf.shape[2]
             qg = q.reshape(b, kvh, n_rep, cfg.head_dim)
@@ -458,8 +487,8 @@ def _placed_attention(params: Attention, x, *, cfg, mode: str, cache,
                 sc = softcap(sc, cfg.attn_softcap)
             kpos = r * s_loc + torch.arange(s_loc, dtype=torch.int32,
                                             device=xl.device)
-            mask = _mask(kpos, cur[:, None], causal=True,
-                         window=layer_window, kv_valid_len=cur + 1)
+            mask = _mask(kpos, cur[:, None], causal=causal,
+                         window=layer_window, kv_valid_len=valid)
             sc = torch.where(mask, sc, -1e30)
             m = all_reduce(torch.amax(sc, dim=-1, keepdim=True), mesh,
                            "model", "max")
@@ -470,17 +499,26 @@ def _placed_attention(params: Attention, x, *, cfg, mode: str, cache,
             o = o.reshape(b, 1, hp, cfg.head_dim).to(q.dtype)
         return _out(o[:, :, q0:q0 + h_loc], wo), ck, cv
 
+    kv_w = [(None, None), (None, None)] if cross else \
+        [(params.wk, wk_pl), (params.wv, wk_pl)]
     out, k, v = run_local(
-        body, mesh, [(x, x_pl), (params.wq, wq_pl), (params.wk, wk_pl),
-                     (params.wv, wk_pl), (params.wo, wo_pl), *norms,
+        body, mesh, [(x, x_pl), (params.wq, wq_pl), *kv_w,
+                     (params.wo, wo_pl), *norms,
                      (cache.k, c_pl), (cache.v, c_pl), (cur_len, vec_pl)],
         (out_pl, c_pl, c_pl))
-    return out, AttnCache(k=k, v=v)
+    # the cross cache is read only: the step returns the one it was given
+    return out, cache if cross else AttnCache(k=k, v=v)
 
 
 def encoder_attention(params: Attention, x: torch.Tensor, *, cfg,
                       q_chunk: int = 1024) -> torch.Tensor:
-    """Bidirectional self-attention (whisper encoder)."""
+    """Bidirectional self-attention (whisper encoder).  On a placed ``x``
+    its heads run on the model axis, as the decoder's do."""
+    if is_placed(x):
+        return _placed_attention(params, x, cfg=cfg, mode="train",
+                                 cache=None, cur_len=None, layer_window=None,
+                                 rope_enabled=False, q_chunk=q_chunk,
+                                 causal=False)[0]
     n_rep = cfg.padded_num_heads // _kv_heads(cfg)
     b, s, _ = x.shape
     pos = torch.arange(s, dtype=torch.int32, device=x.device)[None] \

@@ -14,6 +14,15 @@ Overflow tokens beyond capacity are dropped (the residual stream carries
 them).  The group is ``min(moe_group, S)`` tokens, so decode routes groups
 of one token and prefill groups of up to ``moe_group``: capacity drops can
 differ between the two, as in the JAX package.
+
+Placed over a mesh, the MoE is expert-parallel without an all-to-all:
+with the groups on the data axes and the tokens replicated over the model
+axis (the sequence gathered before the FFN), each model shard routes every
+token of its data shard, keeps the dispatch and combine columns of its
+own experts, and runs them; the output is a partial sum over the model
+axis.  The auxiliary losses come from the replicated routing: the
+load-balance loss's two expert means are all-reduced over the data axes
+(it is a product of means), the z-loss is a plain mean.
 """
 
 from __future__ import annotations
@@ -22,9 +31,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import (is_placed, logical_placements,
-                                    model_sharded, partial_over_model,
-                                    run_local, shard)
+from ..distributed.sharding import (all_reduce, is_placed,
+                                    logical_placements, mesh_rank,
+                                    mesh_ways, model_sharded,
+                                    partial_over_model,
+                                    partial_where_replicated, run_local,
+                                    shard)
 from .layers import activation_fn, dense_init
 
 __all__ = ["ffn_params", "ffn_apply", "moe_params", "moe_apply", "is_gated",
@@ -130,24 +142,40 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg, *, group_size: int = 1024):
     """x: (B, S, D) -> (B, S, D), plus aux losses dict.
 
     Returns (y, aux) where aux = {"lb_loss": load-balance loss (Switch),
-    "router_z": router z-loss} — added to the training objective.
+    "router_z": router z-loss} — added to the training objective.  On a
+    placed ``x`` the aux values are this rank's share (see
+    :func:`_placed_moe`).
     """
     if is_placed(x):
-        raise NotImplementedError(
-            "MoE expert parallelism is not placed over a mesh yet")
-    dt = x.dtype
+        return _placed_moe(params, x, cfg, group_size=group_size)
     b, s, d = x.shape
-    e, k = cfg.moe_num_experts, cfg.moe_top_k
-    tokens = b * s
     sg = min(group_size, s)
-    if tokens % sg:
-        raise ValueError(f"{tokens} tokens do not split into groups of {sg}")
-    g = tokens // sg
+    if (b * s) % sg:
+        raise ValueError(f"{b * s} tokens do not split into groups of {sg}")
+    xg = shard(x.reshape(b * s // sg, sg, d), "batch", None, None)
+    logits, probs, top_e, dispatch, combine = _route(xg, params.router, cfg)
+    dispatch = shard(dispatch, "batch", None, "experts", None)
+    combine = shard(combine, "batch", None, "experts", None)
+    y = _experts(xg, dispatch, combine, params.w1, params.w2, params.w3,
+                 cfg).reshape(b, s, d)
+    e = cfg.moe_num_experts
+    me = torch.mean(probs, dim=(0, 1))                          # (E,)
+    ce = torch.mean(_routed_fraction(top_e, e, sg), dim=0)      # fraction routed
+    lb = e * torch.sum(me * ce)
+    zl = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return y, {"lb_loss": lb, "router_z": zl}
+
+
+def _route(xg: torch.Tensor, router: torch.Tensor, cfg):
+    """Top-k routing of the groups ``xg`` (G, Sg, D): the router logits
+    and probabilities (G, Sg, E), the top-k experts (G, Sg, k), and the
+    dispatch / combine tensors (G, Sg, E, C)."""
+    dt = xg.dtype
+    g, sg, _ = xg.shape
+    e, k = cfg.moe_num_experts, cfg.moe_top_k
     c = _capacity(sg, k, e, cfg.moe_capacity_factor)
 
-    xg = shard(x.reshape(g, sg, d), "batch", None, None)
-
-    logits = xg.to(torch.float32) @ params.router.to(torch.float32)
+    logits = xg.to(torch.float32) @ router.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)                       # (G,Sg,E)
 
     # top-k choice per token
@@ -164,34 +192,123 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg, *, group_size: int = 1024):
     keep = pos < c                                              # capacity drop
 
     # dispatch/combine tensors (G,Sg,E,C); a dropped choice's one-hot row
-    # is all zeros (jax.nn.one_hot of an index past C)
-    pos_oh = F.one_hot(torch.where(keep, pos, 0).long(), c).to(dt)
-    disp_k = choice_eh.to(dt)[..., None] * pos_oh[..., None, :] \
-        * keep[..., None, None].to(dt)                          # (G,Sg,k,E,C)
-    dispatch = torch.sum(disp_k, dim=2)                         # (G,Sg,E,C)
-    combine = torch.sum(disp_k * top_p[..., None, None].to(dt), dim=2)
+    # is all zeros (jax.nn.one_hot of an index past C).  Summed one choice
+    # at a time: a token's choices go to distinct experts, so each slot
+    # gets at most one term (the sum is exact in any order) and no
+    # (G,Sg,k,E,C) product is held
+    pos_oh = F.one_hot(torch.where(keep, pos, 0).long(), c).to(dt) \
+        * keep[..., None].to(dt)                                # (G,Sg,k,C)
+    eh = choice_eh.to(dt)
+    dispatch = torch.zeros((g, sg, e, c), dtype=dt, device=xg.device)
+    combine = torch.zeros_like(dispatch)
+    for j in range(k):
+        term = eh[:, :, j, :, None] * pos_oh[:, :, j, None, :]
+        dispatch = dispatch + term
+        combine = combine + term * top_p[:, :, j, None, None].to(dt)
+    return logits, probs, top_e, dispatch, combine
 
-    dispatch = shard(dispatch, "batch", None, "experts", None)
-    combine = shard(combine, "batch", None, "experts", None)
 
+def _routed_fraction(top_e: torch.Tensor, e: int, sg: int) -> torch.Tensor:
+    """(G, E): the share of each group's tokens whose first choice is
+    each expert."""
+    return torch.sum(F.one_hot(top_e[..., 0], e).to(torch.float32),
+                     dim=-2) / sg
+
+
+def _experts(xg, dispatch, combine, w1, w2, w3, cfg):
+    """The experts of ``dispatch``'s columns on their capacity slots, and
+    the results combined back onto the tokens: (G, Sg, D)."""
+    dt = xg.dtype
     ein = torch.einsum("gsec,gsd->egcd", dispatch, xg)          # (E,G,C,D)
     ein = shard(ein, "experts", "batch", None, None)
 
     act = activation_fn(cfg.activation)
-    h = act(torch.einsum("egcd,edf->egcf", ein, params.w1.to(dt)))
-    if params.w3 is not None:
-        h = h * torch.einsum("egcd,edf->egcf", ein, params.w3.to(dt))
+    h = act(torch.einsum("egcd,edf->egcf", ein, w1.to(dt)))
+    if w3 is not None:
+        h = h * torch.einsum("egcd,edf->egcf", ein, w3.to(dt))
     h = shard(h, "experts", "batch", None, None)
-    out_e = torch.einsum("egcf,efd->egcd", h, params.w2.to(dt))
+    out_e = torch.einsum("egcf,efd->egcd", h, w2.to(dt))
     out_e = shard(out_e, "experts", "batch", None, None)
+    return torch.einsum("gsec,egcd->gsd", combine, out_e)       # back to tokens
 
-    y = torch.einsum("gsec,egcd->gsd", combine, out_e)          # back to tokens
-    y = y.reshape(b, s, d)
 
-    # Switch-style load-balance loss + router z-loss
-    me = torch.mean(probs, dim=(0, 1))                          # (E,)
-    ce = torch.mean(torch.sum(F.one_hot(top_e[..., 0], e).to(torch.float32),
-                              dim=-2) / sg, dim=0)              # fraction routed
-    lb = e * torch.sum(me * ce)
-    zl = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    return y, {"lb_loss": lb, "router_z": zl}
+class _GradScale(torch.autograd.Function):
+    """Identity forward; the gradient times ``factor``."""
+
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
+
+
+def _placed_moe(params: MoE, x, cfg, *, group_size: int):
+    """Expert parallelism on local shards (see the module docstring).
+
+    Each rank routes its data shard's groups and runs the experts it
+    holds (their weights gathered over the data axis right before use);
+    ``y`` is a partial sum over the model axis where the experts divide
+    it, else every model shard runs them all.  The auxiliary losses are
+    returned as plain tensors, this rank's share: summed over the data
+    axes, as the train step sums its loss, they are the global values.
+    Every model shard computes them alike, so each takes 1/tp of their
+    gradient and the partial sums over the model axis add to one."""
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    lp = lambda t, *ax: logical_placements(mesh, t.shape, *ax)  # noqa: E731
+    b, s, d = x.shape
+    sg = min(group_size, s)
+    if s % sg:
+        raise ValueError(f"a placed MoE groups within a sequence: {s} "
+                         f"tokens do not split into groups of {sg}")
+    g_all = b * s // sg
+    e = cfg.moe_num_experts
+    x_pl = lp(x, "batch", None, "embed")
+    w_pl = lp(params.w1, "experts", None, None)
+    w2_pl = lp(params.w2, "experts", None, None)
+    r_pl = lp(params.router, None, None)
+    ep = model_sharded(w_pl, mesh)
+    tp = mesh_ways(mesh, "model")
+    r = mesh_rank(mesh, "model")
+    e_loc = e // tp if ep else e
+    e0 = r * e_loc if ep else 0
+    # the mesh dims the batch is split over, read from x's placement
+    data = [n for n, p in zip(mesh.mesh_dim_names, x_pl)
+            if isinstance(p, Shard) and p.dim == 0]
+    summed = () if ep else ("model",)
+    grad_scale = 1.0 / tp if ep else 1.0
+
+    def grad_pl(pl):
+        return partial_where_replicated(pl, mesh, summed=summed)
+
+    def body(xl, router, w1, w2, w3):
+        bl = xl.shape[0]
+        xg = xl.reshape(bl * s // sg, sg, d)
+        logits, probs, top_e, dispatch, combine = _route(xg, router, cfg)
+        cols = slice(e0, e0 + e_loc)
+        y = _experts(xg, dispatch[:, :, cols], combine[:, :, cols], w1, w2,
+                     w3, cfg).reshape(bl, s, d)
+        # the load-balance loss's means over every group of the batch
+        me = torch.sum(probs, dim=(0, 1))
+        ce = torch.sum(_routed_fraction(top_e, e, sg), dim=0)
+        for name in data:
+            me = all_reduce(me, mesh, name, grad="sum")
+            ce = all_reduce(ce, mesh, name)
+        share = xg.shape[0] / g_all
+        lb = e * torch.sum((me / (g_all * sg)) * (ce / g_all)) * share
+        zl = torch.sum(torch.logsumexp(logits, dim=-1) ** 2) / (g_all * sg)
+        return (y, _GradScale.apply(lb, grad_scale),
+                _GradScale.apply(zl, grad_scale))
+
+    y, lb, zl = run_local(
+        body, mesh,
+        [(x, x_pl, grad_pl(x_pl)), (params.router, r_pl, grad_pl(r_pl)),
+         (params.w1, w_pl, grad_pl(w_pl)), (params.w2, w2_pl, grad_pl(w2_pl)),
+         (params.w3, w_pl if params.w3 is not None else None)
+         + ((grad_pl(w_pl),) if params.w3 is not None else ())],
+        (partial_over_model(x_pl, mesh, ep), None, None))
+    return y, {"lb_loss": lb.to_local(), "router_z": zl.to_local()}

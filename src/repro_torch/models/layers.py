@@ -17,22 +17,37 @@ __all__ = [
 ]
 
 
+def _recorded(*ts: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``ts`` (then a norm keeps its
+    float32 intermediates for the backward)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
-    x32 = x.to(torch.float32)
+    serving = not _recorded(x, scale)
+    # serving scales its own float32 copy in place: one copy held, not three
+    x32 = x.to(torch.float32, copy=serving)
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
-    out = x32 * torch.rsqrt(var + eps)
     # gemma-style (1+scale); configs store scale-1 so zero-init is identity
+    if serving:
+        return x32.mul_(torch.rsqrt(var + eps)).mul_(
+            1.0 + scale.to(torch.float32)).to(dt)
+    out = x32 * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.to(torch.float32))).to(dt)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
-    x32 = x.to(torch.float32)
+    serving = not _recorded(x, scale, bias)
+    x32 = x.to(torch.float32, copy=serving)
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    if serving:
+        return x32.sub_(mu).mul_(torch.rsqrt(var + eps)).mul_(scale) \
+            .add_(bias).to(dt)
     out = (x32 - mu) * torch.rsqrt(var + eps)
     return (out * scale + bias).to(dt)
 

@@ -21,9 +21,10 @@ each block does.
 A model placed over a process mesh (``distributed.partition.place``: its
 parameters DTensors) runs the same loop on DTensors: the annotations
 redistribute the residual stream, and each block, the vocab-sharded
-embedding and the head run on local shards (their modules say how).  The
-placed path covers the dense and Mamba-2 families; MoE, the hybrid stack
-and the whisper / llava front ends raise.
+embedding and the head run on local shards (their modules say how).  Every
+family is placed: dense, MoE (expert-parallel), Mamba-2, the hybrid
+stack, whisper's encoder and cross-attention with its learned positions,
+and llava's patch embeddings, which join the text on the batch placement.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ from ..device import resolve_device
 from ..distributed.sharding import (current_rules, is_placed,
                                     logical_placements, mesh_rank,
                                     model_sharded, partial_over_model,
-                                    run_local, shard, use_rules)
+                                    partial_where_replicated, run_local,
+                                    shard, use_rules)
 from . import attention as attn_mod
 from . import ffn as ffn_mod
 from . import mamba as mamba_mod
@@ -216,7 +218,7 @@ class Layer(nn.Module):
                 kv_source=enc_out, is_cross=True, rope_enabled=False)
             if cc_new is not None:
                 new_cache["cross"] = cc_new
-            x = x + a
+            x = x + shard(a, "batch", "seq_act", "embed")
 
         if spec.ffn is not None:
             h = shard(self.ln2(x), "batch", None, "embed")
@@ -277,8 +279,10 @@ class Encoder(nn.Module):
 
 
 def _encoder_layer(lp: EncoderLayer, x: torch.Tensor, cfg) -> torch.Tensor:
-    x = x + attn_mod.encoder_attention(lp.attn, lp.ln1(x), cfg=cfg)
-    return x + ffn_mod.ffn_apply(lp.mlp, lp.ln2(x), cfg)
+    a = attn_mod.encoder_attention(lp.attn, lp.ln1(x), cfg=cfg)
+    x = x + shard(a, "batch", None, "embed")
+    f = ffn_mod.ffn_apply(lp.mlp, lp.ln2(x), cfg)
+    return x + shard(f, "batch", None, "embed")
 
 
 def _encode(params: Encoder, frames: torch.Tensor, cfg) -> torch.Tensor:
@@ -363,8 +367,10 @@ def lm_apply(model: Transformer, batch: dict, cfg, *, mode: str = "train",
     B = tokens.shape[0]
     placed = is_placed(model.embed)
     if placed:
-        _check_placeable(cfg, batch)
         x = _placed_embed(model.embed, tokens, cfg)
+        if cfg.max_position or batch.get("patches") is not None:
+            # the lookup's partial sum reduced before anything joins it
+            x = shard(x, "batch", None, "embed")
     else:
         emb = shard(model.embed, "vocab", "embed")
         # gather, then cast: the same values as casting the table first
@@ -383,7 +389,10 @@ def lm_apply(model: Transformer, batch: dict, cfg, *, mode: str = "train",
     else:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S)
-    if cfg.max_position:
+    if cfg.max_position and placed:
+        x = x + _placed_pos_embed(model.pos_embed, x, cfg, mode=mode,
+                                  cur_len=cur_len)
+    elif cfg.max_position:
         pe = model.pos_embed[positions.clamp(0, cfg.max_position - 1).long()]
         x = x + pe.to(dt)
 
@@ -418,15 +427,6 @@ def lm_apply(model: Transformer, batch: dict, cfg, *, mode: str = "train",
     logits = shard(logits, "batch", None, "vocab")
     return (logits, new_cache if any(new_cache) else None,
             {"lb_loss": lb, "router_z": rz})
-
-
-def _check_placeable(cfg, batch: dict) -> None:
-    if cfg.moe_num_experts or cfg.is_encdec or cfg.max_position or \
-            cfg.family == "hybrid" or batch.get("patches") is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the placed path covers the dense and Mamba-2 "
-            f"families (MoE, the hybrid stack, whisper and llava come "
-            f"later)")
 
 
 def _placed_embed(embed, tokens, cfg):
@@ -474,3 +474,37 @@ def _placed_head(model, x, cfg):
         return xl @ (wl.T if tied else wl).to(xl.dtype)
 
     return run_local(body, mesh, [(x, x_pl), (w, w_pl)], out_pl)
+
+
+def _placed_pos_embed(table, x, cfg, *, mode: str, cur_len):
+    """The learned positions of ``x``'s tokens on local shards: the table
+    (max_position, D), FSDP-sharded, gathered right before the lookup;
+    each rank looks up its batch rows' positions.  Every model shard holds
+    the whole gradient of the rows it looked up, so the table's gradient
+    is summed over the data axes only."""
+    from torch.distributed.tensor import Shard
+
+    mesh = table.device_mesh
+    t_pl = logical_placements(mesh, table.shape, None, None)
+    x_pl = logical_placements(mesh, x.shape, "batch", None, "embed")
+    s = x.shape[1]
+    dt = cfg.dtype
+    ins = [(table, t_pl, partial_where_replicated(t_pl, mesh,
+                                                  summed=("model",)))]
+    if mode == "decode":
+        ins.append((cur_len, logical_placements(mesh, cur_len.shape,
+                                                "batch")))
+    else:
+        ins.append((None, None))
+
+    rows = x.shape[0]
+    for i, p in enumerate(x_pl):
+        if isinstance(p, Shard):
+            rows //= mesh.size(i)
+
+    def body(tab, cur):
+        pos = cur[:, None] if cur is not None else torch.arange(
+            s, dtype=torch.int32, device=tab.device)[None].expand(rows, s)
+        return tab[pos.clamp(0, cfg.max_position - 1).long()].to(dt)
+
+    return run_local(body, mesh, ins, x_pl)

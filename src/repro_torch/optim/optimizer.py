@@ -232,6 +232,15 @@ def adafactor(schedule, decay: float = 0.8, eps: float = 1e-30,
     ``update`` call: the whole stack when the tree is updated at once (the
     reference with ``stream_optimizer=False``), one layer when the train
     step streams the update a layer at a time (its default).
+
+    ``update(..., layout=...)`` takes local shards of placed leaves:
+    ``layout`` maps a leaf's name to ``(mesh, placements, global shape)``
+    of its parameter (the moments are placed as the parameter's dims they
+    keep).  A row or column mean along a sharded dim is the local sum
+    all-reduced over the mesh dims that shard it, over the global length;
+    the RMS clip sums each leaf's local squares all-reduced over the dims
+    it is sharded on (a replicated leaf counted once) over the global
+    element count.
     """
     stack_of = stacks or (lambda name: None)
 
@@ -263,28 +272,32 @@ def adafactor(schedule, decay: float = 0.8, eps: float = 1e-30,
         return AdafactorState(0, tree_map(lambda _: next(ivr), params),
                               tree_map(lambda _: next(ivc), params))
 
-    def update(grads, state, params):
+    def update(grads, state, params, *, layout=None):
         step = state.step + 1
         lr = schedule(state.step)
         # beta2 ramps toward 1 (Shazeer-Stern schedule), in float32
         beta2 = _f32(1) - _f32(step) ** _f32(-decay)
         b2, omb = float(beta2), float(_f32(1) - beta2)
+        layout = layout or {}
+        mesh = next((lay[0] for lay in layout.values()), None)
 
         outs = []
         for (name, p), g, vr, vc in zip(tree_items(params),
                                         tree_leaves(grads),
                                         tree_leaves(state.vr),
                                         tree_leaves(state.vc)):
+            lay = layout.get(name)
             g = g.to(torch.float32)
             g2 = torch.square(g) + eps
             # factored-ness is read from the state's shape, which init
             # decided on the stacked shape
             if vr.dim() < p.dim():
-                new_vr = b2 * vr + omb * torch.mean(g2, dim=-1)
-                new_vc = b2 * vc + omb * torch.mean(g2, dim=-2)
+                nd = p.dim()
+                new_vr = b2 * vr + omb * _mean(g2, -1, nd - 1, lay)
+                new_vc = b2 * vc + omb * _mean(g2, -2, nd - 2, lay)
                 # rank-1 reconstruction of the preconditioner
                 r = new_vr / torch.clamp(
-                    torch.mean(new_vr, dim=-1, keepdim=True), min=eps)
+                    _mean(new_vr, -1, nd - 2, lay, keepdim=True), min=eps)
                 u = g / (_sqrt32(r)[..., None]
                          * _sqrt32(new_vc)[..., None, :] + eps)
             else:
@@ -293,14 +306,25 @@ def adafactor(schedule, decay: float = 0.8, eps: float = 1e-30,
                 u = g / (_sqrt32(new_vr) + eps)
             st = stack_of(name)
             outs.append((name if st is None else st[0], u, new_vr, new_vc,
-                         p))
+                         p, lay))
 
-        # update clipping by RMS, over each key's leaves in this call
+        # update clipping by RMS, over each key's leaves in this call: the
+        # squares summed per key and per set of sharded mesh dims
         sq, n = {}, {}
-        for key, u, *_ in outs:
-            sq[key] = sq.get(key, 0) + torch.sum(torch.square(u))
-            n[key] = n.get(key, 0) + u.numel()
-        rms = {k: _sqrt32(sq[k] / n[k] + eps) for k in sq}
+        for key, u, _, _, p, lay in outs:
+            dims = _sharded_dims(lay)
+            sq.setdefault(key, {})
+            sq[key][dims] = sq[key].get(dims, 0) + torch.sum(torch.square(u))
+            n[key] = n.get(key, 0) + (math.prod(lay[2]) if lay else
+                                      u.numel())
+        rms = {}
+        for key, parts in sq.items():
+            total = 0
+            for dims, v in parts.items():
+                for i in dims:
+                    v = _all_reduce(v, mesh, i)
+                total = total + v
+            rms[key] = _sqrt32(total / n[key] + eps)
 
         def finish(key, u, p):
             u = u / torch.clamp(rms[key] / clip_threshold, min=1.0)
@@ -308,7 +332,7 @@ def adafactor(schedule, decay: float = 0.8, eps: float = 1e-30,
                 u = u + weight_decay * p.to(torch.float32)
             return -lr * u
 
-        ups = iter([finish(k, u, p) for k, u, _, _, p in outs])
+        ups = iter([finish(k, u, p) for k, u, _, _, p, _ in outs])
         vrs = iter([o[2] for o in outs])
         vcs = iter([o[3] for o in outs])
         return (tree_map(lambda _: next(ups), params),
@@ -316,3 +340,35 @@ def adafactor(schedule, decay: float = 0.8, eps: float = 1e-30,
                                tree_map(lambda _: next(vcs), params)))
 
     return Optimizer(init, update, elementwise=False)
+
+
+def _sharded_dims(lay) -> tuple:
+    """The mesh dims a placed leaf is sharded over (none unplaced)."""
+    if lay is None:
+        return ()
+    from torch.distributed.tensor import Shard
+
+    return tuple(i for i, p in enumerate(lay[1]) if isinstance(p, Shard))
+
+
+def _all_reduce(t: torch.Tensor, mesh, i: int) -> torch.Tensor:
+    from ..distributed.sharding import all_reduce
+
+    return all_reduce(t, mesh, mesh.mesh_dim_names[i])
+
+
+def _mean(t: torch.Tensor, dim: int, pdim: int, lay, *,
+          keepdim: bool = False) -> torch.Tensor:
+    """``t.mean(dim)`` of a leaf whose ``dim`` is its parameter's dim
+    ``pdim``; on a local shard (``lay`` given), the local sum all-reduced
+    over the mesh dims that shard ``pdim``, over its global length."""
+    if lay is None:
+        return torch.mean(t, dim=dim, keepdim=keepdim)
+    from torch.distributed.tensor import Shard
+
+    mesh, pl, shape = lay
+    out = torch.sum(t, dim=dim, keepdim=keepdim)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == pdim:
+            out = _all_reduce(out, mesh, i)
+    return out / shape[pdim]

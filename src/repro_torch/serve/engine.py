@@ -105,8 +105,11 @@ def _full_like(vec: torch.Tensor, value, dtype) -> torch.Tensor:
 
 
 def _keep_done(new: list, old: list, done: torch.Tensor) -> list:
-    """Each cache leaf of ``new``, with ``old``'s rows where ``done``."""
+    """Each cache leaf of ``new``, with ``old``'s rows where ``done``; a
+    leaf the step left as it was (the cross-attention cache) is kept."""
     def pick(n, o):
+        if n is o:
+            return n
         return torch.where(done.reshape((-1,) + (1,) * (n.dim() - 1)), o, n)
     return [{part: type(c)(*(pick(n, o) for n, o in zip(c, o_entry[part])))
              for part, c in n_entry.items()}

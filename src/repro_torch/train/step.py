@@ -29,10 +29,11 @@ shadow is cast shard-local and each layer's weights are gathered over the
 data axis right before use (so the FSDP all-gather moves bf16), each
 gradient is reduce-scattered into its ZeRO shard on the way back, the
 cross-entropy is vocab-parallel, and the global norm and the streamed
-update run on local shards.  With ``int8_ef`` and a "pod" mesh dim, the
+update run on local shards (Adafactor's row and column means and its RMS
+clip all-reduced across them).  With ``int8_ef`` and a "pod" mesh dim, the
 reduction over pods is left out of the backward and done by the int8
 error-feedback mean.  Every rank feeds the same global batch; each keeps
-its data shard's rows.
+its data shard's rows of each microbatch.
 """
 
 from __future__ import annotations
@@ -141,7 +142,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
     On placed logits (vocab on the model axis) the CE is vocab-parallel
     (:class:`_VocabParallelCE`) and returns this rank's share of the two
-    means: summed over the data ranks they are the global means.
+    means: summed over the data ranks they are the global means.  Where
+    the vocab is not split, each rank takes this CE of its rows.
     """
     if is_placed(logits):
         return _placed_cross_entropy(logits, labels, vocab_size)
@@ -163,23 +165,21 @@ class _VocabParallelCE(torch.autograd.Function):
     ``softmax - onehot`` and needs no collective."""
 
     @staticmethod
-    def forward(ctx, x, labels, v0, vocab, mesh, split):
+    def forward(ctx, x, labels, v0, vocab, mesh):
         x = x.to(torch.float32)
         v_loc = x.shape[-1]
         col = v0 + torch.arange(v_loc, device=x.device)
         x = torch.where(col < vocab, x, -1e30)
-        m = torch.amax(x, dim=-1, keepdim=True)
-        if split:
-            m = all_reduce(m, mesh, "model", "max")
+        m = all_reduce(torch.amax(x, dim=-1, keepdim=True), mesh, "model",
+                       "max")
         e = torch.exp(x - m)
         den = e.sum(dim=-1, keepdim=True)
         idx = labels.long() - v0
         mine = (idx >= 0) & (idx < v_loc)
         lab = torch.where(mine, torch.gather(
             x, -1, idx.clamp(0, v_loc - 1)[..., None])[..., 0], 0.0)
-        if split:
-            den = all_reduce(den, mesh, "model")
-            lab = all_reduce(lab, mesh, "model")
+        den = all_reduce(den, mesh, "model")
+        lab = all_reduce(lab, mesh, "model")
         lse = torch.log(den[..., 0]) + m[..., 0]
         ctx.save_for_backward(e, den, idx, mine)
         acc = (lab >= m[..., 0]).to(torch.float32)
@@ -193,21 +193,23 @@ class _VocabParallelCE(torch.autograd.Function):
         hot = torch.zeros_like(grad).scatter_(
             -1, idx.clamp(0, grad.shape[-1] - 1)[..., None],
             mine[..., None].to(grad.dtype))
-        return (grad - hot) * g[..., None], None, None, None, None, None
+        return (grad - hot) * g[..., None], None, None, None, None
 
 
 def _placed_cross_entropy(logits, labels, vocab_size: int):
     mesh = logits.device_mesh
     l_pl = logical_placements(mesh, logits.shape, "batch", None, "vocab")
     y_pl = logical_placements(mesh, labels.shape, "batch", None)
-    split = model_sharded(l_pl, mesh)
-    v0 = mesh_rank(mesh, "model") * (logits.shape[-1]
-                                     // mesh_ways(mesh, "model")) \
-        if split else 0
     count = float(labels.numel())
     x = logits.redistribute(mesh, l_pl).to_local()
     y = labels.redistribute(mesh, y_pl).to_local()
-    nll, acc = _VocabParallelCE.apply(x, y, v0, vocab_size, mesh, split)
+    if not model_sharded(l_pl, mesh):   # the whole vocab: the plain CE
+        share = y.numel() / count
+        ce, acc = cross_entropy(x, y, vocab_size)
+        return ce * share, acc * share
+    v0 = mesh_rank(mesh, "model") * (logits.shape[-1]
+                                     // mesh_ways(mesh, "model"))
+    nll, acc = _VocabParallelCE.apply(x, y, v0, vocab_size, mesh)
     return nll.sum() / count, acc.sum() / count
 
 
@@ -240,7 +242,7 @@ def _rows(t: torch.Tensor) -> list[slice]:
 
 @torch.no_grad()
 def streamed_update(opt, grads: dict, opt_state, params: dict,
-                    grad_scale=None):
+                    grad_scale=None, layout: dict | None = None):
     """Optimizer update leaf by leaf, in place: ``params`` (name →
     parameter) and the state's trees are written back slice by slice, and
     each gradient is popped from ``grads`` once used.
@@ -250,7 +252,9 @@ def streamed_update(opt, grads: dict, opt_state, params: dict,
     in row slices; Adafactor takes each decoder layer's leaf alone (the
     reference's per-block slice) and every other leaf in one call (the
     reference's non-block rest, so the whisper encoder's stacked leaves
-    share their RMS clip).  The step counter advances once.
+    share their RMS clip).  The step counter advances once.  ``layout``
+    (name → mesh, placements and global shape of a placed leaf whose local
+    shard is given) goes to Adafactor, whose means and clip span shards.
     """
     fields = opt_state._asdict()
     scalars = {k: v for k, v in fields.items() if isinstance(v, int)}
@@ -277,7 +281,8 @@ def streamed_update(opt, grads: dict, opt_state, params: dict,
         state = type(opt_state)(**scalars, **{k: part(fields[k])
                                               for k in trees})
         p = part(params)
-        upd, new_state = opt.update(g, state, p)
+        upd, new_state = opt.update(g, state, p) if opt.elementwise or \
+            not layout else opt.update(g, state, p, layout=layout)
         new_p = opt_mod.apply_updates(p, upd)
         for n, _ in call:
             p[n].copy_(new_p[n])
@@ -379,28 +384,27 @@ def make_train_step(cfg, s: TrainSettings, *, apply_fn=None,
     def train_step(state: TrainState, batch: Tree):
         model = state.params
         placed = is_placed(model.embed)
-        if placed and not (s.stream_optimizer and opt.elementwise):
-            # Adafactor's factored moments need cross-shard row and
-            # column means, and the whole-tree update is not placed
-            raise NotImplementedError(
-                "a placed state is updated streamed (stream_optimizer) by "
-                "an element-wise optimizer, not Adafactor")
+        if placed and not s.stream_optimizer:
+            raise ValueError(
+                "a placed state is updated streamed (stream_optimizer): "
+                "the whole-tree update is not placed")
+        nm = s.num_microbatches
         if placed:
             mesh = model.embed.device_mesh
-            batch = _place_batch(batch, mesh)
+            if nm > 1 and not any(is_placed(v) for v in batch.values()):
+                # the global rows split as the reference splits them,
+                # then placed: a microbatch's nonlinear terms (the MoE
+                # load-balance loss) see the same rows
+                micro = [_place_batch(mb, mesh) for mb in
+                         _split_rows(batch, nm)]
+            else:
+                micro = _split_placed(_place_batch(batch, mesh), nm)
         else:
             dev = model.embed.device
-            batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        nm = s.num_microbatches
+            micro = _split_rows({k: torch.as_tensor(v).to(dev)
+                                 for k, v in batch.items()}, nm)
         compute = model if not s.cast_params else \
             _shadow(model, getattr(torch, s.cast_params))
-        if nm == 1:
-            micro = [batch]
-        elif placed:
-            micro = _split_placed(batch, nm)
-        else:
-            micro = [{k: v.reshape((nm, v.shape[0] // nm) + v.shape[1:])[i]
-                      for k, v in batch.items()} for i in range(nm)]
         comp_pod = placed and s.grad_compression == "int8_ef" and \
             "pod" in mesh.mesh_dim_names
         with _deferring(("pod",) if comp_pod else ()):
@@ -437,7 +441,8 @@ def make_train_step(cfg, s: TrainSettings, *, apply_fn=None,
                     opt, grads, type(state.opt_state)(**{
                         k: v if isinstance(v, int) else _local(v)
                         for k, v in fields.items()}),
-                    _local(params), grad_scale=scale)
+                    _local(params), grad_scale=scale,
+                    layout=_layout(params))
             opt_state = type(state.opt_state)(**{
                 k: getattr(new, k) if isinstance(v, int) else v
                 for k, v in fields.items()})
@@ -478,12 +483,26 @@ def _place_batch(batch: dict, mesh) -> dict:
     return out
 
 
+def _split_rows(batch: dict, nm: int) -> list:
+    """``nm`` microbatches of the global rows, as the reference splits
+    them (microbatch k: rows k·B/nm to (k+1)·B/nm)."""
+    if nm == 1:
+        return [batch]
+    return [{k: torch.as_tensor(v).reshape(
+        (nm, v.shape[0] // nm) + tuple(v.shape[1:]))[i]
+        for k, v in batch.items()} for i in range(nm)]
+
+
 def _split_placed(batch: dict, nm: int) -> list:
-    """``nm`` microbatches of a placed batch, each rank's rows split in
-    ``nm`` (microbatch k: every rank's k-th slice).  The gradient and the
-    mean metrics equal the reference's split of the global rows."""
+    """``nm`` microbatches of a batch given placed, each rank's rows split
+    in ``nm`` (microbatch k: every rank's k-th slice), so no row moves.
+    The gradient and the mean metrics of a loss linear in the rows equal
+    the reference's split of the global rows; the MoE load-balance loss,
+    a product of two means over a microbatch, sees other rows."""
     from torch.distributed.tensor import DTensor
 
+    if nm == 1:
+        return [batch]
     out = []
     for i in range(nm):
         mb = {}
@@ -559,6 +578,12 @@ def _data_sum(t: torch.Tensor, mesh) -> torch.Tensor:
         if name in mesh.mesh_dim_names:
             t = all_reduce(t.detach(), mesh, name)
     return t
+
+
+def _layout(params: dict) -> dict:
+    """Each placed parameter's mesh, placements and global shape."""
+    return {n: (p.device_mesh, tuple(p.placements), tuple(p.shape))
+            for n, p in params.items() if is_placed(p)}
 
 
 def _local(tree: dict) -> dict:

@@ -16,18 +16,22 @@ JAX package's, on the CPU.
 * ``python -m repro_torch.launch.dryrun`` writes records with the JAX
   dry-run's keys, touching no device, and ``launch.recost`` reproduces
   their cost fields exactly from the archived op logs.
-* The per-device figures of production cells (qwen3-4b train_4k and
-  decode_32k on 16×16, llama3-8b prefill_32k, mamba2-1.3b prefill_32k and
-  decode_32k), each counted as rank 0 of the placed program under a
-  ``fake`` process group, against JAX's dry-run of the same cell (same
-  subprocess): flops within ±5%; argument, output and alias bytes exact;
-  collective bytes non-zero where the model axis is wider than one; peak
-  within ±25% of JAX's peak less the f32 copies XLA:CPU makes of whole
-  bf16 arguments before the step (the host-device compile runs bf16 dots
-  in f32: every one of its ENTRY-level ``convert`` fusions of a parameter
-  to f32, e.g. the stacked K/V cache's 2 × 1.51 GB in qwen3-4b's
-  decode_32k, a copy the card's program does not make).  Each port cell
-  runs in its own process, all at once.
+* The per-device figures of eleven production cells (qwen3-4b train_4k
+  on 16×16 and 2×16×16 and decode_32k, llama3-8b prefill_32k,
+  mamba2-1.3b train_4k, prefill_32k and decode_32k, dbrx-132b
+  decode_32k, jamba-v0.1-52b prefill_32k, whisper-small prefill_32k,
+  llava-next-34b train_4k), each counted as rank 0 of the placed program
+  under a ``fake`` process group, against JAX's dry-run of the same cell:
+  flops within ±5% (whisper's against JAX's less the K/V projections its
+  replicated ``kv`` axis repeats on every model shard, a term counted
+  from the config, which equals the difference exactly); argument,
+  output and alias bytes exact; collective bytes non-zero and no
+  all-to-all; peak within ±25% of JAX's peak less what XLA:CPU, which
+  runs bf16 dots in f32, holds in f32 of bf16 values at its peak
+  (``dryrun.f32_copies_at_peak``, read from the buffer assignment XLA
+  dumps: a bf16 value kept in f32 counts half, an f32 copy of a live bf16
+  buffer whole; e.g. whisper's f32 logits at the head, 0.87 GB).  The
+  JAX compiles run in two processes, the port cells in four.
 """
 
 import dataclasses
@@ -153,8 +157,11 @@ def test_num_microbatches_match_jax(arch):
 # ---- production meshes and per-device argument bytes, against JAX ----------
 
 JAX_CODE = """
-import json, os, re, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
+import glob, json, os, re, sys
+os.environ["XLA_FLAGS"] = (
+    "--xla_force_host_platform_device_count=512 --xla_dump_hlo_as_text "
+    f"--xla_dump_to={sys.argv[4]} "
+    "--xla_dump_hlo_module_re=.*(train_step|prefill|decode_step).*")
 import jax, jax.numpy as jnp
 from repro import configs as jcfg
 from repro.distributed.partition import (batch_specs, cache_specs,
@@ -211,68 +218,123 @@ for arch in json.loads(sys.argv[2]):
             ma = fn.lower(*args).compile().memory_analysis()
             out[f"{arch}.{kind}"] = ma.argument_size_in_bytes
 from repro.launch.dryrun import run_cell
-for arch, shape in json.loads(sys.argv[3]):
-    hlo = sys.argv[1] + f".{arch}.{shape}.hlo"
-    rec = run_cell(arch, shape, False, save_hlo=hlo)
+
+
+def assignments():
+    return set(glob.glob(os.path.join(sys.argv[4],
+                                      "*buffer-assignment.txt")))
+
+
+for arch, shape, multi in json.loads(sys.argv[3]):
+    tag = f"{arch}.{shape}.{'multi' if multi else 'single'}"
+    hlo = sys.argv[1] + f".{tag}.hlo"
+    before = assignments()
+    rec = run_cell(arch, shape, multi, save_hlo=hlo)
+    # this cell's step (the dump also holds the small programs JAX
+    # compiles around it)
+    rec["buffer_assignment"] = max(assignments() - before,
+                                   key=os.path.getsize)
     text = open(hlo).read()
     sig = next(l for l in text.splitlines() if l.startswith("ENTRY"))
     rec["entry_outputs"] = len(re.findall(
         r"(?:bf16|f32|s32|u32|pred|s8|u8)\\[", sig.split("->")[1]))
-    out[f"cell.{arch}.{shape}"] = rec
+    out[f"cell.{tag}"] = rec
 with open(sys.argv[1], "w") as f:
     json.dump(out, f)
 """
 
 
-# production cells held against the JAX dry-run (F-aj)
-CELLS = [("qwen3-4b", "train_4k"), ("qwen3-4b", "decode_32k"),
-         ("llama3-8b", "prefill_32k"), ("mamba2-1.3b", "prefill_32k"),
-         ("mamba2-1.3b", "decode_32k")]
+# production cells held against the JAX dry-run (F-aj): (arch, shape,
+# multi-pod), each listed with the cells run in the same port process
+CELLS = [("qwen3-4b", "train_4k", False), ("qwen3-4b", "decode_32k", False),
+         ("llama3-8b", "prefill_32k", False),
+         ("mamba2-1.3b", "prefill_32k", False),
+         ("mamba2-1.3b", "decode_32k", False),
+         ("dbrx-132b", "decode_32k", False),
+         ("jamba-v0.1-52b", "prefill_32k", False),
+         ("whisper-small", "prefill_32k", False),
+         ("llava-next-34b", "train_4k", False),
+         ("qwen3-4b", "train_4k", True), ("mamba2-1.3b", "train_4k", False)]
+PORT_GROUPS = [[8], [0, 9], [10, 5, 4, 3], [6, 7, 2, 1]]
 FLOPS_BAND, PEAK_BAND = 0.05, 0.25
 
 PORT_CELL = """
 import json, sys, warnings
 warnings.filterwarnings("ignore")
 from repro_torch.launch.dryrun import run_cell
-rec = run_cell(sys.argv[2], sys.argv[3], False)
+out = {}
+for arch, shape, multi in json.loads(sys.argv[2]):
+    out[f"{arch}.{shape}.{'multi' if multi else 'single'}"] = run_cell(
+        arch, shape, multi)
 with open(sys.argv[1], "w") as f:
-    json.dump(rec, f)
+    json.dump(out, f)
 """
+
+
+def _tag(arch, shape, multi) -> str:
+    return f"{arch}.{shape}.{'multi' if multi else 'single'}"
 
 
 @pytest.fixture(scope="module")
 def jax_meshes(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dryrun")
-    out = tmp / "jax.json"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                OMP_NUM_THREADS="1")
-    procs = {cell: subprocess.Popen(
+    ports = [subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(PORT_CELL),
-         str(tmp / f"port.{cell[0]}.{cell[1]}.json"), *cell], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for cell in CELLS}
+         str(tmp / f"port{i}.json"), json.dumps([CELLS[c] for c in group])],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i, group in enumerate(PORT_GROUPS)]
+    # the JAX compiles split over two processes, each with its own dump
+    half = len(CELLS) // 2
+    jaxes = [subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(JAX_CODE),
+         str(tmp / f"jax{i}.json"), json.dumps(args), json.dumps(cells),
+         str(tmp / f"dump{i}")], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for i, (args, cells) in enumerate([(ARG_ARCHS, CELLS[:half]),
+                                           ((), CELLS[half:])])]
     try:
-        proc = subprocess.run(
-            [sys.executable, "-c", textwrap.dedent(JAX_CODE), str(out),
-             json.dumps(ARG_ARCHS), json.dumps(CELLS)], env=env,
-            capture_output=True, text=True, timeout=600)
-        assert proc.returncode == 0, proc.stderr[-3000:]
-        for p in procs.values():
+        for p in jaxes + ports:
             _, err = p.communicate(timeout=600)
             assert p.returncode == 0, err[-3000:]
     finally:
-        for p in procs.values():
+        for p in jaxes + ports:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    got = json.loads(out.read_text())
-    for arch, shape in CELLS:
-        got[f"port.{arch}.{shape}"] = json.loads(
-            (tmp / f"port.{arch}.{shape}.json").read_text())
-        got[f"cell.{arch}.{shape}"]["f32_argument_copies"] = \
-            dryrun.f32_argument_copies(
-                (tmp / f"jax.json.{arch}.{shape}.hlo").read_text())
+    got = {}
+    for i in range(2):
+        got.update(json.loads((tmp / f"jax{i}.json").read_text()))
+    for i in range(len(PORT_GROUPS)):
+        got.update({f"port.{k}": v for k, v in json.loads(
+            (tmp / f"port{i}.json").read_text()).items()})
+    for cell in CELLS:
+        rec = got[f"cell.{_tag(*cell)}"]
+        hlo = Path(str(tmp / "jax0.json") + f".{_tag(*cell)}.hlo")
+        if not hlo.exists():
+            hlo = Path(str(tmp / "jax1.json") + f".{_tag(*cell)}.hlo")
+        rec["f32_copies_at_peak"] = dryrun.f32_copies_at_peak(
+            hlo.read_text(), Path(rec["buffer_assignment"]).read_text())
     return got
+
+
+def _jax_replicated_kv_flops(arch: str, shape: str, rec: dict) -> float:
+    """Flops JAX's program spends on a decoder's K/V projections beyond
+    one model shard's: its ``kv`` axis is replicated, so with every kv
+    head kept (MHA, the heads padded together: whisper) GSPMD computes
+    the self- and cross-attention K/V of all the heads on every model
+    shard, where the port splits them over the heads as it splits q.
+    2·tokens·D·(KVp·hd) a projection, two a layer and attention, for the
+    data shard's prompt tokens and encoder frames, less its 1/tp."""
+    cfg = tcfg.get_config(arch)
+    if cfg.num_kv_heads != cfg.num_heads or not cfg.is_encdec:
+        return 0.0
+    b = rec["batch_per_data_shard"]
+    rows = b * tcfg.SHAPES[shape].seq_len + b * cfg.encoder_seq
+    per = 2 * rows * cfg.d_model * cfg.padded_num_heads * cfg.head_dim
+    tp = rec["model_ways"]
+    return 2 * cfg.num_layers * per * (tp - 1) / tp
 
 
 @pytest.mark.parametrize("multi_pod", [False, True])
@@ -302,10 +364,10 @@ def test_argument_bytes_match_jax(jax_meshes, arch, kind):
 
 # ---- F-aj: rank 0 of the placed program against the JAX dry-run ------------
 
-@pytest.mark.parametrize("arch,shape", CELLS)
-def test_rank0_figures_match_jax_dryrun(jax_meshes, arch, shape):
-    port = jax_meshes[f"port.{arch}.{shape}"]
-    jax_rec = jax_meshes[f"cell.{arch}.{shape}"]
+@pytest.mark.parametrize("arch,shape,multi", CELLS)
+def test_rank0_figures_match_jax_dryrun(jax_meshes, arch, shape, multi):
+    port = jax_meshes[f"port.{_tag(arch, shape, multi)}"]
+    jax_rec = jax_meshes[f"cell.{_tag(arch, shape, multi)}"]
     pm, jm = port["memory"], jax_rec["memory"]
     for k in ("argument_bytes", "alias_bytes"):
         assert pm[k] == jm[k], k
@@ -321,17 +383,31 @@ def test_rank0_figures_match_jax_dryrun(jax_meshes, arch, shape):
     # state's two step counters count as int32 scalars)
     assert pm["argument_bytes"] == port["input_bytes_eager"] + (
         8 if shape.startswith("train") else 0)
-    flops = port["cost"]["flops_per_device"] / \
+    flops = port["cost"]["flops_per_device"] / (
         jax_rec["cost"]["flops_per_device"]
+        - _jax_replicated_kv_flops(arch, shape, port))
     assert abs(flops - 1) <= FLOPS_BAND, flops
     peak = pm["peak_bytes"] / (jm["peak_bytes"]
-                               - jax_rec["f32_argument_copies"])
+                               - jax_rec["f32_copies_at_peak"])
     assert abs(peak - 1) <= PEAK_BAND, peak
-    assert port["model_ways"] == 16 and port["devices"] == 256
+    assert port["model_ways"] == 16
+    assert port["devices"] == (512 if multi else 256)
     coll = port["collectives_per_device"]
     assert coll["total"] > 0 and sum(coll["counts"].values()) > 0
     assert coll["total"] == sum(coll[k] for k in JAX_KINDS - {"total"})
+    assert coll["counts"]["all-to-all"] == 0
     assert "split" not in port
+
+
+def test_whisper_kv_term_is_the_flops_difference(jax_meshes):
+    """whisper-small's prefill: JAX's flops less the port's are exactly
+    its replicated K/V projections (:func:`_jax_replicated_kv_flops`)."""
+    cell = ("whisper-small", "prefill_32k", False)
+    port = jax_meshes[f"port.{_tag(*cell)}"]
+    jax_rec = jax_meshes[f"cell.{_tag(*cell)}"]
+    assert jax_rec["cost"]["flops_per_device"] \
+        - port["cost"]["flops_per_device"] == \
+        _jax_replicated_kv_flops(*cell[:2], port) > 0
 
 
 # ---- the CLI and re-costing --------------------------------------------------
@@ -396,10 +472,15 @@ def test_dryrun_cli_records_and_recost(tmp_path, capsys):
 
 
 def test_dryrun_cli_drops_stale_records_and_fails_on_unplaced_families(
-        tmp_path, capsys):
-    """A record of the even split is removed and its cell rerun; a family
-    the placed path does not cover yet (whisper) writes no record, is
-    listed, and the CLI exits 1."""
+        tmp_path, capsys, monkeypatch):
+    """A record of the even split is removed and its cell rerun; a cell
+    whose family the placed path refuses (every family is placed now, so
+    ``run_cell`` is made to refuse whisper) writes no record, is listed,
+    and the CLI exits 1."""
+    def refuse(arch, shape, multi_pod, **kw):
+        raise NotImplementedError(f"{arch} is not placed")
+
+    monkeypatch.setattr(dryrun, "run_cell", refuse)
     out = tmp_path / "dryrun"
     out.mkdir()
     stale = out / "whisper-small.decode_32k.single.json"

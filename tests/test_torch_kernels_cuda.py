@@ -592,3 +592,60 @@ def test_reduced_qwen3_decode_placed_over_one_nccl_rank(card):
     assert torch.equal(got_tok, want_tok)
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_reduced_jamba_decode_placed_over_one_nccl_rank(card):
+    """Reduced jamba (float32: the hybrid stack, Mamba-2 and attention
+    caches, MoE every second layer) placed on a 1×1 mesh over a one-rank
+    ``nccl`` group serves the same tokens, and logits within float32
+    rounding, as the unplaced model."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.distributed.partition import (batch_specs, param_specs,
+                                                   place, to_shardings)
+    from repro_torch.distributed.sharding import (make_device_mesh,
+                                                  make_rules, use_rules)
+    from repro_torch.models import lm_init
+    from repro_torch.serve import make_decode_step, make_prefill
+
+    cfg = get_reduced("jamba-v0.1-52b")
+    gen = torch.Generator(device=card).manual_seed(0)
+    model = lm_init(cfg, generator=gen, device=card)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 16),
+                                     generator=gen, device=card,
+                                     dtype=torch.int32)}
+
+    def serve(m, b):
+        st, logits = make_prefill(cfg, max_len=24)(m, b)
+        out = [logits[:, -1]]
+        for _ in range(4):
+            st, lg = make_decode_step(cfg)(m, st)
+            out.append(lg)
+        return out, st.last_token
+
+    want, want_tok = serve(model, batch)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_device_mesh((1, 1), ("data", "model"), devices=[card])
+        rules = make_rules(mesh, fsdp=False)
+        with use_rules(rules):
+            model = place(model, to_shardings(
+                mesh, rules, param_specs(cfg, model), model), mesh)
+            placed = place(batch, to_shardings(
+                mesh, rules, batch_specs(batch), batch), mesh)
+            got, got_tok = serve(model, placed)
+            got = [g.full_tensor() for g in got]
+            got_tok = got_tok.full_tensor()
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got_tok, want_tok)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())

@@ -6,7 +6,9 @@ hand counts (2·R·K); views free; an in-place op's operand counted once;
 collective bytes of ``all_reduce`` (2× the tensor) and ``all_gather``
 (the gathered result) on a one-rank ``gloo`` group; on a two-rank
 ``fake`` group, rank 0 of a column-parallel linear over DTensors counts
-its local product and the all-gather of its output shard.
+its local product and the all-gather of its output shard, and rank 0 of
+an expert-parallel MoE layer its own experts' products and one
+all-reduce.
 
 (2) Against the JAX package's ``hlo_cost``: the flops of the port's train
 step (all ten reduced archs) and of prefill and decode (qwen3, dbrx,
@@ -198,6 +200,46 @@ def test_rank0_of_a_column_parallel_linear_on_a_fake_group():
     assert not any(e[0].startswith("aten.") and e[2] and
                    e[2][0][0] == [16, 6] for e in log)
     assert log[0][4] == (8 * 16 + 16 * 3) * 4     # the local shards
+
+
+def test_rank0_of_an_expert_parallel_moe_on_a_fake_group():
+    """A reduced dbrx MoE layer (4 experts, top 2) placed on a 1×2 (data ×
+    model) mesh of a two-rank ``fake`` group: rank 0 routes every token
+    (the router's product whole), runs its 2 of the 4 experts (the
+    dispatch, the three expert products and the combine at 2 experts),
+    and its partial output is reduced by one all-reduce; no all-to-all."""
+    from repro_torch.distributed.partition import (param_specs, place,
+                                                   to_shardings)
+    from repro_torch.distributed.sharding import (make_device_mesh,
+                                                  make_rules, shard,
+                                                  use_rules)
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.models.ffn import _capacity, moe_apply, moe_params
+
+    cfg = tcfg.get_reduced("dbrx-132b")
+    b, s, d, f, e = 2, cfg.moe_group, cfg.d_model, cfg.d_ff, \
+        cfg.moe_num_experts
+    c = _capacity(s, cfg.moe_top_k, e, cfg.moe_capacity_factor)
+    with fake_group(2):
+        mesh = make_device_mesh((1, 2), ("data", "model"),
+                                devices=[META] * 2)
+        rules = make_rules(mesh, fsdp=False)
+        with use_rules(rules), torch.device(META):
+            moe = moe_params(cfg, generator=None)
+            moe = place(moe, to_shardings(mesh, rules, param_specs(
+                cfg, moe), moe), mesh)
+            x = place(_m(b, s, d), (None, None, None), mesh)
+            cost, log = op_cost(lambda m, t: shard(
+                moe_apply(m, t, cfg, group_size=cfg.moe_group)[0],
+                "batch", None, "embed"), moe, x)
+    e_loc = e // 2
+    want = 2 * b * s * d * e                      # the router, every expert
+    want += 2 * 2 * b * s * e_loc * c * d         # dispatch and combine
+    want += 3 * 2 * e_loc * b * c * d * f         # w1, w3, w2
+    assert cost.flops == want
+    assert cost.collective_counts["all-reduce"] == 1
+    assert sum(cost.collective_counts.values()) == 1
+    assert cost.collectives["all-reduce"] == 2 * b * s * d * 4
 
 
 # ---- (2) against the JAX package's hlo_cost --------------------------------
