@@ -78,7 +78,19 @@ result line):
    under ``torch.profiler`` for the device busy share of that run's wall
    time; a 2×2 mesh serves 1,024 of
    them and a 1×2 mesh serves the 784→10 requests (its head sharded
-   5 + 5), each equal to the single-device run.  The K6 path routes a
+   5 + 5), each equal to the single-device run.  Then the same mesh as
+   one process per rank (``phase_snn_ranks``): the script starts four
+   rank processes of itself (``--snn-rank``), under ``nccl`` one a card
+   where four cards are visible, else under ``gloo`` on the one card
+   with the exchange staged through pinned host memory (a line says
+   which and why); each serves the 4,096 WIDE requests on a 1×4 process
+   mesh and 1,024 of them on a 2×2, through ``make_stream_engine`` with
+   ``backend=None``: each rank's results equal the K2 run's id for id,
+   and each rank launches K3 alone, one launch a layer and a step (3 at
+   1×4).  A rank that fails or outlives ``RANK_TIMEOUT_S`` fails the
+   run.  It prints each rank's K3 launches, rank 0's wall, rate and
+   (traced once more) device busy share, the exchange's host ms a step,
+   and the one-process 1×4 wall beside them.  The K6 path routes a
    wide hidden layer's 20-step spike train through ``spike_matmul_op``'s
    density dispatch.
    Then the serving tier and the fault harness (``serve.faults``), each
@@ -275,7 +287,8 @@ from repro_torch.optim import optimizer as lm_optim  # noqa: E402
 from repro_torch.serve import (ClusterCoordinator,  # noqa: E402
                                 CoordinatorCrash, FaultEvent, FaultInjector,
                                 FaultPlan, FaultToleranceConfig,
-                                SNNServingTier, SNNStreamEngine, generate,
+                                RequestResult, SNNServingTier,
+                                SNNStreamEngine, generate,
                                 make_decode_step, make_prefill, pad_cache_to,
                                 stability_gate)
 from repro_torch.tune import (ArrivalSchedule, AutotuneConfig,  # noqa: E402
@@ -325,6 +338,17 @@ def counts() -> dict:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_LAP = [time.perf_counter()]
+
+
+def _lap(what: str) -> None:
+    """Log the seconds since the previous lap: each phase's share of the
+    script's time limit."""
+    now = time.perf_counter()
+    log(f"[time] {what}: {now - _LAP[0]:.1f} s")
+    _LAP[0] = now
 
 
 # ---------------------------------------------------------------------------
@@ -1460,7 +1484,7 @@ def phase_mesh_serve(imgs, params, cfg, mesh, lanes, want, dev,
         + ", ".join(f"{n} {sec * 1e3:.2f} ({calls})"
                     for n, (sec, calls) in spent.items()))
     out = {"launches": launched["K3"], "chunks": eng.stats["chunks"],
-           "requests_per_s": len(results) / wall}
+           "requests_per_s": len(results) / wall, "wall_s": wall}
     if not profile:
         return out
     out["overlap"] = []
@@ -1498,6 +1522,237 @@ def phase_mesh_serve(imgs, params, cfg, mesh, lanes, want, dev,
     out["device_busy_ms"] = busy
     out["profiled_wall_ms"] = prof_ms
     return out
+
+
+# ---------------------------------------------------------------------------
+# 4a. the SNN lane mesh as one process per rank
+# ---------------------------------------------------------------------------
+
+# (data, model, requests) of each rank serve, in order; the first is timed
+# again under torch.profiler on rank 0
+RANK_MESHES = ((1, 4, SERVE_REQUESTS), (2, 2, SERVE_BATCH))
+RANK_TIMEOUT_S = 300
+
+
+def _rank_form() -> tuple[str, str]:
+    """The process group the ranks run under, and why."""
+    n = torch.cuda.device_count()
+    if n >= 4:
+        return "nccl", f"{n} cards visible: one nccl rank a card"
+    return "gloo", (f"{n} card(s) visible and nccl refuses two ranks on "
+                    f"one card: four gloo ranks on cuda:0, the exchange "
+                    f"staged through pinned host buffers")
+
+
+def phase_snn_ranks(want, one_process) -> dict:
+    """``SNN_CONFIG_WIDE`` served by four rank processes of this script,
+    each one rank of the SPMD program (``make_stream_engine`` under a
+    group of four: its own lane rows and weight shards, the spike
+    exchange as collectives), on the ``RANK_MESHES``: every rank's
+    results must equal ``want`` (the K2 serve's) id for id, and every
+    rank must launch K3 alone, one launch a layer and a step.  A rank
+    that fails or outlives ``RANK_TIMEOUT_S`` fails the phase."""
+    form, why = _rank_form()
+    log(f"[ranks] form {form}: {why}")
+    out = ROOT / "build" / "snn_ranks"
+    out.mkdir(parents=True, exist_ok=True)
+    port = _free_port()
+    procs, spawned = [], time.time()
+    for r in range(4):
+        with open(out / f"r{r}.log", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--snn-rank",
+                 str(r), str(port), form, str(out)],
+                stdout=f, stderr=subprocess.STDOUT,
+                env=dict(os.environ, OMP_NUM_THREADS="1")))
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad or time.perf_counter() - t0 > RANK_TIMEOUT_S:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:       # one failed rank leaves the rest waiting
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        # the log of the first rank that was not killed here
+        r = next((r for r, c in enumerate(codes) if c > 0), codes.index(
+            next(c for c in codes if c)))
+        raise AssertionError(
+            f"rank exit codes {codes} after {time.perf_counter() - t0:.1f} "
+            f"s (timeout {RANK_TIMEOUT_S} s); rank {r}:\n"
+            + (out / f"r{r}.log").read_text()[-3000:])
+    got = [json.loads((out / f"r{r}.json").read_text()) for r in range(4)]
+    # each rank's timeline, in s after the spawn (wall clock): imported,
+    # its first engine built, done
+    marks = [[round(g["marks"][k] - spawned, 1) for k in
+              ("imported", "built", "done")] for g in got]
+    log(f"[ranks] the phase {time.perf_counter() - t0:.1f} s; by rank "
+        f"[imported, first engine built, done] s after the spawn: {marks}")
+    record = {"form": form, "marks": marks}
+    for nd, md, n in RANK_MESHES:
+        tag = f"{nd}x{md}"
+        for r, g in enumerate(got):
+            run = g[tag]
+            res = {rid: RequestResult(rid, p, np.asarray(c), s, a, bool(e),
+                                      v)
+                   for rid, p, c, s, a, e, v in zip(
+                       run["ids"], run["pred"], run["counts"], run["served"],
+                       run["adds"], run["early"], run["version"])}
+            if len(res) != n:
+                raise AssertionError(f"rank {r}, {tag}: {len(res)} results "
+                                     f"for {n}")
+            _same_results(res, {rid: want[rid] for rid in res},
+                          f"rank {r} on the {tag} process mesh vs K2")
+        r0 = got[0][tag]
+        ex_ms = [g[tag]["exchange_s"] * 1e3 / g[tag]["steps"] for g in got]
+        log(f"[ranks] SNN_CONFIG_WIDE on a {tag} process mesh, {form}: "
+            f"{n} requests, results equal to the K2 serve's id for id on "
+            f"every rank; K3 launches by rank "
+            f"{[g[tag]['launches']['K3'] for g in got]} "
+            f"({r0['layers']} a step over {[g[tag]['steps'] for g in got]} "
+            f"dispatched steps), no other kernel; rank 0: "
+            f"{r0['wall_s']:.6f} s = {n / r0['wall_s']:.1f} requests/s, "
+            f"{r0['stats']['chunks']} chunks (spec_used "
+            f"{r0['stats']['spec_used']}, spec_wasted "
+            f"{r0['stats']['spec_wasted']}); exchange host ms a step by "
+            f"rank {[round(x, 4) for x in ex_ms]} over "
+            f"{r0['exchanges']} exchanges")
+        record[tag] = {
+            "launches": [g[tag]["launches"] for g in got],
+            "steps": [g[tag]["steps"] for g in got],
+            "wall_s": r0["wall_s"], "requests_per_s": n / r0["wall_s"],
+            "exchange_ms_per_step": ex_ms, "stats": r0["stats"]}
+        if "busy_ms" in r0:
+            record[tag].update(busy_ms=r0["busy_ms"],
+                               profiled_wall_ms=r0["profiled_wall_ms"])
+            log(f"[ranks] {tag} rank 0 device time from a torch.profiler "
+                f"trace of one more identical serve: {r0['busy_ms']:.3f} ms "
+                f"of its {r0['profiled_wall_ms']:.3f} ms wall = "
+                f"{r0['busy_ms'] / r0['profiled_wall_ms'] * 100:.2f}% busy; "
+                f"most device time (ms, calls): " + "; ".join(
+                    f"{k[:60]} {ms:.3f} ({c})" for k, ms, c in r0["top"]))
+    log(f"[ranks] the one-process 1x4 mesh of this run (one Python thread "
+        f"driving the four shards): {one_process['wall_s']:.6f} s = "
+        f"{one_process['requests_per_s']:.1f} requests/s for "
+        f"{SERVE_REQUESTS} requests")
+    return record
+
+
+def _rank_serve(params, cfg, imgs, nd, md, devices, rank,
+                profile) -> dict:
+    """One rank's serve of ``imgs`` on an ``nd``×``md`` process mesh."""
+    import torch.distributed as dist
+
+    knobs = cfgs.SNNStreamMeshConfig(
+        num_devices=nd, model_devices=md,
+        lanes_per_device=SERVE_BATCH // nd, chunk_steps=SERVE_CHUNK)
+
+    def engine():
+        eng = cfgs.make_stream_engine(params, cfg, knobs, devices=devices,
+                                      patience=SERVE_PATIENCE, seed=SEED)
+        for im in imgs:
+            eng.submit(im)
+        return eng
+
+    eng = engine()
+    built = time.time()
+    if eng.mesh.torch_mesh is None or eng.backend not in (
+            "fused", "fused_streamed"):
+        raise AssertionError(f"rank {rank}: torch mesh "
+                             f"{eng.mesh.torch_mesh}, backend {eng.backend}")
+    steps, ex = [0], [0.0, 0]
+    advance, exchange = eng._advance, snn.exchange
+
+    def counted(lanes, w):
+        steps[0] += eng.controller.chunk_steps
+        return advance(lanes, w)
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return exchange(*a, **kw)
+        finally:
+            ex[0] += time.perf_counter() - t
+            ex[1] += 1
+
+    eng._advance, snn.exchange = counted, timed
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()                                # the main path starts
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()                           # the main path ended
+    snn.exchange = exchange
+    layers = len(cfg.layer_sizes) - 1
+    if launched["K3"] != layers * steps[0] or any(
+            n for k, n in launched.items() if k != "K3"):
+        raise AssertionError(f"rank {rank}: {launched} over {steps[0]} "
+                             f"steps of {layers} layers")
+    order = sorted(results)
+    out = {"ids": order, "launches": launched, "steps": steps[0],
+           "built": built,
+           "layers": layers, "wall_s": wall, "exchange_s": ex[0],
+           "exchanges": ex[1], "stats": eng.stats}
+    for k, f in (("pred", "pred"), ("served", "steps"), ("adds", "adds"),
+                 ("early", "early_exit"), ("version", "weight_version")):
+        out[k] = [int(getattr(results[i], f)) for i in order]
+    out["counts"] = [np.asarray(results[i].spike_counts).tolist()
+                     for i in order]
+    if profile:
+        again = engine()
+        dist.barrier()
+        if rank == 0:
+            busy, prof_ms, top = _device_busy_ms(again.run)
+            out.update(busy_ms=busy, profiled_wall_ms=prof_ms, top=top)
+        else:
+            again.run()
+            torch.cuda.synchronize()
+    return out
+
+
+def _snn_rank_main(argv) -> int:
+    """A rank of ``phase_snn_ranks``: ``chip_smoke.py --snn-rank RANK
+    PORT FORM OUT``."""
+    import torch.distributed as dist
+
+    imported = time.time()
+    rank, port, form, out = int(argv[0]), int(argv[1]), argv[2], \
+        Path(argv[3])
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    if form == "nccl":
+        # as torchrun sets them: make_stream_mesh starts the nccl group
+        # on card LOCAL_RANK
+        os.environ.update(RANK=str(rank), WORLD_SIZE="4",
+                          LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(port))
+        devices = None
+    else:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                                f"{port}", rank=rank, world_size=4)
+        devices = ["cuda:0"] * 4
+    rng = np.random.default_rng(SEED + 1)      # main()'s draws, in order
+    _serve_params(rng)
+    imgs = _images(rng, SERVE_REQUESTS)
+    wide = _wide_params(rng)
+    got = {f"{nd}x{md}": _rank_serve(wide, cfgs.SNN_CONFIG_WIDE, imgs[:n],
+                                     nd, md, devices, rank, profile=i == 0)
+           for i, (nd, md, n) in enumerate(RANK_MESHES)}
+    got["marks"] = {"imported": imported, "done": time.time(),
+                    "built": got[f"{RANK_MESHES[0][0]}x"
+                                 f"{RANK_MESHES[0][1]}"]["built"]}
+    (out / f"r{rank}.json").write_text(json.dumps(got))
+    dist.destroy_process_group()
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -3867,18 +4122,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    _lap("device and build")
     checks = {"K1": phase_kernel_vs_plain(dev),
               "K2": phase_streamed_vs_plain(dev),
               "K3": phase_k3_vs_plain(dev),
               "K6": phase_k6_vs_plain(dev)}
+    _lap("kernels vs plain")
     rng = np.random.default_rng(SEED + 1)
     params = _serve_params(rng)
     imgs = _images(rng, SERVE_REQUESTS)
     wide_params = _wide_params(rng)
     staged = phase_staged(dev, _on(wide_params, dev))
+    _lap("staged")
     serve = {"K1": phase_serve(imgs, params, cfgs.SNN_CONFIG, "K1", "fused"),
              "K2": phase_serve(imgs, wide_params, cfgs.SNN_CONFIG_WIDE, "K2",
                                "fused_streamed")}
+    _lap("serve")
     wide_want = serve["K2"].pop("results")
     k1_want = serve["K1"]["results"]
     serve["K3"] = phase_mesh_serve(imgs, wide_params, cfgs.SNN_CONFIG_WIDE,
@@ -3888,20 +4147,32 @@ def main() -> int:
                      (2, 2), SERVE_BATCH // 2, wide_want, dev)
     phase_mesh_serve(imgs, params, cfgs.SNN_CONFIG, (1, 2), SERVE_BATCH,
                      serve["K1"].pop("results"), dev)
+    _lap("mesh serves")
+    ranks = phase_snn_ranks(wide_want, serve["K3"])
+    _lap("ranks")
     tier = {"tier": phase_tier(imgs, params, k1_want,
                                serve["K1"]["requests_per_s"]),
             "sharded": phase_sharded_tier(imgs[:SERVE_BATCH], params,
                                           k1_want, dev),
             "model_axis": phase_model_axis_ladder(
                 imgs[:SERVE_BATCH], wide_params, wide_want, dev)}
+    _lap("tier")
     cluster = phase_cluster(imgs, params, k1_want)
+    _lap("cluster")
     tune = phase_tune(imgs, params, k1_want, dev)
+    _lap("tune")
     train = phase_train(dev, smi)
+    _lap("train")
     lm = phase_lm(dev, smi)
+    _lap("lm")
     lm_train = phase_lm_train(dev, smi)
+    _lap("lm_train")
     phase_lm_partition(dev, smi)
+    _lap("lm_partition")
     phase_dryrun(smi, lm, lm_train)
+    _lap("dryrun")
     times = phase_times(imgs, params, wide_params, dev)
+    _lap("times")
     staged["K6"] = times.pop("K6_path")
     # the per-launch time a kernel's row reports: K3 at its most frequent
     # serve shape (the 2048->512 shard), K6 masked (what auto picks at the
@@ -3942,6 +4213,7 @@ def main() -> int:
             extra["profiled_wall_ms"] = serve["K3"]["profiled_wall_ms"]
             extra["overlap_runs"] = serve["K3"]["overlap"]
             extra["shapes"] = k3_shapes
+            extra["rank_serves"] = ranks
             extra["ladder_launches"] = tier["model_axis"]["K3"]
             extra["ladder_chunks_by_rung"] = \
                 tier["model_axis"]["chunks_by_rung"]
@@ -3966,4 +4238,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--snn-rank"]:
+        sys.exit(_snn_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -10,7 +10,11 @@ on the CPU.  Field for field the same configurations as
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
 
 from ..core.lif import LIFConfig
 from ..core.snn import SNNConfig
@@ -89,11 +93,63 @@ def make_stream_mesh(knobs: SNNStreamMeshConfig = SNN_STREAM_MESH, *,
     """The serving lane mesh the knobs describe: a validated (data × model)
     mesh over ``devices`` (None = every visible card; an explicit list may
     name one card more than once, e.g. ``["cuda:0"] * 4`` for a 1×4 mesh
-    on one card)."""
+    on one card).
+
+    Under a ``torch.distributed`` group whose world size is ``num_devices
+    × model_devices`` (under ``torchrun`` the group is started as
+    ``launch.mesh.start_rank_group`` starts it) the mesh is a process
+    mesh: one rank per cell, data-outer and model-inner, the engine one
+    rank of an SPMD program.  A rank's device is card ``LOCAL_RANK``
+    with ``devices=None``, else ``devices[rank]``: ``["cpu"] * 4`` runs
+    four ``gloo`` ranks on the CPU, ``["cuda:0"] * 4`` four ``gloo``
+    ranks on one card.  ``nccl`` needs a card of its own for every rank
+    and raises, before any collective, where two would share one."""
     from ..distributed.sharding import make_2d_device_mesh
+    from ..launch.mesh import start_rank_group
+    rank = int(os.environ.get("RANK", -1))
+    start_rank_group(list(devices)[rank] if devices is not None
+                     and 0 <= rank < len(devices) else None)
+    if dist.is_available() and dist.is_initialized():
+        world, md = dist.get_world_size(), knobs.model_devices
+        nd = knobs.num_devices or world // md
+        if nd * md == world:
+            devices = _rank_devices(devices, world)
     return make_2d_device_mesh(
         data_devices=knobs.num_devices, model_devices=knobs.model_devices,
         axis_names=(knobs.axis_name, knobs.model_axis_name), devices=devices)
+
+
+def _rank_devices(devices, world: int) -> list:
+    """The device list of a process mesh, as this rank sees it: its own
+    device at its cell (every cell with ``devices=None``, as
+    ``launch.mesh.make_local_mesh`` lists it), checked against the
+    group's backend, and made the current card."""
+    rank = dist.get_rank()
+    nccl = dist.get_backend() == "nccl"
+    if devices is None:
+        card = int(os.environ.get("LOCAL_RANK", rank))
+        n = torch.cuda.device_count()
+        if card >= n:
+            raise RuntimeError(
+                f"rank {rank} wants card {card} of {n}: nccl needs a card "
+                f"per rank; to run several ranks on one card, start a "
+                f"gloo group and pass devices=['cuda:0'] * {world}")
+        devices = [torch.device("cuda", card)] * world
+    else:
+        devices = [torch.device(d) for d in devices][:world]
+        if len(devices) < world:
+            raise ValueError(f"{len(devices)} devices for {world} ranks")
+        if nccl and len(set(devices)) < world:
+            raise ValueError(
+                f"nccl refuses two ranks on one card, and {devices} names "
+                f"one more than once: start a gloo group for that (the "
+                f"exchange then stages through host memory)")
+    own = devices[rank]
+    if nccl and own.type != "cuda":
+        raise ValueError(f"an nccl rank needs a card, not {own}")
+    if own.type == "cuda":
+        torch.cuda.set_device(own)
+    return devices
 
 
 def make_stream_engine(params_q: dict, snn_cfg: SNNConfig = SNN_CONFIG,

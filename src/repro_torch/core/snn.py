@@ -37,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
+from ..distributed.sharding import exchange, mesh_rank
 from ..kernels import fused_snn, ops
 from ..kernels.ops import V_PEAK_INIT
 from . import encoding, fixed_point, lif, prng
@@ -46,7 +47,7 @@ from .telemetry import (ChunkTelemetry, layer_tile_skips, model_tile_skips,
 __all__ = ["SNNConfig", "snn_init", "snn_apply_float", "snn_loss",
            "quantize_params", "readout_pred", "encode_lif_timestep",
            "snn_int_stack_step", "snn_int_stack_step_sharded",
-           "snn_apply_int", "resolve_backend",
+           "ModelGroup", "snn_apply_int", "resolve_backend",
            "fused_unsupported_reason", "SNNWindowState", "snn_window_init",
            "snn_window_chunk"]
 
@@ -546,6 +547,21 @@ def encode_lif_timestep(rng: torch.Tensor, pixels_u8: torch.Tensor,
     return rng, new_state, fired, s_t
 
 
+class ModelGroup(NamedTuple):
+    """A model axis over processes: this rank's torch ``DeviceMesh``, the
+    model axis' name on it, and each layer's shard count
+    (``kernels.fused_snn.layer_shard_ways``)."""
+
+    mesh: object
+    axis: str
+    ways: tuple
+
+    @property
+    def rank(self) -> int:
+        """This process's model peer."""
+        return mesh_rank(self.mesh, self.axis)
+
+
 def snn_int_stack_step(rng: torch.Tensor, pixels_u8: torch.Tensor,
                        states: tuple, weights: tuple,
                        lif_cfg: lif.LIFConfig, *, dot_impl: str = "int32",
@@ -570,7 +586,8 @@ def snn_int_stack_step_sharded(rng: torch.Tensor, pixels_u8: torch.Tensor,
                                dot_impl: str = "int32",
                                active_pruning: bool = False,
                                sparse_skip: bool | None = None,
-                               contraction: str = "plain"):
+                               contraction: str = "plain",
+                               model_group: ModelGroup | None = None):
     """One timestep through the whole layer stack on a ``model_shards``-way
     model axis (1 = no model axis, :func:`snn_int_stack_step`).
 
@@ -591,6 +608,16 @@ def snn_int_stack_step_sharded(rng: torch.Tensor, pixels_u8: torch.Tensor,
     replicated layer runs once, since every peer would compute it alike.
     Counts, pruning and the telemetry run on the full arrays, so all of it
     equals the one-shard step.
+
+    With ``model_group`` the model axis runs over processes, one rank per
+    peer, as JAX's ``shard_map`` body runs: ``weights[l]`` is this rank's
+    own tensor (its column shard, or the whole matrix of a layer that
+    replicates, ``model_group.ways[l] == 1``); the rank slices its
+    membrane and enable columns at ``model_rank · n_shard``, contracts
+    and steps LIF on them, and ``distributed.sharding.exchange`` gathers
+    the fired spikes and membranes over the group (two collectives a
+    layer that splits).  A replicated layer runs on every rank.  The
+    tile rows are gathered once a step over the group, model-inner.
 
     Returns ``(rng, new_states, fired_out, adds, tel)`` as
     :func:`snn_int_stack_step` does; ``tel["tiles"]`` is
@@ -620,7 +647,12 @@ def snn_int_stack_step_sharded(rng: torch.Tensor, pixels_u8: torch.Tensor,
         n_spk.append(x.sum(-1, dtype=torch.int32))
         n_en.append(st.enable.sum(-1, dtype=torch.int32))
         adds = adds + n_spk[-1] * n_en[-1]
-        if len(shards) == 1:
+        if model_group is not None:
+            new_st, fired, skipped = _layer_on_rank(
+                x, st, shards, model_group, len(n_spk) - 1, contract,
+                lif_cfg)
+            tiles.append(skipped)
+        elif len(shards) == 1:
             current, skipped = contract(x, st.enable, shards[0])
             tiles.append(model_tile_skips([skipped], model_shards))
             current = torch.where(st.enable, current, 0)
@@ -648,9 +680,37 @@ def snn_int_stack_step_sharded(rng: torch.Tensor, pixels_u8: torch.Tensor,
             new_st = new_st._replace(enable=new_st.enable & ~fired)
         new_states.append(new_st)
         x = fired
+    tiles = torch.stack(tiles)
+    if model_group is not None:
+        tiles = exchange(tiles, model_group.mesh, model_group.axis)
     tel = {"n_spk": torch.stack(n_spk), "n_en": torch.stack(n_en),
-           "tiles": torch.stack(tiles)}
+           "tiles": tiles}
     return rng, tuple(new_states), x, adds, tel
+
+
+def _layer_on_rank(x, st, w, group: ModelGroup, layer: int, contract,
+                   lif_cfg):
+    """One layer on this rank of a model axis over processes: the body of
+    JAX's sharded step.  Returns ``(new_state, fired, skipped)``, the
+    state and spikes full, ``skipped`` this rank's own tile counts."""
+    ways = group.ways[layer]
+    if ways == 1:
+        current, skipped = contract(x, st.enable, w)
+        current = torch.where(st.enable, current, 0)
+        new_st, fired = lif.lif_step_int(st, current, lif_cfg)
+        return new_st, fired, skipped
+    n_sh = st.v.shape[-1] // ways
+    cols = slice(group.rank * n_sh, (group.rank + 1) * n_sh)
+    en_sh = st.enable[:, cols]
+    cur_sh, skipped = contract(x, en_sh, w)
+    cur_sh = torch.where(en_sh, cur_sh, 0)
+    new_sh, fired_sh = lif.lif_step_int(
+        lif.LIFStateInt(v=st.v[:, cols], enable=en_sh), cur_sh, lif_cfg)
+    # the spike exchange: every peer recovers the full membrane row and
+    # fired vector (the next layer's input), shards in rank order
+    v = exchange(new_sh.v, group.mesh, group.axis)
+    fired = exchange(fired_sh, group.mesh, group.axis)
+    return lif.LIFStateInt(v=v, enable=st.enable), fired, skipped
 
 
 class SNNWindowState(NamedTuple):

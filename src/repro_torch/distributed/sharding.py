@@ -7,8 +7,10 @@ output columns over the model axis.  The grid may name one device more
 than once: on one card, ``make_2d_device_mesh(1, 4, devices=["cuda:0"] *
 4)`` runs four model shards and their spike exchange on that card; where
 the grid names several cards, the shards sit on them and the exchange is
-a peer copy.  The SNN engines drive every shard from the calling
-process.
+a peer copy.  Without a process group the SNN engines drive every shard
+from the calling process; over a group of one rank per mesh cell each
+rank runs its own cell and :func:`exchange` / :func:`gather_rows` are
+its collectives.
 
 The LM substrate annotates its activations with *logical* axis names
 ("batch", "heads", "kv_seq", ...).  :class:`ShardingRules` maps each name
@@ -45,7 +47,8 @@ __all__ = ["DeviceMesh", "make_device_mesh", "make_2d_device_mesh",
            "ShardingRules", "make_rules", "use_rules", "current_rules",
            "logical_spec", "shard", "DEFAULT_RULES", "FSDP_RULES",
            "placements", "is_placed", "run_local", "all_reduce",
-           "all_gather", "mesh_rank", "mesh_ways", "logical_placements",
+           "all_gather", "exchange", "gather_rows", "refuse_process_mesh",
+           "mesh_rank", "mesh_ways", "logical_placements",
            "model_sharded", "partial_over_model", "partial_where_replicated"]
 
 
@@ -462,3 +465,76 @@ def all_gather(x: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
     gather = getattr(fc, "all_gather_single", fc.all_gather_tensor)
     return fc.wait_tensor(gather(x.detach().contiguous(), dim,
                                  _group(mesh, name)))
+
+
+def _gather_bytes(flat: torch.Tensor, group, *, host: bool) -> torch.Tensor:
+    """Every rank's uint8 vector ``flat``, stacked in group-rank order:
+    (n, flat.numel()).  The route follows the group's backend
+    (``dist.get_backend``), never a caught error: ``nccl`` gathers on the
+    card; ``gloo`` has no CUDA all-gather, so a CUDA vector is staged
+    through pinned host buffers (the call blocks the host until the
+    current stream has produced it); a CPU vector is gathered as it is.
+    ``host`` leaves the result on the host where the route ends there."""
+    n = dist.get_world_size(group)
+    backend = dist.get_backend(group)
+    if backend == "nccl":
+        out = torch.empty((n, flat.numel()), dtype=torch.uint8,
+                          device=flat.device)
+        dist.all_gather_into_tensor(out, flat, group=group)
+        return out.cpu() if host else out
+    if backend != "gloo":
+        raise ValueError(f"no exchange over a {backend!r} group")
+    if flat.device.type == "cpu":
+        out = torch.empty((n, flat.numel()), dtype=torch.uint8)
+        dist.all_gather(list(out.unbind(0)), flat, group=group)
+        return out
+    mine = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+    mine.copy_(flat)
+    out = torch.empty((n, flat.numel()), dtype=torch.uint8, pin_memory=True)
+    dist.all_gather(list(out.unbind(0)), mine, group=group)
+    return out if host else out.to(flat.device, non_blocking=True)
+
+
+def exchange(x: torch.Tensor, mesh, name: str) -> torch.Tensor:
+    """The model axis' spike exchange: a (..., n) local tensor from every
+    rank of the torch mesh dim ``name``, concatenated along the last axis
+    in rank order, (..., ways · n): ``jax.lax.all_gather(x, name,
+    axis=-1, tiled=True)``, so that column shards come back in the order
+    the weights were sliced.  One collective; the tensor crosses as its
+    bytes, so fired spikes (bool) move as one uint8 per spike."""
+    group = mesh.get_group(name)
+    if dist.get_world_size(group) == 1:
+        return x
+    x = x.contiguous()
+    g = _gather_bytes(x.view(torch.uint8).reshape(-1), group, host=False)
+    g = g.view(x.dtype).reshape((-1,) + tuple(x.shape))
+    return g.movedim(0, -2).reshape(tuple(x.shape[:-1]) + (-1,))
+
+
+def gather_rows(xs, mesh, name: str, *, host: bool = False) -> list:
+    """Each tensor of ``xs`` gathered over the torch mesh dim ``name``
+    along its first axis, concatenated in rank order (every rank's rows
+    of a data-sharded tile): one collective for the whole list, none
+    where the dim is one rank wide.  ``host`` returns host tensors."""
+    xs = [x.contiguous() for x in xs]
+    group = mesh.get_group(name)
+    n = dist.get_world_size(group)
+    if n == 1:
+        return [x.cpu() if host else x for x in xs]
+    parts = [x.view(torch.uint8).reshape(-1) for x in xs]
+    g = _gather_bytes(torch.cat(parts), group, host=host)
+    out, at = [], 0
+    for x, p in zip(xs, parts):
+        rows = g[:, at:at + p.numel()].contiguous().view(x.dtype)
+        out.append(rows.reshape((n * x.shape[0],) + tuple(x.shape[1:])))
+        at += p.numel()
+    return out
+
+
+def refuse_process_mesh(mesh, what: str) -> None:
+    """Raise for a layer that does not run over a process mesh yet."""
+    if mesh is not None and mesh.torch_mesh is not None:
+        raise NotImplementedError(
+            f"{what} does not run on a process mesh (one process per "
+            f"rank) yet: see ROADMAP.md, §1; build it over a one-process "
+            f"mesh")

@@ -26,7 +26,8 @@ import torch.distributed as dist
 from ..distributed.sharding import DeviceMesh, _visible_cards, \
     make_device_mesh
 
-__all__ = ["make_production_mesh", "make_local_mesh", "mesh_axis_sizes"]
+__all__ = ["make_production_mesh", "make_local_mesh", "start_rank_group",
+           "mesh_axis_sizes"]
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
@@ -50,19 +51,9 @@ def make_local_mesh(*, devices=None, device=None) -> DeviceMesh:
     Otherwise every visible card (or the given ``devices``) as a 1×N mesh
     with no process group; raises where there is no card and no list.
     """
-    if all(k in os.environ for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")):
-        dev = torch.device(device) if device is not None else \
-            torch.device("cuda")
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    dev = start_rank_group(device)
+    if dev is not None:
         world = int(os.environ["WORLD_SIZE"])
-        if not dist.is_initialized():
-            if dev.type == "cuda":
-                torch.cuda.set_device(dev)
-            dist.init_process_group(
-                "nccl" if dev.type == "cuda" else "gloo",
-                rank=int(os.environ["RANK"]), world_size=world,
-                device_id=dev if dev.type == "cuda" else None)
         shape = (1, world)
         mesh = make_device_mesh(shape, ("data", "model"),
                                 devices=[dev] * world)
@@ -72,6 +63,29 @@ def make_local_mesh(*, devices=None, device=None) -> DeviceMesh:
     pool = _visible_cards() if devices is None else list(devices)
     return make_device_mesh((1, len(pool)), ("data", "model"),
                             devices=pool)
+
+
+def start_rank_group(device=None) -> torch.device | None:
+    """Under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``
+    set), this rank's device, card ``LOCAL_RANK`` unless ``device`` names
+    another, with the process group started if it is not up: ``nccl`` on
+    a card, ``gloo`` on the CPU.  None outside ``torchrun``."""
+    if not all(k in os.environ for k in ("RANK", "WORLD_SIZE",
+                                         "LOCAL_RANK")):
+        return None
+    dev = torch.device(device) if device is not None else \
+        torch.device("cuda")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    if not dist.is_initialized():
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            rank=int(os.environ["RANK"]),
+            world_size=int(os.environ["WORLD_SIZE"]),
+            device_id=dev if dev.type == "cuda" else None)
+    return dev
 
 
 def mesh_axis_sizes(mesh: DeviceMesh) -> dict:

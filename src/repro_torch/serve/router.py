@@ -162,7 +162,8 @@ class SNNServingTier:
         self.engines: list[SNNStreamEngine] = []
         if sharded:
             from ..distributed.sharding import (_visible_cards,
-                                                make_device_mesh)
+                                                make_device_mesh,
+                                                refuse_process_mesh)
             from .snn_engine import ShardedSNNStreamEngine
             devs = (_visible_cards() if devices is None
                     else [torch.device(d) for d in devices])
@@ -175,6 +176,7 @@ class SNNServingTier:
             for i in range(num_engines):
                 mesh = make_device_mesh(
                     (per,), ("data",), devices=devs[i * per:(i + 1) * per])
+                refuse_process_mesh(mesh, "the serving tier")
                 self.engines.append(ShardedSNNStreamEngine(
                     params_q, cfg, mesh=mesh,
                     batch_size=lanes_per_engine, chunk_steps=chunk_steps,

@@ -29,7 +29,8 @@ the slot, the chunk split or the engine that served it.
 :class:`ShardedSNNStreamEngine` spreads the lane tile over the data axis of
 a device mesh and, on a model axis, each layer's output columns over the
 model peers, with one partial-contraction launch per (step, layer, shard)
-and a spike exchange between layers.
+and a spike exchange between layers: from one process, or over a
+``torch.distributed`` group as one process per rank.
 
 Both engines carry the reference package's fault harness
 (``serve.faults``): with an injector armed, every chunk dispatch consults
@@ -62,12 +63,15 @@ import torch
 
 from ..core import lif as lif_mod
 from ..core import prng as prng_mod
-from ..core.snn import (SNNConfig, fused_unsupported_reason, readout_pred,
-                        resolve_backend, snn_int_stack_step_sharded)
+from ..core.snn import (ModelGroup, SNNConfig, fused_unsupported_reason,
+                        readout_pred, resolve_backend,
+                        snn_int_stack_step_sharded)
 from ..core.telemetry import (ChunkTelemetry, EngineLoad,
                               concat_shard_telemetry)
 from ..device import resolve_device
-from ..distributed.sharding import DeviceMesh, make_2d_device_mesh
+from ..distributed.sharding import (DeviceMesh, gather_rows,
+                                   make_2d_device_mesh, mesh_rank,
+                                   refuse_process_mesh)
 from ..kernels import ops
 from ..kernels.fused_snn import LANE, check_block_b, layer_shard_ways, \
     pack_weights
@@ -145,7 +149,8 @@ def stream_chunk(lanes: LaneState, weights: tuple, *, chunk_steps: int,
                  active_pruning: bool, patience: int, readout: str = "count",
                  backend: str = "reference",
                  sparse_skip: bool | None = None,
-                 model_shards: int | None = None):
+                 model_shards: int | None = None,
+                 model_group: ModelGroup | None = None):
     """Advance every active lane by up to ``chunk_steps`` window steps.
 
     ``backend="fused"`` runs the whole chunk (every layer, every step, the
@@ -163,6 +168,9 @@ def stream_chunk(lanes: LaneState, weights: tuple, *, chunk_steps: int,
     or ``fused_streamed`` backend becomes one partial-contraction launch
     per (step, layer, shard), and ``reference`` the plain contraction; the
     gate and freeze below run on the full gathered arrays either way.
+    With ``model_group`` (a model axis over processes) ``weights`` are
+    this rank's own tensors, one a layer, and the exchange is a
+    collective.
     """
     if backend not in ("fused", "fused_streamed", "reference"):
         raise ValueError(f"unknown chunk backend {backend!r}")
@@ -203,7 +211,7 @@ def stream_chunk(lanes: LaneState, weights: tuple, *, chunk_steps: int,
             st.rng, st.px, layer_states, weights, lif_cfg,
             model_shards=model_shards, dot_impl=dot_impl,
             active_pruning=active_pruning, sparse_skip=sparse_skip,
-            contraction=contraction)
+            contraction=contraction, model_group=model_group)
         counts = st.counts + fired.to(torch.int32)
         first = torch.where(fired & (st.first == num_steps),
                             st.steps[:, None], st.first)
@@ -270,6 +278,18 @@ def _map(fn, st: LaneState) -> LaneState:
     """Apply ``fn`` to every array leaf of a lane state."""
     return LaneState(*[tuple(fn(a) for a in f) if isinstance(f, tuple)
                        else fn(f) for f in st])
+
+
+def _leaves(st: LaneState) -> list:
+    """The array leaves of a lane state, in field order."""
+    return [a for f in st for a in (f if isinstance(f, tuple) else (f,))]
+
+
+def _unleaves(like: LaneState, leaves) -> LaneState:
+    """Inverse of :func:`_leaves`: ``leaves`` in ``like``'s structure."""
+    it = iter(leaves)
+    return LaneState(*[tuple(next(it) for _ in f) if isinstance(f, tuple)
+                       else next(it) for f in like])
 
 
 class SNNStreamEngine:
@@ -747,6 +767,10 @@ class SNNStreamEngine:
             readout=self.cfg.readout, backend=self.backend_effective,
             sparse_skip=self.cfg.sparse_skip)
 
+    def _lane_rows(self, mask: np.ndarray) -> np.ndarray:
+        """The rows of a (B,) host mask that this process's tile holds."""
+        return mask
+
     def _dispatch_versions(self, lanes: LaneState):
         """One chunk per live weight version: each run freezes the other
         versions' lanes, and the per-lane merge takes every lane from its
@@ -759,7 +783,7 @@ class SNNStreamEngine:
             return self._advance(lanes, self._version_weights(v))
         outs = []
         for v in versions:
-            mask = self._lane_versions == v
+            mask = self._lane_rows(self._lane_versions == v)
             sub = lanes._replace(active=lanes.active & torch.as_tensor(
                 mask, device=self.device))
             out, tel = self._advance(sub, self._version_weights(v))
@@ -977,7 +1001,7 @@ def _lane_pad(w: torch.Tensor) -> torch.Tensor:
 
 
 def shard_weights(codes: tuple, grid, model_ways: tuple | None, *,
-                  planes: bool = False) -> tuple:
+                  planes: bool = False, coord: tuple | None = None) -> tuple:
     """Place the weight codes for a mesh: the port of
     ``weight_partition_specs``.
 
@@ -993,7 +1017,26 @@ def shard_weights(codes: tuple, grid, model_ways: tuple | None, *,
     (``kernels.fused_snn.pack_weights``, the partial-contraction kernel's
     operand), so no launch pads, packs or copies it.  A device named more
     than once in the grid holds each tensor once.
+
+    With ``coord``, a rank's (data, model) cell of a process mesh, only
+    that cell's tensors are placed, on its device, and the rank's entry
+    is returned: per layer one tensor, its column shard (the whole matrix
+    of a layer that replicates), or without a model axis the codes or
+    planes.
     """
+    if coord is not None:
+        d, m = coord
+        own = []
+        for w, ways in zip(codes, model_ways or (None,) * len(codes)):
+            w = torch.as_tensor(w).to(torch.int16)
+            if ways is None:
+                t = pack_weights(_lane_pad(w)) if planes else w.clone()
+            else:
+                n_sh = w.shape[1] // ways
+                k = m if ways > 1 else 0
+                t = pack_weights(_lane_pad(w[:, k * n_sh:(k + 1) * n_sh]))
+            own.append(t.to(grid[d][m]).contiguous())
+        return tuple(own)
     placed = {}
 
     def put(key, dev, make):
@@ -1022,7 +1065,8 @@ def shard_weights(codes: tuple, grid, model_ways: tuple | None, *,
 
 
 def sharded_stream_chunk(lanes: LaneState, weights: tuple, devices, *,
-                         model_shards: int | None = None, **chunk_kw):
+                         model_shards: int | None = None,
+                         model_group: ModelGroup | None = None, **chunk_kw):
     """One chunk on a mesh: the port of ``make_sharded_stream_chunk``.
 
     Splits the lane tile over the data shards (:func:`split_lanes`, shard
@@ -1032,7 +1076,16 @@ def sharded_stream_chunk(lanes: LaneState, weights: tuple, devices, *,
     (``core.telemetry.concat_shard_telemetry``: lanes and blocks
     data-outer) on the tile's device.  Every op of the chunk is per lane,
     so the result equals :func:`stream_chunk` on the whole tile.
+
+    On a process mesh (``devices`` None) ``lanes`` and ``weights`` are
+    this rank's own, its data shard's rows and its cell's tensors
+    (:func:`shard_weights` with ``coord``): the chunk runs on them alone,
+    the model axis' exchange as collectives over ``model_group``, and
+    returns the rank's rows and its data shard's record.
     """
+    if devices is None:
+        return stream_chunk(lanes, weights, model_shards=model_shards,
+                            model_group=model_group, **chunk_kw)
     home = lanes.px.device
     outs = [stream_chunk(part, w, model_shards=model_shards, **chunk_kw)
             for part, w in zip(split_lanes(lanes, devices), weights)]
@@ -1091,6 +1144,23 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
         *k* (on the main stream) does not wait for it; a used speculation
         is joined by the main stream waiting for the side stream, and a
         discarded one's outputs are kept until its event has passed.
+
+    **One process per rank.**  On a mesh whose ``torch_mesh`` is set (a
+    ``torch.distributed`` group of one rank per mesh cell,
+    ``configs.snn_mnist.make_stream_mesh``) the engine is one rank of an
+    SPMD program, as JAX's ``shard_map`` body is: the rank holds only its
+    data shard's lane rows and its model peer's weight tensors
+    (:func:`shard_weights` with ``coord``), launches the contraction on
+    its own shard at every layer and exchanges the fired spikes and
+    membranes over the model group (``distributed.sharding.exchange``);
+    the host reads (the active mask, the lane tile, the telemetry the
+    controller reads) gather the data shards' rows over the data group,
+    so every rank holds the whole tile on the host and makes every host
+    decision alike.  Every rank must therefore submit the same images in
+    the same order; ``run()`` then returns the same results on every
+    rank.  The fault harness (an injector, ``fault_cfg`` or
+    ``REPRO_FAULT_PLAN``) raises ``NotImplementedError`` there: a fault on
+    one rank would split the ranks' collective order.
     """
 
     def __init__(self, params_q: dict, cfg: SNNConfig, *,
@@ -1117,6 +1187,14 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
                 f"model_axis_name {model_axis_name!r} must differ from the "
                 f"lane axis {axis_name!r}")
         self._grid = _device_grid(mesh, axis_name, model_axis_name)
+        tm = mesh.torch_mesh
+        # this rank's (data, model) cell on a process mesh, else None
+        self._coord = None if tm is None else (
+            mesh_rank(tm, axis_name), mesh_rank(tm, model_axis_name))
+        if self._coord is not None and (
+                injector is not None or fault_cfg is not None
+                or injector_from_env(engine_id) is not None):
+            refuse_process_mesh(mesh, "the fault harness")
         self.mesh = mesh
         self.axis_name = axis_name
         self.n_devices = mesh.shape[axis_name]
@@ -1171,8 +1249,17 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
                          engine_id=engine_id, injector=injector,
                          fault_cfg=fault_cfg,
                          initial_weight_version=initial_weight_version,
-                         device=self._grid[0][0], block_b=block_b,
-                         dispatch_cache=decision)
+                         device=self._grid[0][0] if tm is None else
+                         self._grid[self._coord[0]][self._coord[1]],
+                         block_b=block_b, dispatch_cache=decision)
+        self._model_group = None
+        if tm is not None:
+            self.lanes = _init_lanes(self.local_batch, self.layer_sizes,
+                                     cfg.num_steps, cfg.lif.v_rest,
+                                     self.device)
+            if self.model_axis:
+                self._model_group = ModelGroup(tm, model_axis_name,
+                                               self.model_ways)
 
     # ---- device placement ----------------------------------------------
     def _weight_form(self, rung: str) -> str:
@@ -1180,22 +1267,68 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
         return "shards" if self.model_axis else super()._weight_form(rung)
 
     def _place_form(self, codes: tuple, form: str) -> tuple:
-        if form == "shards":
-            return shard_weights(codes, self._grid, self.model_ways)
-        return shard_weights(codes, self._grid, None,
-                             planes=form == "planes")
+        return shard_weights(
+            codes, self._grid, self.model_ways if form == "shards" else None,
+            planes=form == "planes", coord=self._coord)
 
     def _advance(self, lanes: LaneState, weights: tuple):
         self.dispatches += 1
         return sharded_stream_chunk(
-            lanes, weights, [row[0] for row in self._grid],
+            lanes, weights,
+            None if self._coord else [row[0] for row in self._grid],
             model_shards=self.model_devices if self.model_axis else None,
+            model_group=self._model_group,
             chunk_steps=self.controller.chunk_steps,
             num_steps=self.cfg.num_steps, lif_cfg=self.cfg.lif,
             dot_impl=self.cfg.dot_impl,
             active_pruning=self.cfg.active_pruning, patience=self.patience,
             readout=self.cfg.readout, backend=self.backend_effective,
             sparse_skip=self.cfg.sparse_skip)
+
+    # ---- the host's view of a process mesh ------------------------------
+    def _lane_rows(self, mask: np.ndarray) -> np.ndarray:
+        if self._coord is None:
+            return mask
+        lo = self._coord[0] * self.local_batch
+        return mask[lo:lo + self.local_batch]
+
+    def _gather_data(self, xs, *, host: bool = False) -> list:
+        """The data shards' rows of each tensor, in data order (one
+        collective over the data group)."""
+        return gather_rows(xs, self.mesh.torch_mesh, self.axis_name,
+                           host=host)
+
+    def _host_tile(self) -> LaneState:
+        if self._coord is None:
+            return super()._host_tile()
+        leaves = self._gather_data(_leaves(self.lanes), host=True)
+        return _unleaves(self.lanes, [_to_host(a) for a in leaves])
+
+    def _upload(self, st: LaneState) -> LaneState:
+        if self._coord is not None:    # a rank keeps its data shard's rows
+            lo = self._coord[0] * self.local_batch
+            st = _map(lambda a: a[lo:lo + self.local_batch], st)
+        return super()._upload(st)
+
+    def _read_active(self) -> np.ndarray:
+        if self._coord is None or self.n_devices == 1:
+            return super()._read_active()
+        return self._gather_data([self.lanes.active],
+                                 host=True)[0].numpy().copy()
+
+    def _observe(self, src: LaneState, nxt: LaneState,
+                 tel: ChunkTelemetry) -> None:
+        if self._coord is None or self.controller.frozen:
+            return super()._observe(src, nxt, tel)
+        # the mesh's record (lanes and blocks data-outer) and the lane
+        # counters the summary reads, in one gather over the data group
+        *leaves, s0, s1, a0, a1 = self._gather_data(
+            [t.movedim(-1, 0) for t in tel]
+            + [src.steps, nxt.steps, src.active, nxt.active])
+        tel = ChunkTelemetry(*[t.movedim(0, -1) for t in leaves])
+        self.controller.observe(summarize_chunk(
+            tel, self.layer_sizes, steps_before=s0, steps_after=s1,
+            active_before=a0, active_after=a1))
 
     # ---- scheduling -----------------------------------------------------
     def _admit_and_compact(self) -> list[int]:
@@ -1272,7 +1405,14 @@ class ShardedSNNStreamEngine(SNNStreamEngine):
     def _speculate(self, src: LaneState):
         """Dispatch chunk k+1 from ``src`` (chunk k's output).  On CUDA it
         runs on each device's side stream after chunk k is committed on
-        the main stream; everything it reads is marked as used there."""
+        the main stream; everything it reads is marked as used there.
+
+        On a process mesh the chunk's exchanges run inside it.  Under
+        ``nccl`` they are enqueued behind the side stream, their buffers
+        are allocated on it and it waits for each collective, so the
+        events recorded below cover them too.  Under ``gloo`` the staged
+        exchange blocks the host until the side stream has produced its
+        input, so a speculation overlaps nothing there."""
         if self.device.type != "cuda":
             return self._dispatch_versions(src)
         reads = list(_cuda_leaves(src)) + [

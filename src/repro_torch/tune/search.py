@@ -201,6 +201,7 @@ def autotune_engine(params_q: dict, cfg, *,
     carries the backend the winning engine resolved.
     """
     from ..device import resolve_device
+    from ..distributed.sharding import refuse_process_mesh
     from ..serve.snn_engine import SNNStreamEngine
     from ..serve.telemetry import AdaptiveDispatchConfig
     tc = tune_cfg or AutotuneConfig()
@@ -223,6 +224,7 @@ def autotune_engine(params_q: dict, cfg, *,
 
     # ---- probe: one adaptive run seeds the grid pruning -------------------
     probe_eng = make_engine(default, AdaptiveDispatchConfig(adaptive=True))
+    refuse_process_mesh(getattr(probe_eng, "mesh", None), "the tuner")
     serve_schedule(probe_eng, sched, pixels)
     probe = {
         "density_ewma": probe_eng.controller.density_ewma,
