@@ -41,6 +41,7 @@ from ..distributed.sharding import exchange, mesh_rank
 from ..kernels import fused_snn, ops
 from ..kernels.ops import V_PEAK_INIT
 from . import encoding, fixed_point, lif, prng
+from .spans import span
 from .telemetry import (ChunkTelemetry, layer_tile_skips, model_tile_skips,
                         resolve_sparse_skip)
 
@@ -355,25 +356,27 @@ def snn_apply_int(params_q: dict, pixels_u8: torch.Tensor,
     tuple) and ``telemetry``.  The reference backend's fused-encoder scan
     (``cfg.fuse_encoder`` on one layer) with ``cfg.emit_trace`` off keeps
     no trace: ``v_trace``, ``active_adds``, ``input_spikes``, ``v_peak``
-    and ``telemetry`` are then None.
+    and ``telemetry`` are then None.  The call is the span
+    ``snn.apply_int`` (``core.spans``).
     """
-    b = resolve_backend(cfg, backend, len(params_q["layers"]),
-                        layer_sizes=_param_sizes(params_q),
-                        local_batch=pixels_u8.shape[0],
-                        device=pixels_u8.device)
-    if b in ("fused", "fused_streamed"):
-        res = _apply_int_fused(params_q, pixels_u8, prng_state, cfg,
-                               streamed=b == "fused_streamed")
-    elif b == "staged":
-        res = _apply_int_staged(params_q, pixels_u8, prng_state, cfg)
-    else:
-        res = _apply_int_reference(params_q, pixels_u8, prng_state, cfg)
-    vp = res["v_peak"]
-    res["pred"] = readout_pred(res["spike_counts"], res["first_spike_t"],
-                               res["v_final"], cfg.readout, cfg.num_steps,
-                               v_trace=res["v_trace"],
-                               v_peak=None if vp is None else vp[-1])
-    return res
+    with span("snn.apply_int"):
+        b = resolve_backend(cfg, backend, len(params_q["layers"]),
+                            layer_sizes=_param_sizes(params_q),
+                            local_batch=pixels_u8.shape[0],
+                            device=pixels_u8.device)
+        if b in ("fused", "fused_streamed"):
+            res = _apply_int_fused(params_q, pixels_u8, prng_state, cfg,
+                                   streamed=b == "fused_streamed")
+        elif b == "staged":
+            res = _apply_int_staged(params_q, pixels_u8, prng_state, cfg)
+        else:
+            res = _apply_int_reference(params_q, pixels_u8, prng_state, cfg)
+        vp = res["v_peak"]
+        res["pred"] = readout_pred(res["spike_counts"], res["first_spike_t"],
+                                   res["v_final"], cfg.readout, cfg.num_steps,
+                                   v_trace=res["v_trace"],
+                                   v_peak=None if vp is None else vp[-1])
+        return res
 
 
 def _lif_kw(cfg: SNNConfig) -> dict:

@@ -47,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from ..core.prng import from_carrier, to_carrier
+from ..core.spans import span
 from ._build import check_operand, launch
 from .lif_step import _wrap32
 
@@ -480,7 +481,9 @@ def _run(streamed, pixels_u8, state_u32, weights, v_init, en_init, vp_init,
         return fused_snn_stack_plain(*args, **kw)
     if pixels_u8.device.type != "cuda":
         raise ValueError(f"no stack kernel for device {pixels_u8.device}")
-    return _launch(streamed, *args, sizes, **kw)
+    # the launcher's host work: outputs, alignment checks, the C call
+    with span("fused_snn.launch"):
+        return _launch(streamed, *args, sizes, **kw)
 
 
 def fused_snn_stack(*operands, **options):

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.spans import count, span
 from ..core.telemetry import (DEFAULT_SPIKE_DENSITY_THRESHOLD, ChunkTelemetry,
                               MatmulTelemetry, resolve_density_threshold,
                               resolve_sparse_skip)
@@ -44,15 +45,22 @@ def validate_weight_codes(weights) -> None:
     int8 planes, exact only on that range; the port holds codes to the same
     contract so both packages accept and refuse the same weights.  The
     staged LIF kernel takes any int16 code.
+
+    The check is the span ``ops.validate_weight_codes``; each of its
+    ``int(...)`` reads blocks until the device has caught up, counted in
+    ``host_syncs`` (two a layer; ``core.spans``).
     """
-    for i, w in enumerate(weights):
-        lo, hi = int(w.min()), int(w.max())
-        if lo < -256 or hi > 255:
-            raise ValueError(
-                f"layer {i} weight codes span [{lo}, {hi}] — outside the "
-                f"signed 9-bit range [-256, 255] the fused kernels' int8 "
-                f"packing represents exactly (quantize_params' contract); "
-                f"use the staged or reference backend for wider codes")
+    with span("ops.validate_weight_codes"):
+        for i, w in enumerate(weights):
+            lo, hi = int(w.min()), int(w.max())
+            count("host_syncs", 2)
+            if lo < -256 or hi > 255:
+                raise ValueError(
+                    f"layer {i} weight codes span [{lo}, {hi}] — outside "
+                    f"the signed 9-bit range [-256, 255] the fused kernels' "
+                    f"int8 packing represents exactly (quantize_params' "
+                    f"contract); use the staged or reference backend for "
+                    f"wider codes")
 
 
 def _int16_codes(w_q: torch.Tensor, op: str) -> torch.Tensor:
@@ -221,69 +229,76 @@ def stack_operands(pixels_u8: torch.Tensor, state_u32: torch.Tensor,
     neurons and padded batch rows are disabled, so they neither fire nor
     count as executed adds, and the tile-skip telemetry sees the same
     enable geometry whether the state is fresh or carried.
+
+    The set-up, :func:`stack_weights` included, is the span
+    ``ops.stack_operands`` (``core.spans``).
     """
-    dev = pixels_u8.device
-    B, n_in = pixels_u8.shape
-    L = len(weights)
-    ws, sizes = stack_weights(weights, n_in, layer_sizes, streamed=streamed)
-    bB = fused_snn.block_b_for(B)
-    if streamed:
-        lane = fused_snn.LANE
-        Bp = B + (-B) % bB
-        pads = [n + (-n) % lane for n in sizes]
-        px = _pad2(pixels_u8, bB, lane)
-        st = _pad2(state_u32, bB, lane)
+    with span("ops.stack_operands"):
+        dev = pixels_u8.device
+        B, n_in = pixels_u8.shape
+        L = len(weights)
+        ws, sizes = stack_weights(weights, n_in, layer_sizes,
+                                  streamed=streamed)
+        bB = fused_snn.block_b_for(B)
+        if streamed:
+            lane = fused_snn.LANE
+            Bp = B + (-B) % bB
+            pads = [n + (-n) % lane for n in sizes]
+            px = _pad2(pixels_u8, bB, lane)
+            st = _pad2(state_u32, bB, lane)
 
-        def rows(x):
-            return _pad2(x, bB, lane)
-    else:
-        Bp, pads = B, sizes
-        px = _aligned(_pad_to(pixels_u8, 1, fused_snn.K1_PIXEL_ALIGN))
-        st = _aligned(_pad_to(state_u32, 1, fused_snn.K1_PIXEL_ALIGN))
+            def rows(x):
+                return _pad2(x, bB, lane)
+        else:
+            Bp, pads = B, sizes
+            px = _aligned(_pad_to(pixels_u8, 1, fused_snn.K1_PIXEL_ALIGN))
+            st = _aligned(_pad_to(state_u32, 1, fused_snn.K1_PIXEL_ALIGN))
 
-        def rows(x):
-            return x.contiguous()
+            def rows(x):
+                return x.contiguous()
 
-    def valid_mask(n_true, n_pad):
-        col = torch.arange(n_pad, device=dev)[None, :]
-        row = torch.arange(Bp, device=dev)[:, None]
-        return ((col < n_true) & (row < B)).to(torch.uint8)
+        def valid_mask(n_true, n_pad):
+            col = torch.arange(n_pad, device=dev)[None, :]
+            row = torch.arange(Bp, device=dev)[:, None]
+            return ((col < n_true) & (row < B)).to(torch.uint8)
 
-    def vp_fresh():
-        return tuple(torch.full((Bp, pads[l + 1]), V_PEAK_INIT,
-                                dtype=torch.int32, device=dev)
-                     for l in range(L))
+        def vp_fresh():
+            return tuple(torch.full((Bp, pads[l + 1]), V_PEAK_INIT,
+                                    dtype=torch.int32, device=dev)
+                         for l in range(L))
 
-    if init is None:
-        v_in = tuple(torch.full((Bp, pads[l + 1]), v_rest, dtype=torch.int32,
-                                device=dev) for l in range(L))
-        en_in = tuple(valid_mask(sizes[l + 1], pads[l + 1])
-                      for l in range(L))
-        vp_in = vp_fresh()
-        cnt_in = torch.zeros((Bp, pads[-1]), dtype=torch.int32, device=dev)
-        first_in = torch.full((Bp, pads[-1]), num_steps, dtype=torch.int32,
-                              device=dev)
-        steps_in = torch.zeros((Bp, 1), dtype=torch.int32, device=dev)
-    else:
-        v_in = tuple(rows(init["v"][l]) for l in range(L))
-        # bool is one byte of 0 / 1: the kernels read it as uint8
-        en_in = tuple(rows(init["en"][l].to(torch.bool)).view(torch.uint8)
-                      for l in range(L))
-        vp_in = (vp_fresh() if init.get("v_peak") is None else
-                 tuple(rows(init["v_peak"][l]) for l in range(L)))
-        cnt_in = rows(init["counts"])
-        first_in = rows(init["first"])
-        steps_in = _pad_to(init["steps"].to(torch.int32)[:, None], 0,
-                           bB if streamed else 1)
+        if init is None:
+            v_in = tuple(torch.full((Bp, pads[l + 1]), v_rest,
+                                    dtype=torch.int32, device=dev)
+                         for l in range(L))
+            en_in = tuple(valid_mask(sizes[l + 1], pads[l + 1])
+                          for l in range(L))
+            vp_in = vp_fresh()
+            cnt_in = torch.zeros((Bp, pads[-1]), dtype=torch.int32,
+                                 device=dev)
+            first_in = torch.full((Bp, pads[-1]), num_steps,
+                                  dtype=torch.int32, device=dev)
+            steps_in = torch.zeros((Bp, 1), dtype=torch.int32, device=dev)
+        else:
+            v_in = tuple(rows(init["v"][l]) for l in range(L))
+            # bool is one byte of 0 / 1: the kernels read it as uint8
+            en_in = tuple(rows(init["en"][l].to(torch.bool)).view(torch.uint8)
+                          for l in range(L))
+            vp_in = (vp_fresh() if init.get("v_peak") is None else
+                     tuple(rows(init["v_peak"][l]) for l in range(L)))
+            cnt_in = rows(init["counts"])
+            first_in = rows(init["first"])
+            steps_in = _pad_to(init["steps"].to(torch.int32)[:, None], 0,
+                               bB if streamed else 1)
 
-    gate_in = None
-    if gate is not None:
-        gate_in = tuple(_pad_to(gate[k].to(torch.int32)[:, None], 0,
-                                bB if streamed else 1)
-                        for k in ("active", "prev", "streak"))
-    args = [px, st, ws, v_in, en_in, vp_in, cnt_in, first_in, steps_in,
-            gate_in]
-    return args, {"B": B, "sizes": sizes, "block_b": bB}
+        gate_in = None
+        if gate is not None:
+            gate_in = tuple(_pad_to(gate[k].to(torch.int32)[:, None], 0,
+                                    bB if streamed else 1)
+                            for k in ("active", "prev", "streak"))
+        args = [px, st, ws, v_in, en_in, vp_in, cnt_in, first_in, steps_in,
+                gate_in]
+        return args, {"B": B, "sizes": sizes, "block_b": bB}
 
 
 def stack_results(outs, meta: dict) -> dict:
