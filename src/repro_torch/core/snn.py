@@ -21,7 +21,10 @@ integers:
   reference       — per-step torch ops (:func:`snn_int_stack_step`)
   auto            — on a CUDA device the chain fused → fused_streamed →
                     staged, the first whose kernel holds the stack; the
-                    reference on the CPU
+                    reference on the CPU.  A whole-window call that the
+                    chain gives to fused_streamed runs staged instead
+                    (:func:`snn_apply_int`): layer by layer over all T
+                    steps, since it need not resume
 
 On CPU tensors every kernel backend runs its kernels' plain versions.
 
@@ -41,7 +44,7 @@ from ..distributed.sharding import exchange, mesh_rank
 from ..kernels import fused_snn, ops
 from ..kernels.ops import V_PEAK_INIT
 from . import encoding, fixed_point, lif, prng
-from .spans import span
+from .spans import count, span
 from .telemetry import (ChunkTelemetry, layer_tile_skips, model_tile_skips,
                         resolve_sparse_skip)
 
@@ -344,6 +347,30 @@ def readout_pred(counts: torch.Tensor, first_t: torch.Tensor,
     return torch.argmax(score, dim=-1)
 
 
+def _whole_window_backend(cfg: SNNConfig, backend: str | None,
+                          layer_sizes: tuple[int, ...], lanes: int,
+                          device) -> tuple[str, bool]:
+    """The backend a whole-window :func:`snn_apply_int` call runs, and
+    whether its codes are held to the stack kernels' signed 9-bit range.
+
+    :func:`resolve_backend`'s, except where an ``auto`` request reaches
+    ``fused_streamed``: a stack the resident kernel cannot hold then runs
+    the staged kernels, layer by layer over all T steps, which beat the
+    step-major streaming kernel at every lane count measured, 64 to
+    10,000 (``PERF.md`` §6, the lane-count table), so no lane count
+    keeps it.  The codes are still validated there, as on the stack
+    kernels, so that ``auto`` refuses the same weights on every route.
+    An explicit ``fused_streamed`` launches the streaming kernel.
+    """
+    b = resolve_backend(cfg, backend, len(layer_sizes) - 1,
+                        layer_sizes=layer_sizes, local_batch=lanes,
+                        device=device)
+    requested = backend if backend is not None else cfg.backend
+    if b == "fused_streamed" and requested == "auto":
+        return "staged", True
+    return b, b in ("fused", "fused_streamed")
+
+
 def snn_apply_int(params_q: dict, pixels_u8: torch.Tensor,
                   prng_state: torch.Tensor, cfg: SNNConfig, *,
                   backend: str | None = None):
@@ -357,13 +384,18 @@ def snn_apply_int(params_q: dict, pixels_u8: torch.Tensor,
     (``cfg.fuse_encoder`` on one layer) with ``cfg.emit_trace`` off keeps
     no trace: ``v_trace``, ``active_adds``, ``input_spikes``, ``v_peak``
     and ``telemetry`` are then None.  The call is the span
-    ``snn.apply_int`` (``core.spans``).
+    ``snn.apply_int`` and counts once in the counter
+    ``snn.apply_int.<backend>`` of the backend that ran (``core.spans``).
     """
     with span("snn.apply_int"):
-        b = resolve_backend(cfg, backend, len(params_q["layers"]),
-                            layer_sizes=_param_sizes(params_q),
-                            local_batch=pixels_u8.shape[0],
-                            device=pixels_u8.device)
+        b, nine_bit = _whole_window_backend(cfg, backend,
+                                            _param_sizes(params_q),
+                                            pixels_u8.shape[0],
+                                            pixels_u8.device)
+        count("snn.apply_int." + b)
+        if nine_bit:
+            ops.validate_weight_codes(tuple(layer["w_q"]
+                                            for layer in params_q["layers"]))
         if b in ("fused", "fused_streamed"):
             res = _apply_int_fused(params_q, pixels_u8, prng_state, cfg,
                                    streamed=b == "fused_streamed")
@@ -391,7 +423,6 @@ def _apply_int_fused(params_q, pixels_u8, prng_state, cfg: SNNConfig, *,
     """One stack-kernel launch over the whole window (resident, or with the
     weights streamed when ``streamed``)."""
     weights = tuple(layer["w_q"] for layer in params_q["layers"])
-    ops.validate_weight_codes(weights)
     k = ops.fused_snn_stack_op(pixels_u8, prng_state, weights,
                                num_steps=cfg.num_steps,
                                sparse_skip=cfg.sparse_skip, streamed=streamed,

@@ -147,7 +147,8 @@ def test_snn_apply_int_records_its_wrapper(backend):
     (_, c0, c1), *inner = rec.intervals
     assert all(c0 <= s <= e <= c1 for _, s, e in inner)
     assert {k: v[1] for k, v in rec.totals.items()} == dict.fromkeys(names, 1)
-    assert rec.counters == {"host_syncs": 2 * (len(sizes) - 1)}
+    assert rec.counters == {"host_syncs": 2 * (len(sizes) - 1),
+                            "snn.apply_int." + backend: 1}
     assert sorted(on) == sorted(off)
     assert int(off["spike_counts"].sum()) > 0
     for k in off:
@@ -186,7 +187,7 @@ def test_launch_span_precedes_its_kernel_on_the_profiler_clock(card):
             torch.cuda.synchronize()
     assert fused_snn.fused_snn_stack.launches == launches + 1
     assert rec.totals["fused_snn.launch"][1] == 1
-    assert rec.counters == {"host_syncs": 2}
+    assert rec.counters == {"host_syncs": 2, "snn.apply_int.fused": 1}
     opened = {name: t0 for name, t0, _ in rec.intervals}
     dev = torch.autograd.DeviceType.CUDA
     starts = [e.start_ns() for e in prof.profiler.kineto_results.events()
