@@ -53,7 +53,7 @@ def main(argv=None) -> int:
                               c["ok"] for c in rec["checks"].values()),
                           "control_correct": all(
                               c["ok"] for c in rec["control_checks"].values()),
-                          "images": rec["images"],
+                          **rec["counts"],
                           "window_s": rec["window_s"]}), flush=True)
     print(json.dumps({"workload": args.workload, "program_max": low,
                       "control_min": high}), flush=True)

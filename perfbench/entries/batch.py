@@ -130,6 +130,8 @@ def run(ctx: harness.Context) -> None:
     lane_steps = n * B * T
     rec.update(window_s=t1 - t0, images=n * B, launches=n,
                lane_steps=lane_steps,
+               counts={"images": n * B, "launches": n,
+                       "lane_steps": lane_steps},
                work={"ops": work.ops_per_lane_step(sizes) * lane_steps,
                      "bytes": work.batch_call_bytes(sizes, B) * n},
                spans={kk: list(v) for kk, v in spans.totals.items()},

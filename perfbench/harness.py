@@ -11,7 +11,9 @@ and inputs from the seed and warms up the cell's own shapes), the measured
 window, then, with the window closed and the program's state freed, the
 comparison with the plain reference that decides ``correct``.  The entry
 writes the window's work (the model's operations and bytes, ``work``)
-into the record, so that no reader needs to know the kind of entry.
+into the record, so that no reader needs to know the kind of entry, and
+the window's counts (``counts``: name to whole number) that ``run.py``
+and ``control.py`` print.
 """
 
 from __future__ import annotations
@@ -138,15 +140,17 @@ def _power_limit() -> str | None:
 
 def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
              device, t_start: float, *, control: bool = False,
-             traffic: dict | None = None) -> dict:
+             traffic: dict | None = None, config: dict | None = None) -> dict:
     """One run of cell ``name``; returns the record its metrics read.
 
     ``control`` also judges the control (``control_checks``): the
-    reference at 8-bit codes put in the program's place, on the same
-    requests.  ``traffic`` replaces some of the cell's traffic parameters
-    (the CPU tests run the same path at a size a test holds)."""
+    entry's reference in a lower precision put in the program's place, on
+    the same requests.  ``traffic`` and ``config`` replace some of the
+    cell's traffic parameters and configuration keys (the CPU tests run
+    the same path at a size a test holds)."""
     cell, cfg, tr = cell_files(load_benchmark(root), name)
-    ctx = Context(cell=cell, cfg=cfg, traffic=dict(tr, **(traffic or {})),
+    ctx = Context(cell=cell, cfg=dict(cfg, **(config or {})),
+                  traffic=dict(tr, **(traffic or {})),
                   seed=int(seed), seconds=float(seconds), trace=trace,
                   device=torch.device(device), t_start=t_start)
     ctx.mark("imports")

@@ -77,10 +77,12 @@ def main(argv=None) -> int:
     line = harness.result_line(ROOT, rec, bool(args.trace))
     print("setup " + " ".join(f"{k} {v:.3f}s" for k, v in
                               rec["setup_parts"].items()), file=sys.stderr)
-    print(f"window {rec['window_s']:.3f}s images {rec['images']} launches "
-          f"{rec['launches']} lane_steps {rec['lane_steps']} " + " ".join(
+    print(f"window {rec['window_s']:.3f}s " + " ".join(
+        f"{k} {v}" for k, v in rec["counts"].items()) + " " + " ".join(
               f"{k} {v[0]:.3f}s/{v[1]}" for k, v in rec["spans"].items())
           + f" gc {rec['gc'][1]:.3f}s/{rec['gc'][0]}", file=sys.stderr)
+    if "reference_s" in rec:
+        print(f"reference {rec['reference_s']:.3f}s", file=sys.stderr)
     ticks = rec.get("ticks") or []
     print("calls by second " + " ".join(
         str(b[1] - a[1]) for a, b in zip(ticks, ticks[1:])), file=sys.stderr)
