@@ -5,8 +5,12 @@ architectures live in sibling modules (``qwen3_4b.py`` …) and register
 themselves in ``configs.registry``.  ``reduced()`` derives the CPU-smoke
 variant of any config (same family/feature flags, tiny dims).
 
-Field for field the dataclasses of ``repro.configs.base``; ``dtype`` is the
-compute dtype as a ``torch.dtype``.
+Field for field the dataclasses of ``repro.configs.base``, followed by the
+port's own fields (:data:`PORT_FIELDS`: a per-layer pattern, grouped Mamba
+heads, attention without rotary embedding, the sigmoid router's dropless
+held-expert MoE with a shared expert), which every architecture of the JAX
+package leaves at their defaults; ``dtype`` is the compute dtype as a
+``torch.dtype``.
 """
 
 from __future__ import annotations
@@ -15,7 +19,12 @@ from dataclasses import dataclass, replace
 
 import torch
 
-__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "reduced"]
+__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "reduced", "PORT_FIELDS",
+           "PATTERN_KINDS"]
+
+# a pattern's letters: a block of one Mamba-2 mixer, one MoE or one
+# attention mixer (Nemotron-H's ``hybrid_override_pattern``)
+PATTERN_KINDS = {"M": "mamba", "E": "moe", "*": "attn"}
 
 
 @dataclass(frozen=True)
@@ -80,6 +89,24 @@ class ArchConfig:
     # padding for TP divisibility (0 ⇒ num_heads); see DESIGN.md §8
     padded_num_heads: int = 0
 
+    # ---- the port's own fields (PORT_FIELDS); JAX's archs keep defaults
+    # per-layer pattern: layer i is one pre-norm block of kind
+    # PATTERN_KINDS[layer_pattern[i]] ("" ⇒ the family's plan)
+    layer_pattern: str = ""
+    ssm_num_heads: int = 0                 # >0 ⇒ d_inner = heads·head_dim
+    ssm_groups: int = 1                    # B/C groups; the gated norm's too
+    use_rope: bool = True                  # False: attention with no RoPE
+    # recompute each query chunk's scores in the backward and stop its
+    # keys at its last query (long causal sequences)
+    attn_chunk_remat: bool = False
+    # "softmax": top-k of the softmax, capacity dispatch; "sigmoid": the
+    # sigmoid router with a correction bias, dropless held-expert dispatch
+    moe_router: str = "softmax"
+    moe_routed_scale: float = 1.0          # routed weights × this (sigmoid)
+    moe_shared_ff: int = 0                 # >0 ⇒ a shared expert this wide
+    moe_experts_held: int = 0              # experts this chip holds (0: all)
+    moe_expert_offset: int = 0             # the first of them
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // max(self.num_heads, 1))
@@ -93,11 +120,19 @@ class ArchConfig:
 
     @property
     def d_inner(self) -> int:               # mamba inner width
+        if self.ssm_num_heads:
+            return self.ssm_num_heads * self.ssm_head_dim
         return self.ssm_expand * self.d_model
 
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def experts_held(self) -> int:
+        """Experts whose weights this model holds (of ``moe_num_experts``
+        routed over)."""
+        return self.moe_experts_held or self.moe_num_experts
 
     @property
     def is_encdec(self) -> bool:
@@ -126,15 +161,20 @@ class ArchConfig:
 
         def moe_ffn():
             per = n_mats * d * self.d_ff
-            return self.moe_num_experts * per + d * self.moe_num_experts
+            return (self.experts_held * per + d * self.moe_num_experts
+                    + n_mats * d * self.moe_shared_ff)   # shared expert
 
         def mamba_params():
-            di, N, H = self.d_inner, self.ssm_state, self.ssm_heads
+            di, H = self.d_inner, self.ssm_heads
+            N = self.ssm_state * self.ssm_groups    # B/C widths
             return (d * (2 * di + 2 * N + H)   # wz,wx,wb,wc,wdt projections
                     + self.ssm_conv * (di + 2 * N)
                     + di * d + 3 * H + di)     # out_proj, A/D/dt_bias, norm
 
-        for i in range(L):
+        block = {"mamba": mamba_params, "attn": attn_params, "moe": moe_ffn}
+        for c in self.layer_pattern[:L]:       # one norm and one mixer
+            total += d + block[PATTERN_KINDS[c]]()
+        for i in range(0 if self.layer_pattern else L):
             is_attn = True
             if self.attn_layer_period:
                 is_attn = (i % self.attn_layer_period) == self.attn_layer_offset
@@ -162,11 +202,24 @@ class ArchConfig:
         full = self.param_count()
         per_expert = (3 if self.activation in ("silu", "gelu") else 2) \
             * self.d_model * self.d_ff
-        n_moe_layers = sum(
-            1 for i in range(self.num_layers)
-            if (i % self.moe_period == self.moe_period - 1))
-        inactive = n_moe_layers * (self.moe_num_experts - self.moe_top_k) * per_expert
+        if self.layer_pattern:
+            n_moe_layers = self.layer_pattern[:self.num_layers].count("E")
+        else:
+            n_moe_layers = sum(
+                1 for i in range(self.num_layers)
+                if (i % self.moe_period == self.moe_period - 1))
+        # a token passes through top_k of the E experts routed over: of
+        # the ones held here, top_k · held / E on average
+        e, held = self.moe_num_experts, self.experts_held
+        inactive = n_moe_layers * per_expert \
+            * (held * e - self.moe_top_k * held) // e
         return int(full - inactive)
+
+
+# the fields the JAX package's ArchConfig lacks, in their order
+PORT_FIELDS = ("layer_pattern", "ssm_num_heads", "ssm_groups", "use_rope",
+               "attn_chunk_remat", "moe_router", "moe_routed_scale",
+               "moe_shared_ff", "moe_experts_held", "moe_expert_offset")
 
 
 @dataclass(frozen=True)
@@ -190,6 +243,9 @@ def reduced(cfg: ArchConfig, *, layers: int = 2, d_model: int = 64,
     """CPU-smoke variant: same family & feature flags, tiny dims."""
     heads = max(1, min(cfg.num_heads, 4))
     kv = max(1, min(cfg.num_kv_heads, heads))
+    if cfg.layer_pattern:       # the pattern's prefix holding every kind
+        layers = max(layers, 1 + max(cfg.layer_pattern.index(c)
+                                     for c in set(cfg.layer_pattern)))
     kw = dict(
         name=cfg.name + "-reduced",
         num_layers=max(layers, cfg.attn_layer_period or layers),
@@ -210,10 +266,18 @@ def reduced(cfg: ArchConfig, *, layers: int = 2, d_model: int = 64,
         kw["moe_capacity_factor"] = 8.0
         if cfg.moe_dense_residual:
             kw["dense_residual_ff"] = d_model
+    if cfg.moe_shared_ff:
+        kw["moe_shared_ff"] = d_model * 2
+    if cfg.moe_experts_held:
+        kw["moe_experts_held"] = kw["moe_num_experts"]
+        kw["moe_expert_offset"] = 0
     if cfg.ssm_state:
         kw["ssm_state"] = 16
         kw["ssm_head_dim"] = 16
         kw["ssm_chunk"] = 8
+    if cfg.ssm_num_heads:       # d_inner from expand · d_model again
+        kw["ssm_num_heads"] = 0
+        kw["ssm_groups"] = min(cfg.ssm_groups, 2)
     if cfg.encoder_layers:
         kw["encoder_layers"] = 2
         kw["encoder_seq"] = 16

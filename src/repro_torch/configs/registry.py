@@ -2,7 +2,8 @@
 
 Every assigned architecture registers an :class:`ArchConfig` here; the
 paper's own model (snn-mnist) is a separate family handled by
-``configs.snn_mnist``.
+``configs.snn_mnist``.  :data:`PORT_ONLY` names the architectures the JAX
+package does not have.
 """
 
 from __future__ import annotations
@@ -10,7 +11,10 @@ from __future__ import annotations
 from .base import ArchConfig, SHAPES, reduced
 
 __all__ = ["register", "get_config", "get_reduced", "list_archs", "SHAPES",
-           "shape_cells", "cell_is_live"]
+           "shape_cells", "cell_is_live", "PORT_ONLY"]
+
+# the architectures only the port registers
+PORT_ONLY = ("nemotron-3-nano-30b-a3b",)
 
 _REGISTRY: dict[str, ArchConfig] = {}
 
@@ -65,5 +69,6 @@ def _ensure_loaded():
     _loaded = True
     from . import (arctic_480b, dbrx_132b, gemma2_9b,  # noqa: F401
                    jamba_v01_52b, llama3_8b, llava_next_34b,  # noqa: F401
-                   mamba2_1p3b, nemotron_4_340b, qwen3_4b,  # noqa: F401
-                   snn_mnist, whisper_small)  # noqa: F401
+                   mamba2_1p3b, nemotron_3_nano_30b,  # noqa: F401
+                   nemotron_4_340b, qwen3_4b, snn_mnist,  # noqa: F401
+                   whisper_small)  # noqa: F401

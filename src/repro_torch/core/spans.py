@@ -14,7 +14,11 @@ device events in, so a span can be laid over a device trace: which host
 span was open while the device sat idle.
 
 Recording is per process and meant for one thread: spans opened on other
-threads while it is on land in the same record, interleaved.
+threads while it is on land in the same record, interleaved.  A span or
+counter inside a layer that remat recomputes runs again in the backward
+and counts again (the recompute runs on the thread that called
+``backward``, on the CPU; on CUDA the autograd engine's device thread runs
+it, into the same record).
 
     from repro_torch.core import spans
     with spans.recording() as rec:

@@ -24,7 +24,9 @@ a cache, a batch) on a process mesh under them, as DTensors: what the
 reference's ``in_shardings`` do.  Every family's trees are placed so: MoE
 weights by expert, a hybrid stack's mixed attention and Mamba caches,
 whisper's cross caches and frames, llava's patches, and Adafactor's row
-and column moments on the dims of the parameter they keep.  Without a
+and column moments on the dims of the parameter they keep.  The pieces
+only the port's Nemotron-H has (:func:`unplaced_pieces`) have no rule:
+``place`` refuses a model that holds one, naming it.  Without a
 process group nothing is placed and the one-process path runs
 (``distributed.sharding.shard`` then only checks names).
 """
@@ -41,6 +43,7 @@ from ..optim.optimizer import (AdafactorState, AdamWState, SGDState,
 from .sharding import DeviceMesh, ShardingRules, placements
 
 __all__ = ["param_logical_axes", "param_specs", "cache_specs", "batch_specs",
+           "unplaced_pieces",
            "opt_state_specs", "to_shardings", "train_state_specs", "place"]
 
 Tree = Any
@@ -252,13 +255,55 @@ def _place_tensor(t: torch.Tensor, entries, tmesh):
                               tmesh, pl, run_check=False)
 
 
+def unplaced_pieces(cfg) -> list[str]:
+    """The pieces of ``cfg`` no placement rule covers: the port's own
+    fields (``configs.base.PORT_FIELDS``) that change a layer; [] for
+    every architecture of the JAX package."""
+    pieces = []
+    if cfg.layer_pattern:
+        pieces.append("layer_pattern (blocks of one mixer or one FFN)")
+    if cfg.ssm_groups != 1:
+        pieces.append(f"ssm_groups={cfg.ssm_groups} (grouped B/C and "
+                      f"gated norm)")
+    if cfg.attn_chunk_remat:
+        pieces.append("attn_chunk_remat (chunked attention's recompute)")
+    if cfg.moe_router != "softmax":
+        pieces.append(f"moe_router={cfg.moe_router!r} (the dropless "
+                      f"held-expert dispatch)")
+    if cfg.moe_shared_ff:
+        pieces.append("moe_shared_ff (the shared expert)")
+    if cfg.moe_experts_held:
+        pieces.append("moe_experts_held (a share of the experts)")
+    return pieces
+
+
+def _models(tree):
+    """The ``nn.Module``s with a ``cfg`` in ``tree``."""
+    if isinstance(tree, nn.Module):
+        if hasattr(tree, "cfg"):
+            yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _models(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _models(v)
+
+
 def place(tree: Tree, spec_tree: Tree, mesh: DeviceMesh) -> Tree:
     """``tree`` (tensors, ``nn.Module``s, dicts, lists, named tuples;
     ints and None pass) with every tensor a DTensor on ``mesh``'s process
     mesh under the mesh-axis tuples of ``spec_tree`` (:func:`to_shardings`'
     output).  A module's parameters are replaced in place (it is returned);
     nothing else is modified.  Raises where ``mesh`` has no process mesh:
-    there is no unplaced fallback."""
+    there is no unplaced fallback; and ``NotImplementedError`` for a model
+    whose config has :func:`unplaced_pieces`."""
+    for model in _models(tree):
+        pieces = unplaced_pieces(model.cfg)
+        if pieces:
+            raise NotImplementedError(
+                f"{model.cfg.name}: no placement for "
+                + "; ".join(pieces))
     tmesh = mesh.torch_mesh
     if tmesh is None:
         raise RuntimeError(

@@ -25,7 +25,9 @@ rank 0's own, as XLA's per-device figures are.  One JSON per cell under
     max(result, operand), all-reduce × 2), their total and counts.
 
 The group is destroyed before the next cell.  The counts are of the
-port's program on ``meta``, not measurements.
+port's program on ``meta``, not measurements.  An architecture with
+pieces ``place`` has no rule for (``partition.unplaced_pieces``) is left
+out of the grid (:func:`dryrun_archs`).
 Each cell's op log is archived gzipped under ``--log-dir``, so
 ``launch.recost`` can recompute the cost fields without running anything.
 Nothing touches a device: no allocation, no CUDA context.
@@ -54,7 +56,8 @@ from torch import nn
 
 from ..configs import SHAPES, cell_is_live, get_config, list_archs
 from ..distributed.partition import (batch_specs, cache_specs, param_specs,
-                                     place, to_shardings, train_state_specs)
+                                     place, to_shardings, train_state_specs,
+                                     unplaced_pieces)
 from ..distributed.sharding import make_rules, use_rules
 from ..serve.engine import ServeState, make_decode_step, make_prefill
 from ..train.step import TrainSettings, init_state, make_train_step
@@ -63,8 +66,8 @@ from .op_cost import COLLECTIVES, OpCounter, _leaves, cost_log
 from .specs import (abstract_params, decode_state_spec, num_microbatches,
                     prefill_inputs, train_inputs)
 
-__all__ = ["build_cell", "run_cell", "shard_bytes", "fake_group", "compare",
-           "f32_copies_at_peak", "main"]
+__all__ = ["build_cell", "run_cell", "dryrun_archs", "shard_bytes",
+           "fake_group", "compare", "f32_copies_at_peak", "main"]
 
 
 @contextlib.contextmanager
@@ -469,6 +472,13 @@ def compare(port_dir: str, jax_dir: str, dump_dir: str | None = None) -> list:
     return rows
 
 
+def dryrun_archs() -> list[str]:
+    """The grid's architectures: every LM of the registry but those with
+    pieces ``place`` refuses (``partition.unplaced_pieces``)."""
+    return [a for a in list_archs() if get_config(a).family != "snn"
+            and not unplaced_pieces(get_config(a))]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -496,8 +506,7 @@ def main(argv=None):
             print(json.dumps(r))
         return
 
-    archs = [args.arch] if args.arch else \
-        [a for a in list_archs() if get_config(a).family != "snn"]
+    archs = [args.arch] if args.arch else dryrun_archs()
     shapes = [args.shape] if args.shape else list(SHAPES)
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]

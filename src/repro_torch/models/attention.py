@@ -14,7 +14,11 @@ bf16 tensors in torch returns bf16, so the operands are rounded to bf16 and
 multiplied as float32 (exact products, float32 sums, no second rounding).
 Masked scores are ``-1e30`` (not ``-inf``) and the softmax is float32.
 Queries run in chunks of ``q_chunk`` so the score matrix never grows past
-(q_chunk, Sk).
+(q_chunk, Sk).  With ``cfg.attn_chunk_remat`` (long causal sequences) a
+chunk's keys stop at its last query, and in a recorded forward each
+chunk's scores are recomputed in the backward, so that autograd holds no
+(Sq, Sk) matrix: the masked keys' exact zeros are left out of the sums,
+which changes no value but their order.
 
 On a DTensor input (a placed model, ``distributed.partition.place``) the
 block runs on local shards (``distributed.sharding.run_local``) as GSPMD
@@ -35,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..distributed.sharding import (all_gather, all_reduce, is_placed,
                                     logical_placements, mesh_rank,
@@ -139,12 +144,16 @@ def _mask(kpos, qpos, *, causal, window, kv_valid_len):
 
 def _chunked_scores_attend(q, k, v, *, q_positions, causal: bool,
                            window: int | None, cap: float | None,
-                           kv_valid_len, q_chunk: int):
+                           kv_valid_len, q_chunk: int,
+                           chunk_remat: bool = False):
     """Tiled softmax(QKᵀ)V.  q: (B,Sq,H,hd), k/v: (B,Sk,H,hd).
 
     q_positions: (B, Sq) absolute positions of the queries (for causal and
     sliding-window masks against key positions 0..Sk-1).
     kv_valid_len: None or (B,) — keys at index >= valid_len are masked.
+    chunk_remat: causal self-attention over the queries at positions
+    0..Sq-1 (``cfg.attn_chunk_remat``): a chunk's keys stop at its last
+    query, and its scores are recomputed in the backward.
     """
     b, sq, h, hd = q.shape
     sk = k.shape[1]
@@ -152,7 +161,7 @@ def _chunked_scores_attend(q, k, v, *, q_positions, causal: bool,
     kpos = torch.arange(sk, dtype=torch.int32, device=q.device)
     kb, vb = _bf16(k), _bf16(v)
 
-    def one_chunk(qc, qpos):                  # (B, cq, H, hd), (B, cq)
+    def one_chunk(qc, qpos, kb, vb, kpos):    # (B, cq, H, hd), (B, cq)
         s = torch.einsum("bqhd,bshd->bhqs", _bf16(qc), kb) * scale
         if cap is not None:
             s = softcap(s, cap)
@@ -164,13 +173,19 @@ def _chunked_scores_attend(q, k, v, *, q_positions, causal: bool,
         return o.to(q.dtype)
 
     if sq <= q_chunk:
-        return one_chunk(q, q_positions)
+        return one_chunk(q, q_positions, kb, vb, kpos)
 
     while sq % q_chunk:          # largest divisor ≤ requested chunk
         q_chunk -= 1
-    return torch.cat([one_chunk(q[:, i:i + q_chunk],
-                                q_positions[:, i:i + q_chunk])
-                      for i in range(0, sq, q_chunk)], dim=1)
+    remat = chunk_remat and torch.is_grad_enabled() and q.requires_grad
+    outs = []
+    for i in range(0, sq, q_chunk):
+        keys = slice(0, i + q_chunk if chunk_remat else sk)
+        args = (q[:, i:i + q_chunk], q_positions[:, i:i + q_chunk],
+                kb[:, keys], vb[:, keys], kpos[keys])
+        outs.append(checkpoint(one_chunk, *args, use_reentrant=False)
+                    if remat else one_chunk(*args))
+    return torch.cat(outs, dim=1)
 
 
 def _gqa_decode_attend(q, k, v, *, n_rep: int, q_positions,
@@ -285,7 +300,9 @@ def attention(params: Attention, x: torch.Tensor, *, cfg, mode: str,
         out = _chunked_scores_attend(
             q, _repeat_kv(k_new, n_rep), _repeat_kv(v_new, n_rep),
             q_positions=positions, causal=not cross, window=layer_window,
-            cap=cfg.attn_softcap, kv_valid_len=None, q_chunk=q_chunk)
+            cap=cfg.attn_softcap, kv_valid_len=None, q_chunk=q_chunk,
+            chunk_remat=cfg.attn_chunk_remat and not cross
+            and layer_window is None)
         if mode == "prefill":
             new_cache = AttnCache(k=shard(k_new, "batch", "kv_seq", None, None),
                                   v=shard(v_new, "batch", "kv_seq", None, None))

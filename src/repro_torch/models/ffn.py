@@ -15,6 +15,30 @@ them).  The group is ``min(moe_group, S)`` tokens, so decode routes groups
 of one token and prefill groups of up to ``moe_group``: capacity drops can
 differ between the two, as in the JAX package.
 
+Nemotron-H's MoE (``cfg.moe_router == "sigmoid"``, the port's own) is
+dropless and held in part: the router scores every token over all E
+experts in float32 with a sigmoid, chooses the top k by score plus a
+correction bias (a buffer, zero as published; the aux-loss-free update of
+it is a training procedure left out), and weighs each choice by its
+unbiased score, renormalised over the k and times ``moe_routed_scale``.
+The layer holds ``cfg.experts_held`` experts from ``moe_expert_offset``
+and computes only their part: the (token, choice) pairs of held experts
+are sorted by expert, gathered by an index, each held expert runs its
+product on its own rows, and the results are scatter-added by their
+weights; no capacity, nothing dropped.  A shared expert
+(``moe_shared_ff``) is added for every token.  The expert counts come to
+the host once a call (one blocking read).  Its load-balance and z-losses
+are the capacity path's, on the scores normalised over the E experts.
+Its host time is marked with the spans ``moe.route``, ``moe.dispatch``,
+``moe.experts`` and ``moe.combine`` (``core.spans``), the blocking read
+also with ``moe.count_read`` inside ``moe.dispatch`` (it waits for the
+device to finish all the work queued before it), and it counts
+``moe.rows`` (token-choices computed by held experts), ``moe.rows_max``
+(the busiest held expert's rows), ``moe.dropped`` (0: dropless) and
+``moe.host_syncs`` (blocking device-to-host reads).  A remat recompute
+runs the layer again in the backward, and its spans and counters count
+again: under remat a training step records each layer call twice.
+
 Placed over a mesh, the MoE is expert-parallel without an all-to-all:
 with the groups on the data axes and the tokens replicated over the model
 axis (the sequence gathered before the FFN), each model shard routes every
@@ -31,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import spans
 from ..distributed.sharding import (all_reduce, is_placed,
                                     logical_placements, mesh_rank,
                                     mesh_ways, model_sharded,
@@ -107,18 +132,31 @@ def _placed_ffn(params: MLP, x, cfg):
 # ---------------------------------------------------------------------------
 
 class MoE(nn.Module):
-    """router (D, E); w1 / w3 (E, D, F); w2 (E, F, D)."""
+    """router (D, E); w1 / w3 (E_held, D, F); w2 (E_held, F, D), the
+    experts held (all E but for the sigmoid router's share); with the
+    sigmoid router the correction bias ``score_bias`` (E,), a buffer, and
+    where ``moe_shared_ff`` is set the ``shared`` expert (an :class:`MLP`
+    of that width)."""
 
     def __init__(self, cfg, *, generator: torch.Generator | None):
         super().__init__()
         d, f, e = cfg.d_model, cfg.d_ff, cfg.moe_num_experts
+        held = cfg.experts_held
         g = generator
         self.router = nn.Parameter(dense_init((d, e), generator=g))
-        self.w1 = nn.Parameter(dense_init((e, d, f), in_axis=1, generator=g))
-        self.w2 = nn.Parameter(dense_init((e, f, d), in_axis=1, generator=g))
-        self.w3 = nn.Parameter(dense_init((e, d, f), in_axis=1,
+        self.w1 = nn.Parameter(dense_init((held, d, f), in_axis=1,
+                                          generator=g))
+        self.w2 = nn.Parameter(dense_init((held, f, d), in_axis=1,
+                                          generator=g))
+        self.w3 = nn.Parameter(dense_init((held, d, f), in_axis=1,
                                           generator=g)) \
             if is_gated(cfg.activation) else None
+        if cfg.moe_router == "sigmoid":
+            dev = g.device if g is not None else None
+            self.register_buffer("score_bias", torch.zeros((e,), device=dev),
+                                 persistent=False)
+        self.shared = MLP(cfg, cfg.moe_shared_ff, generator=g) \
+            if cfg.moe_shared_ff else None
 
 
 def moe_params(cfg, *, generator: torch.Generator | None) -> MoE:
@@ -148,6 +186,8 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg, *, group_size: int = 1024):
     """
     if is_placed(x):
         return _placed_moe(params, x, cfg, group_size=group_size)
+    if cfg.moe_router == "sigmoid":
+        return _dropless_moe(params, x, cfg)
     b, s, d = x.shape
     sg = min(group_size, s)
     if (b * s) % sg:
@@ -230,6 +270,74 @@ def _experts(xg, dispatch, combine, w1, w2, w3, cfg):
     out_e = torch.einsum("egcf,efd->egcd", h, w2.to(dt))
     out_e = shard(out_e, "experts", "batch", None, None)
     return torch.einsum("gsec,egcd->gsd", combine, out_e)       # back to tokens
+
+
+def _sigmoid_route(x2: torch.Tensor, params: MoE, cfg):
+    """Nemotron-H's router over tokens ``x2`` (T, D): the float32 logits
+    and sigmoid scores (T, E), the top-k experts by score plus correction
+    bias (T, k), and their weights (T, k): the unbiased scores
+    renormalised over the k, times ``moe_routed_scale``."""
+    logits = x2.to(torch.float32) @ params.router.to(torch.float32)
+    scores = torch.sigmoid(logits)
+    top_e = torch.topk(scores + params.score_bias, cfg.moe_top_k,
+                       dim=-1).indices
+    w = torch.gather(scores, -1, top_e)
+    w = w / (w.sum(-1, keepdim=True) + 1e-20) * cfg.moe_routed_scale
+    return logits, scores, top_e, w
+
+
+def _dropless_moe(params: MoE, x: torch.Tensor, cfg):
+    """The sigmoid router's dropless MoE on the experts held (see the
+    module docstring).  x: (B, S, D) -> (B, S, D), aux."""
+    dt = x.dtype
+    b, s, d = x.shape
+    e, k, held = cfg.moe_num_experts, cfg.moe_top_k, cfg.experts_held
+    x2 = x.reshape(b * s, d)
+    with spans.span("moe.route"):
+        logits, scores, top_e, w = _sigmoid_route(x2, params, cfg)
+    with spans.span("moe.dispatch"):
+        # (token, choice) pairs by held expert; the rest sorted last
+        local = top_e.reshape(-1) - cfg.moe_expert_offset
+        local = torch.where((local >= 0) & (local < held), local, held)
+        order = torch.argsort(local, stable=True)
+        with spans.span("moe.count_read"):
+            sizes = torch.bincount(local, minlength=held + 1)[:held].tolist()
+            spans.count("moe.host_syncs")
+        rows = order[:sum(sizes)]
+        tok = rows // k
+        xs = x2[tok]
+    with spans.span("moe.experts"):
+        act = activation_fn(cfg.activation)
+        w1s, w2s = params.w1.to(dt).unbind(0), params.w2.to(dt).unbind(0)
+        w3s = params.w3.to(dt).unbind(0) if params.w3 is not None else None
+        outs, at = [], 0
+        for j, n in enumerate(sizes):
+            if n == 0:
+                continue
+            xe = xs[at:at + n]
+            at += n
+            h = act(xe @ w1s[j])
+            if w3s is not None:
+                h = h * (xe @ w3s[j])
+            outs.append(h @ w2s[j])
+        shared = ffn_apply(params.shared, x, cfg).reshape(b * s, d) \
+            if params.shared is not None else None
+    with spans.span("moe.combine"):
+        y = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)
+        if outs:
+            y = y.index_add(0, tok, torch.cat(outs).to(torch.float32)
+                            * w.reshape(-1)[rows, None])
+        y = y.to(dt)
+        if shared is not None:
+            y = y + shared
+    spans.count("moe.rows", len(rows))
+    spans.count("moe.rows_max", max(sizes))
+    spans.count("moe.dropped", 0)
+    probs = scores / scores.sum(-1, keepdim=True)               # over E
+    lb = e * torch.sum(probs.mean(0)
+                       * _routed_fraction(top_e, e, b * s))
+    zl = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return y.reshape(b, s, d), {"lb_loss": lb, "router_z": zl}
 
 
 class _GradScale(torch.autograd.Function):

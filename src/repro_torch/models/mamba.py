@@ -7,7 +7,12 @@ leaky-integrator shape of the paper's LIF neuron: state ← decay·state +
 input-drive, here with an input-dependent decay.
 
 Projections are separate matrices per component (z, x, B, C, dt).
-Shapes: d_inner = expand·d_model, H = d_inner/head_dim heads, N = ssm_state.
+Shapes: d_inner = expand·d_model (or ``ssm_num_heads``·head_dim), H =
+d_inner/head_dim heads, N = ssm_state.  B and C come in G = ``ssm_groups``
+groups of N, each shared by H/G consecutive heads (Nemotron-H's
+``n_groups``), and the gated norm is taken over each group's d_inner/G
+channels; one group (mamba2-1.3b, jamba) is the mixer as it was.  The
+chunked SSD runs the groups as rows of the batch.
 
 On a DTensor input (a placed model) the mixer runs on local shards: its
 channels (``mlp``) and heads on the model axis, where both divide, with
@@ -34,19 +39,19 @@ from ..distributed.sharding import (all_reduce, is_placed,
 from .layers import dense_init, rmsnorm
 
 __all__ = ["mamba_params", "mamba_apply", "mamba_decode_step", "MambaCache",
-           "Mamba2", "init_mamba_cache", "ssd_chunked"]
+           "Mamba2", "init_mamba_cache", "ssd_chunked", "ssd_grouped"]
 
 
 class MambaCache(NamedTuple):
     ssm: torch.Tensor        # (B, H, P, N) state, float32
     conv_x: torch.Tensor     # (B, W-1, d_inner) conv tail for x
-    conv_b: torch.Tensor     # (B, W-1, N)
-    conv_c: torch.Tensor     # (B, W-1, N)
+    conv_b: torch.Tensor     # (B, W-1, G·N)
+    conv_c: torch.Tensor     # (B, W-1, G·N)
 
 
 def init_mamba_cache(batch: int, cfg, dtype=torch.float32, *,
                      device=None) -> MambaCache:
-    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state * cfg.ssm_groups
     w = cfg.ssm_conv
     return MambaCache(
         ssm=torch.zeros((batch, h, p, n), dtype=torch.float32, device=device),
@@ -72,14 +77,15 @@ def _tables(h: int, device) -> dict:
 
 
 class Mamba2(nn.Module):
-    """wz/wx (D, d_inner), wb/wc (D, N), wdt (D, H), depthwise conv taps
+    """wz/wx (D, d_inner), wb/wc (D, G·N), wdt (D, H), depthwise conv taps
     (W, C), the A_log / D / dt_bias tables (H,), the gated norm's scale
     (d_inner,) and out (d_inner, D)."""
 
     def __init__(self, cfg, *, generator: torch.Generator | None):
         super().__init__()
-        d, di, n, h, w = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
-                          cfg.ssm_heads, cfg.ssm_conv)
+        d, di, n, h, w = (cfg.d_model, cfg.d_inner,
+                          cfg.ssm_state * cfg.ssm_groups, cfg.ssm_heads,
+                          cfg.ssm_conv)
         g = generator
         dev = g.device if g is not None else None
         self.wz = nn.Parameter(dense_init((d, di), generator=g))
@@ -192,6 +198,38 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return y[:, :S_in], h
 
 
+def ssd_grouped(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, chunk: int, groups: int,
+                h0: torch.Tensor | None = None):
+    """:func:`ssd_chunked` with b and c (B, S, G·N) in ``groups`` groups,
+    group g shared by heads g·H/G to (g+1)·H/G - 1: each group's heads
+    run as a row of the batch.  One group is ``ssd_chunked`` itself."""
+    if groups == 1:
+        return ssd_chunked(x, a, b, c, chunk, h0)
+    B, S, H, P = x.shape
+    G, hg = groups, H // groups
+
+    def rows(t, *inner):          # (B, S, G, *inner) -> (B·G, S, *inner)
+        return t.reshape(B, S, G, *inner).transpose(1, 2).reshape(
+            B * G, S, *inner)
+
+    n = b.shape[-1] // G
+    y, h = ssd_chunked(rows(x, hg, P), rows(a, hg), rows(b, n), rows(c, n),
+                       chunk, None if h0 is None else
+                       h0.reshape(B * G, hg, P, n))
+    return (y.reshape(B, G, S, hg, P).transpose(1, 2).reshape(B, S, H, P),
+            h.reshape(B, H, P, n))
+
+
+def _group_norm(norm_fn, y: torch.Tensor, scale: torch.Tensor,
+                groups: int) -> torch.Tensor:
+    """``norm_fn`` over each of ``groups`` equal slices of y's channels."""
+    if groups == 1:
+        return norm_fn(y, scale)
+    return norm_fn(y.reshape(*y.shape[:-1], groups, -1),
+                   scale.reshape(groups, -1)).reshape(y.shape)
+
+
 def _project(params: Mamba2, u: torch.Tensor, dt, bc_proj=None):
     """The five input projections; ``bc_proj(u, w)`` computes the shared
     B/C ones where given (a placed shard's ``replicated_proj``)."""
@@ -234,13 +272,13 @@ def mamba_apply(params: Mamba2, u: torch.Tensor, cfg, *,
 
     xh_raw = x.reshape(B, S, H, P).to(torch.float32)
     xh = shard(xh_raw * delta[..., None], "batch", None, "heads", None)
-    y, h_final = ssd_chunked(xh, a_log_step,
+    y, h_final = ssd_grouped(xh, a_log_step,
                              b.to(torch.float32), c.to(torch.float32),
-                             cfg.ssm_chunk,
+                             cfg.ssm_chunk, cfg.ssm_groups,
                              cache.ssm if cache is not None else None)
     y = y + params.D[None, None, :, None] * xh_raw      # skip connection
     y = y.reshape(B, S, cfg.d_inner).to(dt)
-    y = norm_fn(y * F.silu(z), params.norm)
+    y = _group_norm(norm_fn, y * F.silu(z), params.norm, cfg.ssm_groups)
     out = y @ params.out.to(dt)
 
     new_cache = None
@@ -276,15 +314,19 @@ def mamba_decode_step(params: Mamba2, u: torch.Tensor, cfg,
     a = -torch.exp(params.A_log)[None, :]                      # (1,H)
     da = torch.exp(delta * a)                                  # (B,H)
 
+    G = cfg.ssm_groups
     xh = x[:, 0].reshape(B, H, P).to(torch.float32)            # (B,H,P)
-    bf = b[:, 0].to(torch.float32)                             # (B,N)
-    cf = c[:, 0].to(torch.float32)
-    drive = torch.einsum("bhp,bn->bhpn", xh * delta[..., None], bf)
+    bf = b[:, 0].to(torch.float32).reshape(B, G, -1)           # (B,G,N)
+    cf = c[:, 0].to(torch.float32).reshape(B, G, -1)
+    drive = torch.einsum("bghp,bgn->bghpn",
+                         (xh * delta[..., None]).reshape(B, G, H // G, P),
+                         bf).reshape(cache.ssm.shape)
     h_new = cache.ssm * da[..., None, None] + drive
-    y = torch.einsum("bhpn,bn->bhp", h_new, cf) \
-        + params.D[None, :, None] * xh
+    y = torch.einsum("bghpn,bgn->bghp",
+                     h_new.reshape(B, G, H // G, P, -1), cf).reshape(
+                         B, H, P) + params.D[None, :, None] * xh
     y = y.reshape(B, 1, cfg.d_inner).to(dt)
-    y = norm_fn(y * F.silu(z), params.norm)
+    y = _group_norm(norm_fn, y * F.silu(z), params.norm, G)
     out = y @ params.out.to(dt)
     return out, MambaCache(ssm=h_new, conv_x=tail_x, conv_b=tail_b,
                            conv_c=tail_c)
@@ -372,7 +414,8 @@ class _LocalCfg:
 
 
 def _cache_shapes(batch: int, cfg, dtype) -> MambaCache:
-    h, p, n, w = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv
+    h, p, w = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_conv
+    n = cfg.ssm_state * cfg.ssm_groups
     return MambaCache(ssm=torch.Size((batch, h, p, n)),
                       conv_x=torch.Size((batch, w - 1, cfg.d_inner)),
                       conv_b=torch.Size((batch, w - 1, n)),

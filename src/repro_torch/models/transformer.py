@@ -35,6 +35,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..configs.base import PATTERN_KINDS
 from ..device import resolve_device
 from ..distributed.sharding import (current_rules, is_placed,
                                     logical_placements, mesh_rank,
@@ -52,13 +53,19 @@ __all__ = ["LayerSpec", "layer_plan", "block_size", "stack_position",
 
 @dataclass(frozen=True)
 class LayerSpec:
-    kind: str                  # "attn" | "mamba"
+    kind: str | None           # "attn" | "mamba" | None (an FFN block)
     window: int | None = None  # sliding window (gemma2 local layers)
     ffn: str | None = "dense"  # "dense" | "moe" | None
     cross: bool = False        # decoder cross-attention (whisper)
 
 
 def layer_plan(cfg) -> list[LayerSpec]:
+    """Each layer's mixer and FFN.  With ``cfg.layer_pattern`` each layer
+    is one block, a mixer with no FFN or an FFN with no mixer."""
+    if cfg.layer_pattern:
+        kinds = [PATTERN_KINDS[c] for c in cfg.layer_pattern[:cfg.num_layers]]
+        return [LayerSpec(kind=None, ffn="moe") if k == "moe"
+                else LayerSpec(kind=k, ffn=None) for k in kinds]
     plan = []
     for i in range(cfg.num_layers):
         if cfg.family == "ssm":
@@ -158,10 +165,11 @@ class Layer(nn.Module):
         g = generator
         dev = g.device if g is not None else None
         self.spec = spec
-        self.ln1 = Norm(cfg, dev)
+        if spec.kind is not None:
+            self.ln1 = Norm(cfg, dev)
         if spec.kind == "attn":
             self.attn = attn_mod.attention_params(cfg, generator=g)
-        else:
+        elif spec.kind == "mamba":
             self.mamba = mamba_mod.mamba_params(cfg, generator=g)
         if cfg.sandwich_norm:
             self.ln1_post = Norm(cfg, dev)
@@ -189,26 +197,10 @@ class Layer(nn.Module):
         aux = None
         new_cache: dict = {}
 
-        h = shard(self.ln1(x), "batch", None, "embed")
-        if spec.kind == "attn":
-            a, c_new = attn_mod.attention(
-                self.attn, h, cfg=cfg, mode=mode, positions=positions,
-                cache=cache.get("self") if cache else None, cur_len=cur_len,
-                layer_window=spec.window,
-                rope_enabled=cfg.max_position == 0)
-        elif mode == "decode":
-            a, c_new = mamba_mod.mamba_decode_step(self.mamba, h, cfg,
-                                                   cache["self"])
-        else:
-            a, c_new = mamba_mod.mamba_apply(
-                self.mamba, h, cfg,
-                cache=cache.get("self") if cache else None,
-                want_cache=(mode == "prefill"))
-        if c_new is not None:
-            new_cache["self"] = c_new
-        if hasattr(self, "ln1_post"):
-            a = self.ln1_post(a)
-        x = x + shard(a, "batch", "seq_act", "embed")
+        if spec.kind is not None:
+            x = self._mixer(x, cfg=cfg, mode=mode, positions=positions,
+                            cache=cache, cur_len=cur_len,
+                            new_cache=new_cache)
 
         if spec.cross:
             h = self.ln_cross(x)
@@ -235,6 +227,29 @@ class Layer(nn.Module):
 
         return shard(x, "batch", "seq_act", "embed"), new_cache, aux
 
+    def _mixer(self, x, *, cfg, mode, positions, cache, cur_len, new_cache):
+        """x plus the mixer of its norm; its cache into ``new_cache``."""
+        h = shard(self.ln1(x), "batch", None, "embed")
+        if self.spec.kind == "attn":
+            a, c_new = attn_mod.attention(
+                self.attn, h, cfg=cfg, mode=mode, positions=positions,
+                cache=cache.get("self") if cache else None, cur_len=cur_len,
+                layer_window=self.spec.window,
+                rope_enabled=cfg.max_position == 0 and cfg.use_rope)
+        elif mode == "decode":
+            a, c_new = mamba_mod.mamba_decode_step(self.mamba, h, cfg,
+                                                   cache["self"])
+        else:
+            a, c_new = mamba_mod.mamba_apply(
+                self.mamba, h, cfg,
+                cache=cache.get("self") if cache else None,
+                want_cache=(mode == "prefill"))
+        if c_new is not None:
+            new_cache["self"] = c_new
+        if hasattr(self, "ln1_post"):
+            a = self.ln1_post(a)
+        return x + shard(a, "batch", "seq_act", "embed")
+
 
 def _layer_cache(batch: int, max_len: int, cfg, spec: LayerSpec,
                  dtype, device) -> dict:
@@ -244,7 +259,7 @@ def _layer_cache(batch: int, max_len: int, cfg, spec: LayerSpec,
         c["self"] = attn_mod.init_attn_cache(batch, max_len, kvp,
                                              cfg.head_dim, dtype,
                                              device=device)
-    else:
+    elif spec.kind == "mamba":
         c["self"] = mamba_mod.init_mamba_cache(batch, cfg, dtype,
                                                device=device)
     if spec.cross:

@@ -137,8 +137,12 @@ def _run(arch):
 # --------------------------------------------------------------------------
 
 def test_registry_matches_jax():
-    assert tcfg.list_archs() == jcfg.list_archs()
-    assert tcfg.shape_cells() == jcfg.shape_cells()
+    # the port's registry is JAX's and the architectures only it has
+    assert set(tcfg.PORT_ONLY) <= set(tcfg.list_archs())
+    assert [a for a in tcfg.list_archs() if a not in tcfg.PORT_ONLY] == \
+        jcfg.list_archs()
+    assert [c for c in tcfg.shape_cells() if c[0] not in tcfg.PORT_ONLY] \
+        == jcfg.shape_cells()
     from repro.configs.registry import LONG_CONTEXT_OK
     assert tcfg.LONG_CONTEXT_OK == LONG_CONTEXT_OK
     for arch, shape in jcfg.shape_cells():
@@ -150,13 +154,25 @@ def test_registry_matches_jax():
         tcfg.get_config("no-such-arch")
 
 
+def _jax_fields(t):
+    """A port config's fields without the port's own, which must hold
+    their defaults on every architecture of the JAX package."""
+    d = dataclasses.asdict(t)
+    defaults = {f.name: f.default for f in dataclasses.fields(t)}
+    assert {n: d[n] for n in tcfg.PORT_FIELDS} == \
+        {n: defaults[n] for n in tcfg.PORT_FIELDS}, t.name
+    return {n: v for n, v in d.items() if n not in tcfg.PORT_FIELDS}
+
+
 @pytest.mark.parametrize("arch", jcfg.list_archs())
 def test_configs_match_jax_field_for_field(arch):
     for get in ("get_config", "get_reduced"):
         j, t = getattr(jcfg, get)(arch), getattr(tcfg, get)(arch)
-        assert [f.name for f in dataclasses.fields(t)] == \
+        names = [f.name for f in dataclasses.fields(t)]
+        assert [n for n in names if n not in tcfg.PORT_FIELDS] == \
             [f.name for f in dataclasses.fields(j)]
-        assert dataclasses.asdict(t) == dataclasses.asdict(j), get
+        assert names[-len(tcfg.PORT_FIELDS):] == list(tcfg.PORT_FIELDS)
+        assert _jax_fields(t) == dataclasses.asdict(j), get
         for prop in ("padded_vocab", "d_inner", "ssm_heads", "is_encdec",
                      "param_count", "active_param_count"):
             got, want = getattr(t, prop), getattr(j, prop)
@@ -165,7 +181,7 @@ def test_configs_match_jax_field_for_field(arch):
             assert got == want, (get, prop)
         assert str(t.dtype) == f"torch.{j.dtype}"
     kw = dict(layers=3, d_model=32, vocab=512)
-    assert dataclasses.asdict(tcfg.reduced(tcfg.get_config(arch), **kw)) == \
+    assert _jax_fields(tcfg.reduced(tcfg.get_config(arch), **kw)) == \
         dataclasses.asdict(jcfg.reduced(jcfg.get_config(arch), **kw))
 
 
