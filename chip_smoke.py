@@ -41,11 +41,12 @@ result line):
    column; 1,021, 1,000 and 24 lanes; K = 784, 64, 2,048 and 16,384; N =
    10 padded to 128; T = 1 and 20; pruning; K splits of 1, 4 and 8 as the
    kernel picks them; a sum past 2^31 that wraps), then on the wide stack's shapes (pruning on and
-   off, int16 codes beyond the 9-bit range); the staged backend (K4 + one
-   K5 per layer) equal to the reference backend on the wide stack, and
-   once more under ``torch.profiler`` for K5's own device time over its
-   three launches; ``auto`` resolving to the staged kernels for a stack
-   no stack kernel holds.
+   off, int16 codes beyond the 9-bit range); the staged backend (K4 with
+   its tallies and one K5 readout launch per layer, the telemetry and
+   peaks from their epilogues) equal to the reference backend on the wide
+   stack, and once more under ``torch.profiler`` for K5's own device time
+   over its three launches; ``auto`` resolving to the staged kernels for a
+   stack no stack kernel holds.
    K3, the partial contraction of one model shard on its packed int8
    planes, in 24 cases (the wide stack's shard shapes 784→512 and
    2048→512, its replicated head 2048→10 and the 784→5 head shard of a
@@ -223,8 +224,13 @@ result line):
    K3, K5 and K6, whose contraction runs on two int8 weight planes, the
    operations are the shorter of the executed adds at the INT32 rate
    and 2·B·K·N·2 int8 operations at the tensor cores' 1,979 T/s (the
-   add-only bound is kept beside it); K5 likewise, at (20, 1,024,
-   2048→2048) and at the 16384→10 head (padded to 128 columns).  K2 is
+   add-only bound is kept beside it).  K4 and K5 are timed as the staged
+   call launches them, with their tallies, each against its plain twin
+   and with a bound from its own bytes: K4 at (20, 1,024, 784), its
+   train-only launch beside it; K5's readout launch at (20, 1,024,
+   2048→2048) as a hidden layer and at the 16384→10 head (padded to 128
+   columns) as the last, its trace launch on the same operands beside
+   each (``trace``).  K2 is
    timed on planes placed once,
    as the engine places them.  For K3 (each wide layer's shard
    shape) and K6 (both realisations) also one ``torch.matmul`` in float32
@@ -271,6 +277,7 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import snn_mnist as cfgs  # noqa: E402
 from repro_torch.core import snn, train_snn  # noqa: E402
 from repro_torch.core.prng import seed_state  # noqa: E402
+from repro_torch.core.telemetry import tile_any  # noqa: E402
 from repro_torch.data import digits  # noqa: E402
 from repro_torch.kernels import (_build, fused_snn, lif_step, ops,  # noqa: E402
                                  poisson_encode, spike_matmul)
@@ -327,13 +334,23 @@ KERNELS = {
 MESH_WIDE = (1, 4)            # (data, model) shards of the one card
 
 
+# the staged call's launches of K5 (its readout instantiation; K4 has one
+# kernel, counted in KERNELS)
+READOUTS = {"K5": lif_step.lif_forward_readout}
+
+
 def reset_counts() -> None:
-    for _, _, _, fn in KERNELS.values():
+    for fn in [fn for _, _, _, fn in KERNELS.values()] + list(
+            READOUTS.values()):
         fn.launches = 0
 
 
 def counts() -> dict:
     return {k: fn.launches for k, (_, _, _, fn) in KERNELS.items()}
+
+
+def readout_counts() -> dict:
+    return {k: fn.launches for k, fn in READOUTS.items()}
 
 
 def log(msg: str) -> None:
@@ -895,6 +912,13 @@ def phase_staged(dev, wide_params) -> dict:
     torch.cuda.synchronize()
     want = poisson_encode.poisson_encode_plain(px, st, T_STAGED)
     err_k4 = _max_abs_err((spikes, st_k4), want)
+    # and as the staged op hands it (1,024 x 784), its tallies as well
+    tal = ops.staged_tallies(T_STAGED, 3, CHECK_BATCH, dev)
+    got = ops.poisson_encode_readout_op(px, st, T_STAGED, tal)
+    torch.cuda.synchronize()
+    err_k4 = max(err_k4, _max_abs_err(
+        (got[0][:, :CHECK_BATCH], got[1], tal.n_spk[:, 0, :CHECK_BATCH],
+         tal.live_k[:, 0]), _k4_plain(px, st, T_STAGED)))
     if err_k4:
         raise AssertionError(f"K4 != plain (max |err| {err_k4})")
     # its final PRNG state equals K1's after as many steps from the seed
@@ -939,9 +963,12 @@ def phase_staged(dev, wide_params) -> dict:
     reset_counts()                                # the staged path starts
     got = snn.snn_apply_int(wide_params, px, st, wide, backend="staged")
     torch.cuda.synchronize()
-    staged_counts = counts()                      # the staged path ended
-    if (staged_counts["K4"], staged_counts["K5"]) != (1, 3):
-        raise AssertionError(f"staged run launched {staged_counts}")
+    staged_counts = {"K4": counts()["K4"],        # the staged path ended
+                     "K5": readout_counts()["K5"]}
+    if (staged_counts["K4"], staged_counts["K5"]) != (1, 3) \
+            or counts()["K5"]:
+        raise AssertionError(f"staged run launched {staged_counts}, "
+                             f"{counts()}")
     want = snn.snn_apply_int(wide_params, px, st, wide, backend="reference")
     for key in ("pred", "spike_counts", "v_trace", "first_spike_t", "v_final",
                 "active_adds", "prng_state", "v_peak", "telemetry"):
@@ -960,14 +987,15 @@ def phase_staged(dev, wide_params) -> dict:
     b = snn.resolve_backend(narrow, n_layers=9, device=dev)
     if b != "staged":
         raise AssertionError(f"auto on 9 x 64 resolved to {b!r}")
-    before = counts()
+    before, before_r = counts(), readout_counts()
     res = snn.snn_apply_int(p, px[:, :64].contiguous(),
                             st[:, :64].contiguous(), narrow)
     torch.cuda.synchronize()
-    after = counts()
-    if (after["K4"] - before["K4"], after["K5"] - before["K5"]) != (1, 9) \
-            or after["K1"] != before["K1"] or after["K2"] != before["K2"]:
-        raise AssertionError(f"auto on 9 x 64 launched {before} -> {after}")
+    after, after_r = counts(), readout_counts()
+    if (after["K4"] - before["K4"], after_r["K5"] - before_r["K5"]) \
+            != (1, 9) or dict(after, K4=0) != dict(before, K4=0):
+        raise AssertionError(f"auto on 9 x 64 launched {before} -> {after}, "
+                             f"readouts {before_r} -> {after_r}")
     want = snn.snn_apply_int(p, px[:, :64].contiguous(),
                              st[:, :64].contiguous(), narrow,
                              backend="reference")
@@ -3955,14 +3983,29 @@ def phase_times(imgs, params, wide_params, dev) -> dict:
     times["K1"]["deep"] = _time_stack("K1", cfgs.SNN_CONFIG_DEEP, imgs,
                                       _deep_params(), dev,
                                       fused_snn.fused_snn_stack, 200, 3)
-    # K4 at (T, 1024, 784): the operands its op hands it, padded to 896
+    # K4 at (T, 1024, 784) as the staged op hands it, with its tallies;
+    # beside it the train-only launch of poisson_encode_op (896 pixels)
     B, T = SERVE_BATCH, T_STAGED
     pxp, stp, spikes = _encoded(imgs, dev)
-    ms = _device_ms(lambda: poisson_encode.poisson_encode(pxp, stp, T), 200)
-    plain = _plain_ms(
-        lambda: poisson_encode.poisson_encode_plain(pxp, stp, T), 10)
-    times["K4"] = _bound("K4", B * 784 * (1 + 4 + 4) + T * B * 784,
-                         7 * T * B * 784, ms, plain, f"T={T} B={B} N=784")
+    px, st = pxp[:, :784].contiguous(), stp[:, :784].contiguous()
+    tal = ops.staged_tallies(T, 3, B, dev)
+    got = poisson_encode.poisson_encode(px, st, T, tal)
+    torch.cuda.synchronize()
+    err = _max_abs_err((*got, tal.n_spk[:, 0], tal.live_k[:, 0]),
+                       _k4_plain(px, st, T))
+    if err:
+        raise AssertionError(f"K4 with tallies != plain (max |err| {err})")
+    ms = _device_ms(lambda: poisson_encode.poisson_encode(px, st, T, tal),
+                    200)
+    plain = _plain_ms(lambda: _k4_plain(px, st, T), 10)
+    times["K4"] = _bound("K4", B * 784 * (1 + 4 + 4) + T * B * 784
+                         + T * B * 4 + T * (B // 8) * 4, 7 * T * B * 784, ms,
+                         plain, f"T={T} B={B} N=784 with its tallies")
+    times["K4"]["max_abs_err"] = err
+    times["K4"]["train_only_ms"] = _device_ms(
+        lambda: poisson_encode.poisson_encode(pxp, stp, T), 200)
+    log(f"[times] K4 train-only launch at 896 pixels (tallies into a zeroed "
+        f"scratch): {times['K4']['train_only_ms'] * 1e3:.2f} us")
     # K5 at (T, 1024, 2048 -> 2048), the second hidden layer of the wide
     # stack, and at the head of 784 -> 16384 -> 10
     times["K5"], x, w1 = _time_k5(spikes[:, :, :784], wide_params, dev)
@@ -3972,27 +4015,91 @@ def phase_times(imgs, params, wide_params, dev) -> dict:
     return times
 
 
-def _k5_bound(x, w, n_out, ms, plain_ms, what) -> dict:
+def _k4_plain(px, st, T):
+    """K4's function with its tallies in plain PyTorch: the train, the
+    final state, each (step, lane)'s spikes and each (step, 8-lane
+    block)'s 128-pixel tiles holding one."""
+    spikes, state = poisson_encode.poisson_encode_plain(px, st, T)
+    return (spikes, state, spikes.sum(-1, dtype=torch.int32),
+            tile_any(spikes, 8).sum(-1, dtype=torch.int32))
+
+
+def _k5_bound(x, n_out, ms, plain_ms, what, readout=None) -> dict:
     """K5's bound on the unpadded function: each input read once (spikes,
-    codes), each output written once (spikes, trace, final membrane); the
-    executed adds of this data plus ~10 LIF operations per neuron and
-    step at the INT32 rate, or the two-plane product on the int8 tensor
-    cores, 2 * T * B * K * N * 2 operations, whichever is shorter."""
+    codes), each output written once.  The trace launch (``readout``
+    None) writes spikes, trace and final membrane; a readout launch
+    (``"hidden"`` or ``"last"``) the spikes and peaks, the last layer's
+    trace, final membrane, counts and first spikes, and its tallies: each
+    (step, block)'s live output tiles and, for a hidden layer, the next
+    layer's (step, lane) spike counts and live input tiles (no enables
+    without pruning).  Operations: the executed adds of this data plus
+    ~10 LIF operations per neuron and step at the INT32 rate, or the
+    two-plane product on the int8 tensor cores, 2 * T * B * K * N * 2,
+    whichever is shorter."""
     T, B, K = x.shape
     adds = int(x.sum(dtype=torch.int64)) * n_out  # no pruning: all enabled
-    return _bound("K5", T * B * K + K * n_out * 2 + T * B * n_out * 5
-                  + B * n_out * 4, adds + 10 * T * B * n_out, ms, plain_ms,
-                  what, tc_ops=2 * T * B * K * n_out * 2)
+    n_bytes = T * B * K + K * n_out * 2 + T * B * n_out
+    if readout is None:
+        n_bytes += T * B * n_out * 4 + B * n_out * 4
+    else:
+        n_bytes += B * n_out * 4 + T * (B // 8) * 4
+        if readout == "last":
+            n_bytes += T * B * n_out * 4 + 3 * B * n_out * 4
+        else:
+            n_bytes += T * B * 4 + T * (B // 8) * 4
+    return _bound("K5" if readout else "K5 trace", n_bytes,
+                  adds + 10 * T * B * n_out, ms, plain_ms, what,
+                  tc_ops=2 * T * B * K * n_out * 2)
+
+
+def _k5_readout(x, w, n_out, kw, n, m, what, last=False) -> dict:
+    """K5's readout launch as the staged call hands it (with ``last``, the
+    last layer's), held to its plain twin, then timed; its trace launch on
+    the same operands beside it."""
+    T, B, _ = x.shape
+    layer = 1 if last else 0
+    tal = ops.staged_tallies(T, 2, B, x.device)
+    got = lif_step.lif_forward_readout(x, w, tal, layer=layer, b_valid=B,
+                                       n_valid=n_out, **kw)
+    torch.cuda.synchronize()
+    want = lif_step.lif_forward_readout_plain(x, w, b_valid=B, n_valid=n_out,
+                                              last=last, **kw)
+    keys = ["spikes", "v_peak"] + (["v_trace", "v_final"] if last else [])
+    g, wt = [got[k] for k in keys], [want[k] for k in keys]
+    if last:
+        g += [got["counts"][:, :n_out], got["first"][:, :n_out],
+              tal.live_n[:, 1]]
+        wt += [want["counts"][:, :n_out], want["first"][:, :n_out],
+               want["live_n"]]
+    else:
+        g += [tal.n_spk[:, 1], tal.live_k[:, 1], tal.live_n[:, 0]]
+        wt += [want["n_spk"], want["live_k"], want["live_n"]]
+    err = _max_abs_err(g, wt)
+    if err:
+        raise AssertionError(f"K5's readout launch != its twin ({what}): "
+                             f"{err}")
+    ms = _device_ms(lambda: lif_step.lif_forward_readout(
+        x, w, tal, layer=layer, b_valid=B, n_valid=n_out, **kw), n)
+    plain = _plain_ms(lambda: lif_step.lif_forward_readout_plain(
+        x, w, b_valid=B, n_valid=n_out, last=last, **kw), m)
+    out = _k5_bound(x, n_out, ms, plain, what,
+                    readout="last" if last else "hidden")
+    ms = _device_ms(lambda: lif_step.lif_forward(x, w, **kw), n)
+    plain = _plain_ms(lambda: lif_step.lif_forward_plain(x, w, **kw), m)
+    out["trace"] = _k5_bound(x, n_out, ms, plain, what)
+    out["max_abs_err"] = err
+    return out
 
 
 def _time_k5(spikes, wide_params, dev) -> tuple[dict, torch.Tensor,
                                                 torch.Tensor]:
-    """K5 at (T, 1,024, 2048 -> 2048), fed the wide stack's first hidden
-    layer's spike train, and at the head of 784 -> 16384 -> 10 (K = 16,384
-    over one padded 128-column tile, fed a 16,384-wide hidden layer's
-    train), both trains made by the plain version from ``spikes``, the
-    encoder's (T, 1,024, 784) train.  Returns the times, the 2048-wide
-    train and the second layer's codes."""
+    """K5's readout launch (the row) and its trace launch (``trace``) at
+    (T, 1,024, 2048 -> 2048), fed the wide stack's first hidden layer's
+    spike train, and at the head of 784 -> 16384 -> 10 (K = 16,384 over
+    one padded 128-column tile, fed a 16,384-wide hidden layer's train),
+    both trains made by the plain version from ``spikes``, the encoder's
+    (T, 1,024, 784) train.  Returns the times, the 2048-wide train and
+    the second layer's codes."""
     T, B = spikes.shape[:2]
     lif = cfgs.SNN_CONFIG_WIDE.lif
     kw = dict(decay_shift=lif.decay_shift, v_threshold=lif.v_threshold,
@@ -4001,11 +4108,9 @@ def _time_k5(spikes, wide_params, dev) -> tuple[dict, torch.Tensor,
               for l in wide_params["layers"][:2])
     x = lif_step.lif_forward_plain(spikes, w0, **kw)[0]
     K, N = w1.shape
-    ms = _device_ms(lambda: lif_step.lif_forward(x, w1, **kw), 20)
-    plain = _plain_ms(lambda: lif_step.lif_forward_plain(x, w1, **kw), 3)
-    out = _k5_bound(x, w1, N, ms, plain,
-                    f"T={T} B={B} {K}->{N} (input density "
-                    f"{float(x.float().mean()):.4f})")
+    out = _k5_readout(x, w1, N, kw, 20, 3,
+                      f"T={T} B={B} {K}->{N} (input density "
+                      f"{float(x.float().mean()):.4f})")
     # its contraction alone (not its function: the LIF recurrence follows)
     # is one float32 product over the whole spike train
     xf, wf = x.reshape(T * B, K).float(), w1.float()
@@ -4016,21 +4121,17 @@ def _time_k5(spikes, wide_params, dev) -> tuple[dict, torch.Tensor,
         f"{out['contraction_library_ms'] * 1e3:.2f} us")
     del xf
     # the head: 784 -> 16384 with fan-in codes, then 16384 -> 10 (padded to
-    # 128 columns, as lif_forward_op pads it)
+    # 128 columns, as the ops pad it)
     rng = np.random.default_rng(SEED + 29)
     wa, wb = _fan_in_weights(rng, (784, HEAD_WIDTH, 10), dev)
     h = lif_step.lif_forward_plain(spikes, wa, **kw)[0]
     wbp = ops._pad_to(wb, 1, lif_step.BLOCK[1])
-    got = lif_step.lif_forward(h, wbp, **kw)
-    torch.cuda.synchronize()
-    if _max_abs_err(got, lif_step.lif_forward_plain(h, wbp, **kw)):
-        raise AssertionError("K5 != plain at the head shape")
-    ms = _device_ms(lambda: lif_step.lif_forward(h, wbp, **kw), 5)
-    plain = _plain_ms(lambda: lif_step.lif_forward_plain(h, wbp, **kw), 2)
-    head = _k5_bound(h, wb, 10, ms, plain,
-                     f"head T={T} B={B} {HEAD_WIDTH}->10 (padded to 128; "
-                     f"input density {float(h.float().mean()):.4f})")
-    out["head"] = head
+    out["head"] = _k5_readout(h, wbp, 10, kw, 5, 2,
+                              f"head T={T} B={B} {HEAD_WIDTH}->10 (padded to "
+                              f"128; input density "
+                              f"{float(h.float().mean()):.4f})", last=True)
+    out["max_abs_err"] = max(out["max_abs_err"],
+                             out["head"].pop("max_abs_err"))
     return out, x, w1
 
 
@@ -4222,6 +4323,13 @@ def main() -> int:
                 checks["K6"][1], extra["max_abs_err"])
             extra["dot"] = k6_modes["dot"]
         t = dict(times[tag])
+        if "max_abs_err" in t:  # K4, K5: the timed launch against its twin
+            err = t.pop("max_abs_err")
+            if tag == "K5":     # the phase checked the trace launch too
+                extra["trace_max_abs_err"] = extra["max_abs_err"]
+                extra["max_abs_err"] = err
+            else:
+                extra["max_abs_err"] = max(extra["max_abs_err"], err)
         record.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": extra.pop("launches"),

@@ -16,8 +16,9 @@ integers:
                     stacks whose per-lane state the resident kernel's
                     shared memory cannot hold
   staged          — the encoder kernel once, then one LIF kernel per
-                    layer, over materialised spike trains (whole windows
-                    only; any int16 weight code)
+                    layer, over materialised spike trains, the readouts
+                    taken in the kernels' epilogues (whole windows only;
+                    any int16 weight code)
   reference       — per-step torch ops (:func:`snn_int_stack_step`)
   auto            — on a CUDA device the chain fused → fused_streamed →
                     staged, the first whose kernel holds the stack; the
@@ -463,28 +464,32 @@ def _derive_stack_telemetry(layer_ins, layer_outs, layer_vtr,
 
 def _apply_int_staged(params_q, pixels_u8, prng_state, cfg: SNNConfig):
     """The staged kernels: one encoder launch, then one LIF launch per
-    layer, each over the previous stage's materialised spike train."""
-    spikes, prng_next = ops.poisson_encode_op(pixels_u8, prng_state,
-                                              cfg.num_steps)
-    x = spikes
-    layer_ins, layer_outs, layer_vtr = [], [], []
-    for layer in params_q["layers"]:
-        layer_ins.append(x)
-        x, v_trace, v_final = ops.lif_forward_op(x, layer["w_q"],
-                                                 **_lif_kw(cfg))
-        layer_outs.append(x)
-        layer_vtr.append(v_trace)
+    layer, each over the padded spike train the launch before wrote.  The
+    telemetry, the peaks and the last layer's counts come from the
+    kernels' epilogues (``kernels.ops.lif_forward_readout_op``), so no
+    PyTorch pass reads a (T, B, width) train; they equal
+    :func:`_derive_stack_telemetry`'s on the same trains."""
+    T, B = cfg.num_steps, pixels_u8.shape[0]
+    sizes = _param_sizes(params_q)
+    tallies = ops.staged_tallies(T, len(sizes) - 1, B, pixels_u8.device)
+    x, prng_next = ops.poisson_encode_readout_op(pixels_u8, prng_state, T,
+                                                 tallies)
+    input_spikes = x[:, :B, :sizes[0]]
+    peaks = []
+    for l, layer in enumerate(params_q["layers"]):
+        r = ops.lif_forward_readout_op(x, layer["w_q"], tallies, layer=l,
+                                       b_valid=B, **_lif_kw(cfg))
+        x = r["spikes"]
+        peaks.append(r["v_peak"])
+    telemetry = ops.staged_telemetry(
+        tallies, sizes, B, sparse_skip=resolve_sparse_skip(cfg.sparse_skip),
+        active_pruning=cfg.active_pruning)
     # the executed-add channel is the telemetry's adds summed over layers
-    telemetry, v_peak = _derive_stack_telemetry(layer_ins, layer_outs,
-                                                layer_vtr, cfg)
-    T = cfg.num_steps
-    t_idx = torch.arange(T, dtype=torch.int32, device=x.device)[:, None, None]
-    return {"spike_counts": x.sum(0, dtype=torch.int32),
-            "v_trace": v_trace, "v_final": v_final,
+    return {"spike_counts": r["counts"], "v_trace": r["v_trace"],
+            "v_final": r["v_final"],
             "active_adds": telemetry.adds.sum(1, dtype=torch.int32),
-            "input_spikes": spikes,
-            "first_spike_t": torch.where(x != 0, t_idx, T).amin(dim=0),
-            "prng_state": prng_next, "v_peak": v_peak,
+            "input_spikes": input_spikes, "first_spike_t": r["first"],
+            "prng_state": prng_next, "v_peak": tuple(peaks),
             "telemetry": telemetry}
 
 

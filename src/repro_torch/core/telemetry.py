@@ -30,7 +30,8 @@ __all__ = ["ChunkTelemetry", "EngineLoad", "MatmulTelemetry",
            "estimate_eta_steps",
            "DEFAULT_SPIKE_DENSITY_THRESHOLD",
            "resolve_density_threshold", "resolve_sparse_skip", "tiles_total",
-           "layer_tile_skips", "concat_telemetry", "model_tile_skips",
+           "tile_any", "layer_tile_skips", "concat_telemetry",
+           "model_tile_skips",
            "concat_shard_telemetry"]
 
 DEFAULT_SPIKE_DENSITY_THRESHOLD = 0.25
@@ -197,6 +198,20 @@ def tiles_total(layer_sizes) -> tuple[int, ...]:
                  for k, n in zip(sizes[:-1], sizes[1:]))
 
 
+def tile_any(a: torch.Tensor, block_b: int) -> torch.Tensor:
+    """(..., B, n) → (..., ceil(B / block_b), ceil(n / 128)) bool: whether
+    each tile of ``block_b`` lanes by 128 columns holds a non-zero (lanes
+    and columns padded with zeros)."""
+    from ..kernels.fused_snn import LANE
+    B, n = a.shape[-2:]
+    Bp, n_pad = B + (-B) % block_b, _pad128(n)
+    a = torch.nn.functional.pad((a != 0).to(torch.uint8),
+                                (0, n_pad - n, 0, Bp - B))
+    a = a.reshape(tuple(a.shape[:-2])
+                  + (Bp // block_b, block_b, n_pad // LANE, LANE))
+    return a.amax(dim=(-3, -1)) != 0
+
+
 def layer_tile_skips(x: torch.Tensor, en: torch.Tensor, *,
                      sparse_skip: bool) -> torch.Tensor:
     """Skipped tile pairs per batch block, for one layer.
@@ -208,24 +223,14 @@ def layer_tile_skips(x: torch.Tensor, en: torch.Tensor, *,
     skipped when its K-tile carries no spike in any lane of the block OR its
     output tile has no enabled neuron in the block.
     """
-    from ..kernels.fused_snn import LANE, block_b_for
+    from ..kernels.fused_snn import block_b_for
     lead = tuple(x.shape[:-2])
     B = x.shape[-2]
     bB = block_b_for(B)
-    Bp = B + (-B) % bB
-    nb = Bp // bB
+    nb = -(-B // bB)
     if not sparse_skip:
         return torch.zeros(lead + (nb,), dtype=torch.int32, device=x.device)
-
-    def tile_any(a: torch.Tensor) -> torch.Tensor:
-        n = a.shape[-1]
-        n_pad = _pad128(n)
-        a = torch.nn.functional.pad(a.to(torch.uint8),
-                                    (0, n_pad - n, 0, Bp - B))
-        a = a.reshape(lead + (nb, bB, n_pad // LANE, LANE))
-        return a.amax(dim=(-3, -1)) != 0             # (..., nb, n_tiles)
-
-    any_x, any_e = tile_any(x), tile_any(en)
+    any_x, any_e = tile_any(x, bB), tile_any(en, bB)
     live = any_x[..., :, None] & any_e[..., None, :]
     return (~live).sum(dim=(-2, -1), dtype=torch.int32)
 

@@ -32,7 +32,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["SOURCES", "BuildInfo", "build_all", "load_library", "launch",
-           "check_operand"]
+           "check_operand", "check_tallies"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -166,3 +166,19 @@ def check_operand(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_tallies(tallies, steps: int, lanes: int, device) -> None:
+    """Raise unless ``tallies`` (``kernels.ops.StagedTallies``) are
+    contiguous int32 tensors on ``device``, (steps, L, lanes) a lane and
+    (steps, L, lanes / 8) a block: what the kernels add their tallies
+    into."""
+    n_layers = tallies.n_spk.shape[1] if tallies.n_spk.ndim == 3 else 0
+    for name, t in zip(tallies._fields, tallies):
+        per_block = name.startswith("live")
+        want = (steps, n_layers, lanes // 8 if per_block else lanes)
+        if (t.dtype != torch.int32 or tuple(t.shape) != want
+                or t.device != device or not t.is_contiguous()):
+            raise ValueError(f"tallies.{name} must be a contiguous int32 "
+                             f"{want} tensor on {device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")

@@ -6,10 +6,15 @@ and ``validate_weight_codes``.  Each wrapper pads its operands to the
 launch blocks, runs the kernel's launcher (the CUDA kernel for CUDA
 tensors, its plain version for CPU tensors) and cuts the results back to
 the true shapes.  The stack op also disables padded neurons and padded
-batch rows.
+batch rows.  The staged call's ops (``staged_tallies``,
+``poisson_encode_readout_op``, ``lif_forward_readout_op``,
+``staged_telemetry``) pass padded trains from launch to launch and take
+the telemetry from the kernels' tallies.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -17,12 +22,14 @@ import torch.nn.functional as F
 from ..core.spans import count, span
 from ..core.telemetry import (DEFAULT_SPIKE_DENSITY_THRESHOLD, ChunkTelemetry,
                               MatmulTelemetry, resolve_density_threshold,
-                              resolve_sparse_skip)
+                              resolve_sparse_skip, tiles_total)
 from . import fused_snn, lif_step, poisson_encode, spike_matmul
 
 __all__ = ["poisson_encode_op", "lif_forward_op", "fused_snn_op",
            "fused_snn_stack_op", "partial_contraction_op", "spike_matmul_op",
            "stack_weights", "stack_operands", "stack_results",
+           "StagedTallies", "staged_tallies", "poisson_encode_readout_op",
+           "lif_forward_readout_op", "staged_telemetry",
            "validate_weight_codes", "V_PEAK_INIT",
            "SPIKE_DENSITY_THRESHOLD", "resolve_density_threshold"]
 
@@ -152,6 +159,107 @@ def lif_forward_op(spikes_t: torch.Tensor, w_q: torch.Tensor, *,
         v_threshold=v_threshold, v_rest=v_rest, v_min=v_min, v_max=v_max,
         active_pruning=active_pruning)
     return spk[:, :B, :n_out], vtr[:, :B, :n_out], vfin[:B, :n_out]
+
+
+class StagedTallies(NamedTuple):
+    """A staged call's kernel tallies, int32, zeroed before its launches,
+    lanes padded to the 8-lane block: per (step, layer, lane) the input
+    spikes (``n_spk``) and the enabled neurons (``n_en``), per (step,
+    layer, block) the 128-wide input tiles holding a spike (``live_k``)
+    and the output tiles holding an enabled neuron (``live_n``)."""
+
+    n_spk: torch.Tensor    # (T, L, Bp)
+    n_en: torch.Tensor     # (T, L, Bp)
+    live_k: torch.Tensor   # (T, L, Bp / 8)
+    live_n: torch.Tensor   # (T, L, Bp / 8)
+
+
+def staged_tallies(num_steps: int, n_layers: int, batch: int,
+                   device) -> StagedTallies:
+    """Zeroed tallies for a staged call: one allocation, one fill."""
+    bB = lif_step.BLOCK[0]
+    T, L, Bp = num_steps, n_layers, batch + (-batch) % bB
+    n = 2 * T * L * Bp
+    flat = torch.zeros(n + 2 * T * L * (Bp // bB), dtype=torch.int32,
+                       device=device)
+    lanes = flat[:n].view(2, T, L, Bp)
+    blocks = flat[n:].view(2, T, L, Bp // bB)
+    return StagedTallies(lanes[0], lanes[1], blocks[0], blocks[1])
+
+
+def poisson_encode_readout_op(pixels_u8: torch.Tensor,
+                              state_u32: torch.Tensor, num_steps: int,
+                              tallies: StagedTallies):
+    """The staged call's encoder launch, layer 0's telemetry written into
+    ``tallies``.  Pads the batch to 8 and the pixels to 16 (zero pixels
+    and zero state never spike).  Returns ``(spikes, state)``: the train
+    at its padded shape (T, pad8(B), pad16(N)), as the first LIF launch
+    reads it, and the final state cut back to (B, N)."""
+    B, N = pixels_u8.shape
+    bB, k = lif_step.BLOCK[0], lif_step.K_ALIGN
+    spikes, state = poisson_encode.poisson_encode(
+        _aligned(_pad2(pixels_u8, bB, k)), _aligned(_pad2(state_u32, bB, k)),
+        num_steps, tallies)
+    return spikes, state[:B, :N]
+
+
+def lif_forward_readout_op(spikes: torch.Tensor, w_q: torch.Tensor,
+                           tallies: StagedTallies, *, layer: int,
+                           b_valid: int, decay_shift: int, v_threshold: int,
+                           v_rest: int = 0, v_min: int = -(1 << 20),
+                           v_max: int = (1 << 20) - 1,
+                           active_pruning: bool = False) -> dict:
+    """Layer ``layer`` of a staged call: one readout launch of the LIF
+    kernel over the padded train the launch before wrote, (T, pad8(B), K)
+    with K at least n_in; its codes are padded with zero rows to K and
+    zero columns to 128.  Its tallies go into ``tallies``: this layer's
+    enables, and the next layer's input spikes (none for the last layer).
+
+    Returns ``spikes`` (T, pad8(B), pad128(n_out)), the next launch's
+    input, and ``v_peak`` (B, n_out); for the last layer also ``v_trace``
+    (T, B, n_out), ``v_final``, ``counts`` and ``first`` (B, n_out).
+    """
+    T, Bp, K = spikes.shape
+    n_in, n_out = w_q.shape
+    if K < n_in:
+        raise ValueError(f"a train of {K} inputs for {n_in} weight rows")
+    last = layer == tallies.n_spk.shape[1] - 1
+    w = _pad_to(_int16_codes(w_q, "lif_forward_readout_op"), 1,
+                lif_step.BLOCK[1])
+    if K > n_in:
+        w = F.pad(w, (0, 0, 0, K - n_in))
+    r = lif_step.lif_forward_readout(
+        spikes, w, tallies, layer=layer, b_valid=b_valid, n_valid=n_out,
+        decay_shift=decay_shift, v_threshold=v_threshold, v_rest=v_rest,
+        v_min=v_min, v_max=v_max, active_pruning=active_pruning)
+    out = {"spikes": r["spikes"], "v_peak": r["v_peak"][:b_valid, :n_out]}
+    if last:
+        out["v_trace"] = r["v_trace"][:, :b_valid, :n_out]
+        for k in ("v_final", "counts", "first"):
+            out[k] = r[k][:b_valid, :n_out]
+    return out
+
+
+def staged_telemetry(tallies: StagedTallies, layer_sizes, batch: int, *,
+                     sparse_skip: bool, active_pruning: bool
+                     ) -> ChunkTelemetry:
+    """A staged call's ``ChunkTelemetry`` from its kernels' tallies, on
+    tensors of (T, L, B) elements: without pruning every neuron is enabled
+    at every step; a block's skipped tile pairs are its layer's
+    nK · nN less the live input tiles times the live output tiles (0 when
+    ``sparse_skip`` is off), ``core.telemetry.layer_tile_skips``' count."""
+    if not active_pruning:
+        for l, n in enumerate(layer_sizes[1:]):
+            tallies.n_en[:, l].fill_(int(n))
+    if sparse_skip:
+        live = tallies.live_k * tallies.live_n
+        tiles = torch.stack([tot - live[:, l] for l, tot
+                             in enumerate(tiles_total(layer_sizes))], dim=1)
+    else:
+        tiles = torch.zeros_like(tallies.live_k)
+    return ChunkTelemetry(n_spk=tallies.n_spk[:, :, :batch],
+                          n_en=tallies.n_en[:, :, :batch],
+                          tiles_skipped=tiles)
 
 
 def stack_weights(weights, n_in: int, layer_sizes=None, *,

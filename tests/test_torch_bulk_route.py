@@ -96,8 +96,11 @@ def _on_card_route(monkeypatch):
             return fn(*a, **kw)
         return run
 
+    # the staged call launches the kernels' readout ops
     for name, attr in (("encode", "poisson_encode_op"),
+                       ("encode", "poisson_encode_readout_op"),
                        ("lif", "lif_forward_op"),
+                       ("lif", "lif_forward_readout_op"),
                        ("stack", "fused_snn_stack_op")):
         monkeypatch.setattr(ops, attr, counted(name, getattr(ops, attr)))
     return calls

@@ -254,21 +254,167 @@ def test_lif_kernel_refuses_bad_operands(card):
     assert lif_step.lif_forward.launches == before
 
 
+@pytest.mark.parametrize("b,n,t", [(16, 208, 7), (8, 784, 20),
+                                   (24, 4112, 3), (13, 100, 70)])
+def test_encoder_tallies_equal_plain(card, b, n, t):
+    """K4 adds the plain version's spike counts and live tiles into layer
+    0 of zeroed tallies, beside its train and state: 4,112 pixels are 33
+    tiles; 70 steps are three groups of 32, the last ragged; 13 lanes
+    leave part of a block."""
+    rng = np.random.default_rng(b + n)
+    px = torch.from_numpy(rng.integers(0, 256, (b, n), dtype=np.uint8)) \
+        .to(card)
+    st = seed_state(b, (b, n), device=card)
+    tal = ops.staged_tallies(t, 2, b, card)
+    before = poisson_encode.poisson_encode.launches
+    got = poisson_encode.poisson_encode(px, st, t, tal)
+    torch.cuda.synchronize()
+    assert poisson_encode.poisson_encode.launches == before + 1
+    want = ops.staged_tallies(t, 2, b, "cpu")
+    plain = poisson_encode.poisson_encode(px.cpu(), st.cpu(), t, want)
+    _assert_equal(got, tuple(x.to(card) for x in plain), "K4")
+    for f in want._fields:
+        _assert_equal(getattr(tal, f), getattr(want, f).to(card), f)
+    assert int(tal.n_spk.sum()) > 0 and int(tal.live_k.sum()) > 0
+
+
+# (T, lanes, valid lanes, K, N, valid columns, pruning, last layer,
+# threshold): padding that fires (threshold -1) is left out of the
+# tallies; K = 1,024 over one tile splits over 4, K = 16,384 over 8
+_K5_READOUT = [(6, 16, 13, 208, 256, 200, False, False, -1),
+               (6, 16, 13, 208, 256, 200, True, True, -1),
+               (3, 264, 260, 784, 384, 300, True, True, 128),
+               (5, 8, 8, 1024, 128, 100, True, False, -1),
+               (5, 24, 21, 16384, 128, 10, False, True, 128),
+               (5, 24, 21, 16384, 128, 10, True, False, -1)]
+
+
+@pytest.mark.parametrize("case", _K5_READOUT, ids=lambda c: "-".join(
+    map(str, c)))
+def test_lif_readout_kernel_equals_plain(card, case):
+    """K5's readout launch equals its plain twin: spikes, peaks, the last
+    layer's trace, final membrane, counts and first spikes, and every
+    tally added into zeroed views, at K splits of 1, 4 and 8."""
+    T, B, bv, K, N, nv, prune, last, th = case
+    rng = np.random.default_rng(K + N + T)
+    spikes = torch.from_numpy(
+        (rng.random((T, B, K)) < 0.3).astype(np.uint8)).to(card)
+    hi = 4 if K > 4096 else 120
+    w = torch.from_numpy(rng.integers(-hi // 3, hi, (K, N))
+                         .astype(np.int16)).to(card)
+    kw = dict(decay_shift=4, v_threshold=th, active_pruning=prune)
+    tal = ops.staged_tallies(T, 2, B, card)
+    layer = 1 if last else 0
+    views = dict(n_spk=tal.n_spk[:, 1], live_k=tal.live_k[:, 1],
+                 n_en=tal.n_en[:, layer], live_n=tal.live_n[:, layer])
+    before = lif_step.lif_forward_readout.launches
+    got = lif_step.lif_forward_readout(spikes, w, tal, layer=layer,
+                                       b_valid=bv, n_valid=nv, **kw)
+    torch.cuda.synchronize()
+    assert lif_step.lif_forward_readout.launches == before + 1
+    want = lif_step.lif_forward_readout_plain(spikes, w, b_valid=bv,
+                                              n_valid=nv, last=last, **kw)
+    keys = ("spikes", "v_peak") + (("v_trace", "v_final") if last else ())
+    assert sorted(got) == sorted(keys + (("counts", "first") if last
+                                         else ()))
+    for key in keys:
+        _assert_equal(got[key], want[key], key)
+    if last:
+        for key in ("counts", "first"):
+            _assert_equal(got[key][:, :nv], want[key][:, :nv], key)
+    for key, view in views.items():
+        if (key == "n_en" and not prune) or (key in ("n_spk", "live_k")
+                                             and last):
+            assert not view.any(), key
+        else:
+            _assert_equal(view, want[key], key)
+    assert int(want["n_spk"].sum()) > 0
+
+
+def _readout_launches():
+    return (poisson_encode.poisson_encode.launches,
+            lif_step.lif_forward_readout.launches,
+            lif_step.lif_forward.launches)
+
+
+_STAGED_KEYS = ("pred", "spike_counts", "v_trace", "first_spike_t",
+                "v_final", "active_adds", "prng_state", "v_peak",
+                "telemetry")
+
+
 def test_staged_backend_equals_reference_on_card(card):
     cfg = dataclasses.replace(cfgs.SNN_CONFIG_DEEP, readout="first_spike",
                               active_pruning=True)
     px, st, ws = _problem(cfg, 21, card, seed=5)
     p = {"layers": [{"w_q": w} for w in ws]}
-    before = (poisson_encode.poisson_encode.launches,
-              lif_step.lif_forward.launches)
+    before = _readout_launches()
     got = snn.snn_apply_int(p, px, st, cfg, backend="staged")
-    assert (poisson_encode.poisson_encode.launches,
-            lif_step.lif_forward.launches) == (before[0] + 1, before[1] + 3)
+    assert _readout_launches() == (before[0] + 1, before[1] + 3) + before[2:]
     want = snn.snn_apply_int(p, px, st, cfg, backend="reference")
-    for key in ("pred", "spike_counts", "v_trace", "first_spike_t",
-                "v_final", "active_adds", "prng_state", "v_peak",
-                "telemetry"):
+    for key in _STAGED_KEYS:
         _assert_equal(got[key], want[key], key)
+
+
+# (layer sizes, lanes, steps): the wide stack at 1,000 lanes, a ragged one
+# (13 lanes, 200 inputs, 96 hidden), and a head the kernel splits over K
+_STAGED_CARD = {"wide": ((784, 2048, 2048, 10), 1000, 20),
+                "ragged": ((200, 256, 96, 10), 13, 7),
+                "split-head": ((784, 16384, 10), 24, 20)}
+
+
+@pytest.mark.parametrize("prune", [False, True])
+@pytest.mark.parametrize("name", list(_STAGED_CARD))
+def test_staged_readouts_equal_reference_on_card(card, name, prune):
+    """Every field of a staged call, the telemetry and every layer's peak
+    included, equals the reference backend's: the readout launches' tallies
+    equal ``_derive_stack_telemetry`` on the reference's trains."""
+    sizes, b, t = _STAGED_CARD[name]
+    cfg = dataclasses.replace(cfgs.SNN_CONFIG_DEEP, layer_sizes=sizes,
+                              num_steps=t, active_pruning=prune,
+                              sparse_skip=True)
+    px, st, ws = _problem(cfg, b, card, seed=len(name) + t,
+                          fan_in_scale=170)
+    p = {"layers": [{"w_q": w} for w in ws]}
+    before = _readout_launches()
+    got = snn.snn_apply_int(p, px, st, cfg, backend="staged")
+    assert _readout_launches() == (before[0] + 1,
+                                   before[1] + len(sizes) - 1) + before[2:]
+    want = snn.snn_apply_int(p, px, st, cfg, backend="reference")
+    for key in _STAGED_KEYS:
+        _assert_equal(got[key], want[key], key)
+    _assert_equal(got["input_spikes"], want["input_spikes"].to(torch.uint8),
+                  "input_spikes")
+    assert int(got["telemetry"].n_spk[:, -1].sum()) > 0   # the head's input
+
+
+def test_staged_call_moves_no_train_outside_the_kernels(card):
+    """Under ``torch.profiler`` a staged call at 784 -> 2048 -> 2048 -> 10
+    runs K4 once and K5 three times, and no PyTorch kernel or copy has an
+    operand of T * B * 2048 or T * B * 784 elements."""
+    cfg = cfgs.SNN_CONFIG_WIDE
+    T, B = cfg.num_steps, 1000
+    px, st, ws = _problem(cfg, B, card, seed=12, fan_in_scale=170)
+    p = {"layers": [{"w_q": w} for w in ws]}
+    snn.snn_apply_int(p, px, st, cfg, backend="staged")      # builds
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA],
+                                record_shapes=True) as prof:
+        snn.snn_apply_int(p, px, st, cfg, backend="staged")
+        torch.cuda.synchronize()
+    events = prof.events()
+    names = [e.name for e in events if e.device_type.name == "CUDA"]
+    assert sum("poisson_encode_kernel" in n for n in names) == 1
+    assert sum("lif_forward_kernel" in n for n in names) == 3
+    launched = [e for e in events
+                if e.device_type.name == "CPU" and e.kernels]
+    assert launched                      # the profiler links ops to kernels
+    trains = {T * B * 2048, T * B * 784}
+    for e in launched:
+        for shape in e.input_shapes or []:
+            n = int(np.prod(shape)) if shape else 0
+            assert n not in trains, (e.name, shape,
+                                     [k.name for k in e.kernels])
 
 
 def test_auto_chain_on_card(card):
@@ -277,9 +423,9 @@ def test_auto_chain_on_card(card):
     cfg = dataclasses.replace(cfgs.SNN_CONFIG_DEEP, layer_sizes=(64,) * 10)
     px, st, ws = _problem(cfg, 9, card, seed=6, fan_in_scale=170)
     p = {"layers": [{"w_q": w} for w in ws]}
-    before = lif_step.lif_forward.launches
+    before = _readout_launches()
     got = snn.snn_apply_int(p, px, st, cfg)
-    assert lif_step.lif_forward.launches == before + 9
+    assert _readout_launches() == (before[0] + 1, before[1] + 9) + before[2:]
     want = snn.snn_apply_int(p, px, st, cfg, backend="reference")
     _assert_equal(got["spike_counts"], want["spike_counts"], "9 x 64")
     with pytest.raises(ValueError, match="cannot resume"):
